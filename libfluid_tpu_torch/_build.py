@@ -1,0 +1,86 @@
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+All kernels compile with one ``nvcc`` call into one shared library with a
+plain C interface (no PyTorch headers, so the build takes seconds), loaded
+with ``ctypes``. The build runs at first use and again whenever a source is
+newer than the library; a failed build raises. Every entry point takes raw
+device pointers plus the CUDA stream and returns ``cudaGetLastError()``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+LIB_PATH = BUILD_DIR / "libfluid_tpu_kernels.so"
+SOURCES = ("expand.cu", "p2g.cu", "stencil.cu", "g2p.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_F = ctypes.c_float
+# entry point -> argument types; the last argument is always the stream
+SIGNATURES = {
+    "lf_expand": [_P, _P, _P, _P, _LL, _I, _I, _P],
+    "lf_p2g": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P],
+    "lf_stencil": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
+    "lf_g2p": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _F, _F, _F, _F, _P],
+}
+
+_lib = None
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return os.path.join(cuda_home, "bin", "nvcc")
+
+
+def _stale() -> bool:
+    if not LIB_PATH.exists():
+        return True
+    built = LIB_PATH.stat().st_mtime
+    return any((CSRC / s).stat().st_mtime > built for s in SOURCES)
+
+
+def build() -> None:
+    """Compile every kernel into ``LIB_PATH``; raises if nvcc fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"{LIB_PATH.name}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"kernel build failed ({' '.join(cmd)}):\n{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, LIB_PATH)
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built first if missing or stale."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            if _stale():
+                build()
+            lib = ctypes.CDLL(str(LIB_PATH))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib

@@ -1,0 +1,105 @@
+"""Frozen configuration dataclasses (PyTorch port of ``libfluid_tpu.config``).
+
+Field names and defaults are those of the JAX package, so a configuration
+carries over field by field (:func:`libfluid_tpu_torch.convert.config_from_fields`).
+Only ``dtype`` changes type: it is a ``torch.dtype``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Tuple
+
+import torch
+
+
+class TransferScheme(enum.Enum):
+    """Particle<->grid transfer scheme."""
+
+    PIC = "pic"
+    FLIP = "flip_blend"
+    APIC = "apic"
+
+
+class CellType:
+    """Cell-content markers, stored as an int8 grid; out-of-bounds lookups
+    behave as SOLID."""
+
+    AIR = 0
+    FLUID = 1
+    SOLID = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverConfig:
+    """Pressure-solver tunables."""
+
+    tolerance: float = 1e-6  # max-norm residual threshold
+    max_iterations: int = 200
+    preconditioner: str = "mg"  # "mg" (geometric V-cycle) or "jacobi"
+    preconditioner_dtype: str = "float32"  # "bfloat16" is not ported yet
+
+
+@dataclasses.dataclass(frozen=True)
+class SimConfig:
+    """Simulation tunables; see ``libfluid_tpu.config.SimConfig`` for the
+    meaning of each field."""
+
+    grid_size: Tuple[int, int, int] = (50, 50, 50)
+    cell_size: float = 1.0
+    grid_offset: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    gravity: Tuple[float, float, float] = (0.0, -981.0, 0.0)
+
+    particle_capacity: int = 1 << 17
+
+    scheme: TransferScheme = TransferScheme.APIC
+    blending_factor: float = 1.0
+    cfl_number: float = 3.0
+    density: float = 1.0
+    boundary_skin_width: float = 0.1
+    correction_stiffness: float = 5.0
+    velocity_extrapolation_iterations: int = 3
+    seeding_density: int = 2
+
+    enable_position_correction: bool = True
+    enable_collisions: bool = True
+    max_neighbors_per_cell: int = 12
+    p2g_overflow_capacity: int = 4096
+    correction_capacity: int = 12
+    correction_overflow_capacity: int = 4096
+    exchange_capacity: int = 0
+    has_obstacles: bool = True
+
+    solver: SolverConfig = dataclasses.field(default_factory=SolverConfig)
+
+    dtype: torch.dtype = torch.float32
+
+    @property
+    def nx(self) -> int:
+        return self.grid_size[0]
+
+    @property
+    def ny(self) -> int:
+        return self.grid_size[1]
+
+    @property
+    def nz(self) -> int:
+        return self.grid_size[2]
+
+    @property
+    def num_cells(self) -> int:
+        return self.nx * self.ny * self.nz
+
+    @property
+    def domain_min(self) -> Tuple[float, float, float]:
+        return self.grid_offset
+
+    @property
+    def domain_max(self) -> Tuple[float, float, float]:
+        ox, oy, oz = self.grid_offset
+        return (
+            ox + self.nx * self.cell_size,
+            oy + self.ny * self.cell_size,
+            oz + self.nz * self.cell_size,
+        )
