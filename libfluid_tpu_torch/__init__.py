@@ -7,6 +7,8 @@ tensor code is PyTorch; the kernels of the hot path are CUDA C++ in
 package never imports ``jax``.
 """
 
-from libfluid_tpu_torch.config import CellType, SimConfig, SolverConfig, TransferScheme
+from libfluid_tpu_torch.config import (
+    CellType, MesherConfig, SimConfig, SolverConfig, TransferScheme,
+)
 
-__all__ = ["CellType", "SimConfig", "SolverConfig", "TransferScheme"]
+__all__ = ["CellType", "MesherConfig", "SimConfig", "SolverConfig", "TransferScheme"]

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-All kernels compile with one ``nvcc`` call into one shared library with a
-plain C interface (no PyTorch headers, so the build takes seconds), loaded
-with ``ctypes``. The build runs at first use and again whenever a source is
+Each kernel source compiles with its own ``nvcc`` call, all at once, and
+the objects link into one shared library with a plain C interface (no
+PyTorch headers, so the build takes seconds), loaded with ``ctypes``. The
+build runs at first use and again whenever a source is
 newer than the library; a failed build raises. Every entry point takes raw
 device pointers plus the CUDA stream and returns ``cudaGetLastError()``.
 """
@@ -20,10 +21,10 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 LIB_PATH = BUILD_DIR / "libfluid_tpu_kernels.so"
-SOURCES = ("expand.cu", "p2g.cu", "stencil.cu", "g2p.cu")
+SOURCES = ("expand.cu", "p2g.cu", "stencil.cu", "g2p.cu", "correction.cu", "surface.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -36,6 +37,8 @@ SIGNATURES = {
     "lf_p2g": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P],
     "lf_stencil": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     "lf_g2p": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _F, _F, _F, _F, _P],
+    "lf_correction": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P],
+    "lf_surface": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P],
 }
 
 _lib = None
@@ -57,16 +60,36 @@ def _stale() -> bool:
     return any((CSRC / s).stat().st_mtime > built for s in SOURCES)
 
 
+def _run(cmds) -> None:
+    """Run the commands in parallel; raise with the output of the first that
+    fails."""
+    procs = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for cmd in cmds
+    ]
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"kernel build failed ({' '.join(cmd)}):\n{out}\n{err}")
+    if failed:
+        raise RuntimeError(failed[0])
+
+
 def build() -> None:
-    """Compile every kernel into ``LIB_PATH``; raises if nvcc fails."""
+    """Compile every kernel (one nvcc per source, all at once) and link them
+    into ``LIB_PATH``; raises if nvcc fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{LIB_PATH.name}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"kernel build failed ({' '.join(cmd)}):\n{proc.stdout}\n{proc.stderr}"
-        )
+    tag = f"{os.getpid()}.tmp"
+    objs = [BUILD_DIR / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
+    _run([
+        [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+        for s, o in zip(SOURCES, objs)
+    ])
+    tmp = BUILD_DIR / f"{LIB_PATH.name}.{tag}"
+    _run([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *(str(o) for o in objs)]])
+    for o in objs:
+        o.unlink()
     os.replace(tmp, LIB_PATH)
 
 

@@ -103,3 +103,15 @@ class SimConfig:
             oy + self.ny * self.cell_size,
             oz + self.nz * self.cell_size,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class MesherConfig:
+    """Surface mesher tunables; see ``libfluid_tpu.config.MesherConfig``."""
+
+    grid_size: Tuple[int, int, int] = (64, 64, 64)
+    cell_size: float = 0.5
+    grid_offset: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    particle_extent: float = 2.0  # kernel support radius, world units
+    particle_radius: float = 0.5  # average-radius contribution per particle
+    max_triangles: int = 1 << 18  # output capacity of marching cubes

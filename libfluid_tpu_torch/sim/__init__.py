@@ -2,7 +2,7 @@
 PyTorch, with hand-written CUDA kernels on the hot path."""
 
 from libfluid_tpu_torch.sim.state import SimState, SourceSet, new_state, seed_box, seed_sphere, seed_func
-from libfluid_tpu_torch.sim.step import step, substep, cfl_dt, Diagnostics
+from libfluid_tpu_torch.sim.step import step, substep, cfl_dt, Diagnostics, Draws
 
 __all__ = [
     "SimState",
@@ -15,4 +15,5 @@ __all__ = [
     "substep",
     "cfl_dt",
     "Diagnostics",
+    "Draws",
 ]

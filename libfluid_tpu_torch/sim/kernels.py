@@ -1,11 +1,15 @@
-"""Dispatch to the hand-written CUDA kernels, and the P2G kernel's wrapper.
+"""Dispatch to the hand-written CUDA kernels, and the wrappers of the P2G
+and correction kernels.
 
-Four kernels carry the substep (sources in ``libfluid_tpu_torch/csrc``):
+Six kernels carry the substep and the mesher (sources in
+``libfluid_tpu_torch/csrc``):
 
-    "expand"   slotsort.expand      slot-grid expand     (csrc/expand.cu)
-    "p2g"      kernels.p2g_faces    P2G face sums        (csrc/p2g.cu)
-    "stencil"  multigrid.stencil    Poisson stencil      (csrc/stencil.cu)
-    "g2p"      transfers.g2p_pic    G2P                  (csrc/g2p.cu)
+    "expand"      slotsort.expand         slot-grid expand     (csrc/expand.cu)
+    "p2g"         kernels.p2g_faces       P2G face sums        (csrc/p2g.cu)
+    "stencil"     multigrid.stencil       Poisson stencil      (csrc/stencil.cu)
+    "g2p"         transfers.g2p_pic       G2P                  (csrc/g2p.cu)
+    "correction"  correction._springs     correction springs   (csrc/correction.cu)
+    "surface"     surface.sample_surface  mesher node pass     (csrc/surface.cu)
 
 Every wrapper dispatches on the device of its tensors: a CPU tensor takes
 the kernel's plain PyTorch version, a CUDA tensor launches the kernel (or
@@ -23,7 +27,7 @@ from libfluid_tpu_torch import _build
 from libfluid_tpu_torch.config import SimConfig, TransferScheme
 
 # Kernel launches since the last reset; a wrapper adds one where it launches.
-LAUNCHES = {"expand": 0, "p2g": 0, "stencil": 0, "g2p": 0}
+LAUNCHES = {"expand": 0, "p2g": 0, "stencil": 0, "g2p": 0, "correction": 0, "surface": 0}
 
 
 def reset_launches() -> None:
@@ -94,3 +98,37 @@ def p2g_faces(data: torch.Tensor, cfg: SimConfig) -> Tuple[tuple, tuple]:
         float(cfg.cell_size), ox, oy, oz, int(cfg.scheme == TransferScheme.APIC),
     )
     return tuple(num), tuple(den)
+
+
+# ---------------------------------------------------------------------------
+# Kernel E: position-correction springs
+# ---------------------------------------------------------------------------
+
+
+def correction_springs(
+    res_pos: torch.Tensor, res_mask: torch.Tensor, re2: float, seed: int, origin=(0, 0, 0)
+) -> torch.Tensor:
+    """Per-slot correction springs (3, KC, nx, ny, nz) of the resident slots
+    ``res_pos`` (3, KC, nx, ny, nz) and ``res_mask`` (KC, nx, ny, nz), CUDA
+    tensors; ``correction._springs`` dispatches CPU tensors to the plain
+    version.
+
+    Replaces ``libfluid_tpu/sim/kernels.py:correction_springs_pallas``.
+    CUDA: ``csrc/correction.cu``. The slot grid's position and mask columns
+    are contiguous when KC is the slot capacity; otherwise this takes one
+    contiguous copy of each.
+    """
+    if not use_kernel(res_pos, res_mask):
+        raise ValueError(f"correction_springs takes CUDA tensors, got {res_pos.device}")
+    kc, nx, ny, nz = res_mask.shape
+    res_pos = res_pos.contiguous()
+    res_mask = res_mask.contiguous()
+    check(res_pos, torch.float32, (3, kc, nx, ny, nz), "res_pos")
+    check(res_mask, torch.float32, (kc, nx, ny, nz), "res_mask")
+    out = torch.empty((3, kc, nx, ny, nz), dtype=torch.float32, device=res_pos.device)
+    ox, oy, oz = (int(o) for o in origin)
+    launch(
+        "correction", "lf_correction", res_pos, res_mask, out, kc, nx, ny, nz,
+        float(re2), int(seed), ox, oy, oz,
+    )
+    return out

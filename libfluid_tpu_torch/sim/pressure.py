@@ -62,7 +62,7 @@ def _cg(levels, b: torch.Tensor, a_scale, tol, max_iters, precond, x0=None) -> P
     if precond == "mg16":
         raise NotImplementedError(
             "the bfloat16 V-cycle ('mg16') is not ported yet (ROADMAP: "
-            "DDA collisions, seed_sources, PIC/FLIP and mg16)"
+            "FLIP and mg16)"
         )
 
     def apply_M(r):

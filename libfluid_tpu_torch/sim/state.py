@@ -48,14 +48,21 @@ class SimState(NamedTuple):
     grid: grids.MacGrid
     solid: torch.Tensor  # (nx, ny, nz) bool static solid geometry
     sources: SourceSet
-    generator: Optional[torch.Generator]  # for future on-device randomness
+    generator: torch.Generator  # CPU generator of the substeps' random draws
     time: torch.Tensor  # scalar accumulated sim time
     pressure: torch.Tensor  # (nx, ny, nz) last substep's pressure (CG warm start)
 
 
-def new_state(
-    cfg: SimConfig, device=None, generator: Optional[torch.Generator] = None
-) -> SimState:
+def make_generator(seed: int) -> torch.Generator:
+    """A CPU generator seeded from `seed`."""
+    return torch.Generator().manual_seed(int(seed))
+
+
+def new_state(cfg: SimConfig, device=None, generator: int = 0) -> SimState:
+    """An empty state on `device` whose CPU generator, seeded from
+    `generator`, draws the substeps' random numbers (source seeding, the
+    correction jitter seed). States derived from this one share the
+    generator, not a copy of it; each draw advances it."""
     n = cfg.particle_capacity
     dt = cfg.dtype
     return SimState(
@@ -66,7 +73,7 @@ def new_state(
         grid=grids.zeros(cfg, device),
         solid=torch.zeros(cfg.grid_size, dtype=torch.bool, device=device),
         sources=empty_sources(device),
-        generator=generator,
+        generator=make_generator(generator),
         time=torch.zeros((), dtype=dt, device=device),
         pressure=torch.zeros(cfg.grid_size, dtype=dt, device=device),
     )

@@ -2,23 +2,33 @@
 
 Stage order of one substep:
 
-    advect -> collide -> sort + slot grid -> P2G + mark cells -> gravity ->
-    pressure solve -> apply pressure -> collide -> extrapolate -> G2P
+    advect (+ source velocity coercion) -> collide -> sort + slot grid ->
+    seed sources (+ re-sort) -> P2G + mark cells -> gravity ->
+    pressure solve -> apply pressure -> position correction -> collide ->
+    extrapolate -> G2P
 
 ``step`` runs the CFL substep loop on the host: substep size
 cfl_number * h / max|v|, iterated until dt is consumed.
+
+A substep's random numbers (the sources' candidate positions, then the
+correction's jitter seed, in the order in which the JAX package splits its
+key) come from one :class:`Draws` object: by default the state's CPU
+generator. Tests pass an object with the same two methods that hands out
+the JAX package's values.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from libfluid_tpu_torch import grids
 from libfluid_tpu_torch.config import SimConfig, TransferScheme
 from libfluid_tpu_torch.sim import collisions as collisions_mod
+from libfluid_tpu_torch.sim import correction as correction_mod
 from libfluid_tpu_torch.sim import extrapolation as extrapolation_mod
+from libfluid_tpu_torch.sim import jitterhash
 from libfluid_tpu_torch.sim import pressure as pressure_mod
 from libfluid_tpu_torch.sim import slotsort
 from libfluid_tpu_torch.sim import sources as sources_mod
@@ -39,6 +49,26 @@ class Diagnostics(NamedTuple):
     particle_count: torch.Tensor
     substeps: torch.Tensor
     overflow_count: torch.Tensor  # particles past the slot capacity (merged exactly by P2G)
+    # slot-overflow particles beyond correction_overflow_capacity this
+    # substep: they received no correction spring (every other stage still
+    # handles them); nonzero means the cap is undersized for the scene
+    correction_uncorrected: torch.Tensor
+
+
+class Draws:
+    """The random numbers of a substep, drawn from a CPU generator (the
+    state's by default). A stand-in for tests needs the same two methods."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+
+    def source_jitter(self, s: int, cfg: SimConfig) -> torch.Tensor:
+        """(S, MAX_SEED_PER_CELL, 3) in-cell offsets of the source candidates."""
+        return sources_mod.source_jitter(self.generator, s, cfg)
+
+    def correction_seed(self) -> int:
+        """The jitter seed of the correction springs."""
+        return jitterhash.seed_from_key(self.generator)
 
 
 def cfl_dt(state: SimState, cfg: SimConfig) -> torch.Tensor:
@@ -72,21 +102,10 @@ def _add_gravity(grid: grids.MacGrid, cfg: SimConfig, dt) -> grids.MacGrid:
     return grid._replace(u=u, v=v, w=w)
 
 
-def _check_supported(state: SimState, cfg: SimConfig) -> None:
-    if cfg.enable_position_correction:
-        raise NotImplementedError(
-            "position correction is not ported yet (ROADMAP: position "
-            "correction); set enable_position_correction=False"
-        )
+def _check_supported(cfg: SimConfig) -> None:
     if cfg.scheme == TransferScheme.FLIP:
         raise NotImplementedError(
-            "the FLIP scheme is not ported yet (ROADMAP: DDA collisions, "
-            "seed_sources, PIC/FLIP and mg16)"
-        )
-    if state.sources.cells.shape[0] > 0:
-        raise NotImplementedError(
-            "per-step source seeding is not ported yet (ROADMAP: DDA "
-            "collisions, seed_sources, PIC/FLIP and mg16)"
+            "the FLIP scheme is not ported yet (ROADMAP: FLIP and mg16)"
         )
 
 
@@ -97,9 +116,13 @@ def _collide(state: SimState, old_position: torch.Tensor, cfg: SimConfig) -> Sim
     return state._replace(position=torch.where(state.active[:, None], pos, state.position))
 
 
-def substep(state: SimState, cfg: SimConfig, dt) -> Tuple[SimState, Diagnostics]:
-    """One full time step of size dt (CFL-bounding is the caller's job)."""
-    _check_supported(state, cfg)
+def substep(
+    state: SimState, cfg: SimConfig, dt, draws: Optional[Draws] = None
+) -> Tuple[SimState, Diagnostics]:
+    """One full time step of size dt (CFL-bounding is the caller's job).
+    `draws` supplies the random numbers (default: the state's generator)."""
+    _check_supported(cfg)
+    draws = Draws(state.generator) if draws is None else draws
     dev = state.position.device
     dt = torch.as_tensor(dt, dtype=cfg.dtype, device=dev)
 
@@ -107,8 +130,15 @@ def substep(state: SimState, cfg: SimConfig, dt) -> Tuple[SimState, Diagnostics]
     old_position = state.position
     state = _collide(_advect(state, cfg, dt), old_position, cfg)
 
-    # --- sort into rank-major slot order + slot grid ---
+    # --- sort into rank-major slot order + slot grid; seeding sources
+    # re-sorts ---
     sb = slotsort.sort_and_build(state, cfg)
+    n_src = state.sources.cells.shape[0]
+    if n_src > 0:
+        state = sources_mod.seed_from_jitter(
+            sb.state, sb.bins.occupancy, cfg, draws.source_jitter(n_src, cfg)
+        )
+        sb = slotsort.sort_and_build(state, cfg)
     state, bins, slot_grid = sb.state, sb.bins, sb.slot_grid
     old_position = state.position
 
@@ -126,7 +156,20 @@ def substep(state: SimState, cfg: SimConfig, dt) -> Tuple[SimState, Diagnostics]
     pres = pressure_mod.solve(grid, cfg, dt, x0=state.pressure)
     grid = pressure_mod.apply_pressure(grid, pres.pressure, cfg, dt)
 
-    # --- collisions (position correction is not ported: refused above) ---
+    # --- position correction + collisions ---
+    corr_uncorrected = torch.zeros((), dtype=torch.int32, device=dev)
+    if cfg.enable_position_correction:
+        seed = draws.correction_seed()
+        # rank >= kc rows start right after the kept rows of the lower rank
+        # segments (the slot order is rank-major)
+        kc = min(cfg.correction_capacity, slot_grid.capacity)
+        trunc_start = torch.sum(torch.clamp(bins.cell_count, max=kc), dtype=torch.int32)
+        n_trunc = torch.sum(state.active & (slot_grid.slot_of >= kc * cfg.num_cells), dtype=torch.int32)
+        corr_uncorrected = torch.clamp(n_trunc - cfg.correction_overflow_capacity, min=0)
+        pos = correction_mod.correct_positions(
+            state.position, state.active, slot_grid, cfg, dt, seed, trunc_start=trunc_start,
+        )
+        state = state._replace(position=pos)
     state = _collide(state, old_position, cfg)
 
     # --- velocity extrapolation + G2P ---
@@ -159,25 +202,29 @@ def substep(state: SimState, cfg: SimConfig, dt) -> Tuple[SimState, Diagnostics]
         particle_count=state.active.sum(dtype=torch.int32),
         substeps=torch.tensor(1, dtype=torch.int32, device=dev),
         overflow_count=slot_grid.overflow.sum(dtype=torch.int32),
+        correction_uncorrected=corr_uncorrected,
     )
     return state, diag
 
 
-def step(state: SimState, cfg: SimConfig, dt) -> Tuple[SimState, Diagnostics]:
+def step(
+    state: SimState, cfg: SimConfig, dt, draws: Optional[Draws] = None
+) -> Tuple[SimState, Diagnostics]:
     """Advance by dt with CFL substepping. Returns the diagnostics of the last
     substep with the substep count filled in; the loop reads the remaining
-    time on the host once per substep."""
+    time on the host once per substep. Every substep takes its random
+    numbers from `draws` (default: the state's generator)."""
     dev = state.position.device
     remaining = torch.as_tensor(dt, dtype=cfg.dtype, device=dev)
     diag = None
     nsub = 0
     while bool(remaining > 0.0):
         ts = torch.minimum(cfg.cfl_number * cfl_dt(state, cfg), remaining)
-        state, diag = substep(state, cfg, ts)
+        state, diag = substep(state, cfg, ts, draws)
         remaining = remaining - ts
         nsub += 1
     if diag is None:
         zero = torch.zeros((), dtype=cfg.dtype, device=dev)
         izero = torch.zeros((), dtype=torch.int32, device=dev)
-        diag = Diagnostics(zero, zero, zero, izero, zero, zero, zero, izero, izero, izero)
+        diag = Diagnostics(zero, zero, zero, izero, zero, zero, zero, izero, izero, izero, izero)
     return state, diag._replace(substeps=torch.tensor(nsub, dtype=torch.int32, device=dev))

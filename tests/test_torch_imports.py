@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone (no JAX import), refuses what it has not
-ported instead of skipping it, and dispatches its kernels by device."""
+"""The PyTorch port stands alone (no JAX import), runs the default
+simulation options, refuses what it has not ported instead of skipping it,
+and dispatches its kernels by device."""
 
 import dataclasses
 import os
@@ -10,8 +11,9 @@ import pytest
 import torch
 
 from libfluid_tpu_torch import sim
-from libfluid_tpu_torch.config import SimConfig, SolverConfig, TransferScheme
-from libfluid_tpu_torch.sim import kernels, multigrid, slotsort, transfers
+from libfluid_tpu_torch.config import MesherConfig, SimConfig, SolverConfig, TransferScheme
+from libfluid_tpu_torch.mesher import generate_mesh, sample_surface
+from libfluid_tpu_torch.sim import correction, kernels, multigrid, slotsort, sources, transfers
 
 torch.set_num_threads(1)
 
@@ -23,6 +25,9 @@ def test_port_imports_without_jax():
         "import sys\n"
         "import libfluid_tpu_torch, libfluid_tpu_torch.sim, libfluid_tpu_torch.convert\n"
         "from libfluid_tpu_torch.sim import slotsort, transfers, multigrid, pressure, step\n"
+        "from libfluid_tpu_torch.sim import correction, collisions, sources, jitterhash\n"
+        "import libfluid_tpu_torch.mesher, libfluid_tpu_torch.io, libfluid_tpu_torch.testbed\n"
+        "import libfluid_tpu_torch.testbed.__main__\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
     )
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
@@ -47,12 +52,10 @@ def _state(cfg):
 @pytest.mark.parametrize(
     "change",
     [
-        dict(enable_position_correction=True),
         dict(scheme=TransferScheme.FLIP),
-        dict(has_obstacles=True),
         dict(solver=SolverConfig(preconditioner_dtype="bfloat16")),
     ],
-    ids=["correction", "flip", "obstacles", "mg16"],
+    ids=["flip", "mg16"],
 )
 def test_unported_options_raise(change):
     cfg = _cfg()
@@ -60,6 +63,20 @@ def test_unported_options_raise(change):
     sim.substep(state, cfg, 0.01)  # the ported configuration runs
     with pytest.raises(NotImplementedError):
         sim.substep(state, dataclasses.replace(cfg, **change), 0.01)
+
+
+def test_default_options_run():
+    """The default SimConfig options (position correction, obstacles) with
+    a source run substep and step, and the state meshes."""
+    cfg = SimConfig(grid_size=(8, 8, 8), particle_capacity=512)
+    assert cfg.enable_position_correction and cfg.has_obstacles
+    state = _state(cfg)._replace(sources=sources.make_source_set([[6, 6, 6]], (0.0, -5.0, 0.0)))
+    n0 = int(state.active.sum())
+    state, diag = sim.substep(state, cfg, 0.01)
+    state, diag = sim.step(state, cfg, 0.02)
+    assert int(diag.particle_count) > n0 and int(diag.correction_uncorrected) == 0
+    mesh = generate_mesh(state.position, state.active, MesherConfig(grid_size=(16, 16, 16)))
+    assert int(mesh.count) > 0
 
 
 def test_wrappers_dispatch_by_device():
@@ -87,3 +104,11 @@ def test_wrappers_dispatch_by_device():
                           state.position.to("meta"), cfg)
     with pytest.raises(ValueError):  # mixed devices
         transfers.g2p_pic(g, state.position.to("meta"), cfg)
+    pos = torch.empty((3, 4, 8, 8, 8), device="meta")
+    with pytest.raises(RuntimeError):
+        correction._springs(pos, pos[0], 1, (0, 0, 0), 0.5, cfg)
+    with pytest.raises(ValueError):
+        kernels.correction_springs(torch.zeros(pos.shape), torch.zeros(pos.shape[1:]), 0.5, 1)
+    with pytest.raises(RuntimeError):
+        sample_surface(torch.empty((4, 3), device="meta"),
+                       torch.empty(4, dtype=torch.bool, device="meta"), MesherConfig())
