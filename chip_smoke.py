@@ -13,18 +13,33 @@ Phases, one line of output each (or a few):
 3. each kernel (A-F) against its plain PyTorch version on the card, at the
    shapes the 128^3 main path gives it (the state after one substep with
    position correction on, meshed on the 261^3-node grid), with error and
-   median time of both;
+   median time of both; then the backward kernels B' (at 64^3: the plain
+   autograd of P2G does not fit the card at 128^3) and D' (at 128^3)
+   against the autograd of their plain versions, and kernel C's bfloat16
+   instance against the plain bfloat16 stencil on every level and mode;
 4. a seeded 32^3 dam-break with position correction off, and a 32^3 scene
    with the default options (position correction, a solid block, a
    source), each run for 2 substeps on the card (kernels) and on the CPU
    (plain versions) and compared; the second is then meshed, compared;
-5. the main path: the 128^3 APIC dam-break with position correction on
+5. gradient parity, card against CPU, at 32^3: the gradient of a loss on
+   the end state of 2 substeps with respect to the initial velocities, for
+   both scenes of phase 4, and the gradient of a loss on the mesh vertices
+   of the scene's end state (66^3 mesher grid) with respect to the
+   positions; then 3 steps of gradient descent at 32^3, whose loss must
+   fall;
+6. the main path: the 128^3 APIC dam-break with position correction on
    (~2.0M particles), one warm-up substep, 5 timed substeps, one CFL
    ``step(1/60)``, then ``generate_mesh`` on the 260^3-cell mesher grid,
    with the healthy-output checks and the launch counts;
-6. the same dam-break with position correction off, 2 substeps;
-7. the testbed CLI, setup 4 (jet source + obstacle), 2 frames with an OBJ
-   export every frame.
+7. the same dam-break with position correction off, 2 substeps;
+8. the gradient path: the 128^3 correction-off dam-break, 3 steps of
+   gradient descent on the initial velocities through 2 unrolled substeps
+   (forward and backward ms, loss, gradient norm, CG iterations of the
+   forward and adjoint solves, peak memory);
+9. the 128^3 dam-break with FLIP and the bfloat16 V-cycle ("mg16"), 2
+   substeps;
+10. the testbed CLI, setup 4 (jet source + obstacle), 2 frames with an OBJ
+    export every frame.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after; each fails if a kernel of its path was not launched. Any
@@ -34,6 +49,7 @@ main path); the last line is ``{"ok": true, "device": {...}}``. Needs a
 CUDA device; never falls back to the CPU for the main path.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -44,11 +60,11 @@ import numpy as np
 import torch
 
 from libfluid_tpu_torch import _build
-from libfluid_tpu_torch.config import MesherConfig, SimConfig, TransferScheme
+from libfluid_tpu_torch.config import MesherConfig, SimConfig, SolverConfig, TransferScheme
 from libfluid_tpu_torch import sim
 from libfluid_tpu_torch.io.obj import load_obj
 from libfluid_tpu_torch.mesher import generate_mesh, surface
-from libfluid_tpu_torch.sim import correction, kernels, multigrid, slotsort, sources, transfers
+from libfluid_tpu_torch.sim import correction, kernels, multigrid, pressure, slotsort, sources, transfers
 from libfluid_tpu_torch.sim.state import particle_count, set_solid
 from libfluid_tpu_torch.testbed import __main__ as testbed_cli
 
@@ -60,7 +76,18 @@ KERNELS = {
     "g2p": ("libfluid_tpu_torch/csrc/g2p.cu", "libfluid_tpu/sim/transfers.py:177,508"),
     "correction": ("libfluid_tpu_torch/csrc/correction.cu", "libfluid_tpu/sim/kernels.py:284"),
     "surface": ("libfluid_tpu_torch/csrc/surface.cu", "libfluid_tpu/mesher/surface.py:164"),
+    # the backward kernels and kernel C's bfloat16 instance
+    "p2g_bwd": ("libfluid_tpu_torch/csrc/p2g_bwd.cu", "libfluid_tpu/sim/kernels.py:58"),
+    "g2p_bwd": ("libfluid_tpu_torch/csrc/g2p_bwd.cu", "libfluid_tpu/sim/transfers.py:177,508"),
+    "stencil16": ("libfluid_tpu_torch/csrc/stencil.cu", "libfluid_tpu/sim/multigrid.py:127"),
 }
+FORWARD_KERNELS = ("expand", "p2g", "stencil", "g2p", "correction", "surface")
+GRAD_KERNELS = ("expand", "p2g", "p2g_bwd", "stencil", "g2p", "g2p_bwd")
+# the gradient descent: the velocity offset of its target run, and its
+# learning rate (tuned at 32^3 on the CPU; the per-particle gradient does
+# not depend on the grid size)
+GRAD_OFFSET = (40.0, 0.0, -25.0)
+GRAD_LR = 200.0
 DT = 0.02  # the dam-break substep of the JAX package's benchmark
 REPS = 10
 PLAIN_REPS_SLOW = 3  # repetitions of the plain correction and surface passes
@@ -70,6 +97,9 @@ MESH_128 = MesherConfig(
     grid_size=(260, 260, 260), cell_size=0.5, grid_offset=(-1.0, -1.0, -1.0),
     particle_extent=2.0, particle_radius=0.5, max_triangles=1 << 21,
 )
+# the same mesher for the 32^3 scenes
+MESH_66 = MesherConfig(grid_size=(66, 66, 66), cell_size=0.5, grid_offset=(-1.0, -1.0, -1.0),
+                       particle_extent=2.0, particle_radius=0.5, max_triangles=1 << 18)
 
 
 def log(msg: str) -> None:
@@ -235,6 +265,113 @@ def kernel_phases(cfg, state) -> dict:
     return out
 
 
+def backward_kernel_phases(cfg, state) -> dict:
+    """Kernels B' and D' against the autograd of their plain versions, and
+    kernel C's bfloat16 instance against the plain bfloat16 stencil, on the
+    card. `state` is the 128^3 main-path state after one substep."""
+    out = {}
+    device = state.position.device
+    gen = torch.Generator(device=device).manual_seed(1)
+
+    # B': the plain autograd of P2G saves ~40 GB at 128^3, so the comparison
+    # runs on the 64^3 dam-break after one substep; the kernel alone is also
+    # timed on the 128^3 payload
+    cfg64, st64 = dam_break(64, device, 1 << 18)
+    st64, _ = sim.substep(st64, cfg64, DT)
+    data = slotsort.sort_and_build(st64, cfg64).slot_grid.data.contiguous()
+    faces = [torch.randn(sh, generator=gen, device=device) for sh in kernels.face_shapes(cfg64) * 2]
+
+    def plain_bwd():
+        leaf = data.detach().requires_grad_()
+        num, den = transfers._p2g_slots_torch(leaf, cfg64)
+        return torch.autograd.grad((*num, *den), leaf, faces)[0]
+
+    got = kernels.p2g_faces_bwd(data, faces[:3], faces[3:], cfg64)
+    want = plain_bwd()
+    occ = data[3] != 0
+    # an empty slot's mask row has a plain cotangent that expand's backward
+    # drops with the slot; B' writes 0 there
+    err = max_err(got * occ, want * occ)
+    rel = err / float(torch.max(torch.abs(want * occ)))
+    check(rel < 1e-5, f"p2g_bwd relative error {rel} >= 1e-5")
+    check(bool((got[:, ~occ] == 0).all()), "p2g_bwd: an empty slot got a cotangent")
+    out["p2g_bwd"] = dict(
+        max_abs_err=err,
+        ms=median_ms(lambda: kernels.p2g_faces_bwd(data, faces[:3], faces[3:], cfg64)),
+        plain_ms=median_ms(plain_bwd, PLAIN_REPS_SLOW),
+    )
+    del got, want, occ, data, faces, st64
+    torch.cuda.empty_cache()
+    sb = slotsort.sort_and_build(state, cfg)
+    data = sb.slot_grid.data.contiguous()
+    faces = [torch.randn(sh, generator=gen, device=device) for sh in kernels.face_shapes(cfg) * 2]
+    ms_128 = median_ms(lambda: kernels.p2g_faces_bwd(data, faces[:3], faces[3:], cfg))
+    out["p2g_bwd"]["ms_128"] = ms_128
+    log(f"kernel p2g_bwd (B'): at 64^3 (the plain autograd does not fit at 128^3), relative error "
+        f"{rel:.3e} (< 1e-5) on the occupied slots, empty slots 0, plain = recompute + autograd "
+        f"over {PLAIN_REPS_SLOW} reps, {out['p2g_bwd']}; B' on the 128^3 payload {ms_128:.3f} ms")
+    del sb, data, faces
+    torch.cuda.empty_cache()
+
+    # D' at 128^3
+    grid, pos = state.grid, state.position.contiguous()
+    n = pos.shape[0]
+    gv = torch.randn((n, 3), generator=gen, device=device)
+    ga = torch.randn((n, 3, 3), generator=gen, device=device)
+
+    def plain_g2p_bwd():
+        leaves = [t.detach().requires_grad_() for t in (grid.u, grid.v, grid.w, pos)]
+        return torch.autograd.grad(transfers._g2p_plain(*leaves, cfg), leaves, (gv, ga))
+
+    got = transfers.g2p_bwd(grid.u, grid.v, grid.w, pos, gv, ga, cfg)
+    want = plain_g2p_bwd()
+    # face cotangents: float32 sums of up to a few hundred particles' terms
+    # in two orders (atomics here, the plain scatter there), held to 1e-4 of
+    # the largest; the position cotangent is a gather, held to 1e-5
+    rels = [max_err(a, b) / float(torch.max(torch.abs(b))) for a, b in zip(got, want)]
+    check(max(rels[:3]) < 1e-4 and rels[3] < 1e-5,
+          f"g2p_bwd relative errors (u, v, w, position) {rels}: faces >= 1e-4 or position >= 1e-5")
+    out["g2p_bwd"] = dict(
+        max_abs_err=max(max_err(a, b) for a, b in zip(got, want)),
+        ms=median_ms(lambda: transfers.g2p_bwd(grid.u, grid.v, grid.w, pos, gv, ga, cfg)),
+        plain_ms=median_ms(plain_g2p_bwd, PLAIN_REPS_SLOW),
+    )
+    log(f"kernel g2p_bwd (D'): {n} particles, relative errors (u, v, w, position) "
+        f"{[f'{r:.2e}' for r in rels]} (faces < 1e-4, position < 1e-5), plain = recompute + "
+        f"autograd, "
+        f"{out['g2p_bwd']}")
+    del got, want, gv, ga
+    torch.cuda.empty_cache()
+
+    # stencil16 on every level and mode: the same rounding as the plain
+    # bfloat16 version, so equal to within one bfloat16 rounding (2^-8)
+    levels = multigrid.build_levels(state.grid.cell_type)
+    worst = 0.0
+    for lvl in levels:
+        l16 = multigrid.MGLevel(*[f.to(torch.bfloat16) for f in lvl[:-1]], lvl.scale)
+        x = (torch.randn(lvl.fluid.shape, generator=gen, device=device) * lvl.fluid).to(torch.bfloat16)
+        b = (torch.randn(lvl.fluid.shape, generator=gen, device=device) * lvl.fluid).to(torch.bfloat16)
+        for mode in (multigrid.MODE_APPLY, multigrid.MODE_JACOBI, multigrid.MODE_RESIDUAL):
+            got = multigrid.stencil(l16, x, b, mode, multigrid._SMOOTH_DAMP).float()
+            damp = float(torch.tensor(multigrid._SMOOTH_DAMP, dtype=torch.bfloat16))
+            want = multigrid._stencil_torch(l16, x, b, mode, damp).float()
+            check(close(got, want, 2.0**-8, 0.0),
+                  f"stencil16 level {tuple(lvl.fluid.shape)} mode {mode} error {max_err(got, want)}")
+            worst = max(worst, max_err(got, want))
+    l16 = multigrid.MGLevel(*[f.to(torch.bfloat16) for f in levels[0][:-1]], 1.0)
+    x = (torch.randn(l16.fluid.shape, generator=gen, device=device) * levels[0].fluid).to(torch.bfloat16)
+    b = (torch.randn(l16.fluid.shape, generator=gen, device=device) * levels[0].fluid).to(torch.bfloat16)
+    damp = float(torch.tensor(0.8, dtype=torch.bfloat16))
+    out["stencil16"] = dict(
+        max_abs_err=worst,
+        ms=median_ms(lambda: multigrid.stencil(l16, x, b, multigrid.MODE_JACOBI, 0.8)),
+        plain_ms=median_ms(lambda: multigrid._stencil_torch(l16, x, b, multigrid.MODE_JACOBI, damp)),
+    )
+    log(f"kernel stencil16: {len(levels)} levels x 3 modes in bfloat16, max abs error {worst:.3e} "
+        f"(within 2^-8 relative), time at {tuple(l16.fluid.shape)} Jacobi mode, {out['stencil16']}")
+    return out
+
+
 def parity_scene(device):
     """32^3 with the default options (position correction, obstacles): the
     dam-break box thrown at a solid block, and a coercing source row."""
@@ -291,15 +428,13 @@ def scene_parity(device) -> None:
     a particle by 0.07 x its spring (dt * stiffness * h / sqrt(2)), so two
     substeps may part by up to ~1e-3 cells; all but 0.1 % of particles stay
     within the correction-off check's 1e-4."""
-    mcfg = MesherConfig(grid_size=(66, 66, 66), cell_size=0.5, grid_offset=(-1.0, -1.0, -1.0),
-                        particle_extent=2.0, particle_radius=0.5, max_triangles=1 << 18)
     runs = {}
     for dev in (device, torch.device("cpu")):
         cfg, state = parity_scene(dev)
         for _ in range(2):
             state, diag = sim.substep(state, cfg, DT)
-        sdf = surface.sample_surface(state.position, state.active, mcfg)
-        mesh = generate_mesh(state.position, state.active, mcfg)
+        sdf = surface.sample_surface(state.position, state.active, MESH_66)
+        mesh = generate_mesh(state.position, state.active, MESH_66)
         runs[dev.type] = (state, diag, sdf, int(mesh.count))
     (gs, gd, gsdf, gcount), (cs, cd, csdf, ccount) = runs[device.type], runs["cpu"]
     check(torch.equal(gs.active.cpu(), cs.active), "32^3: active masks differ")
@@ -330,6 +465,181 @@ def scene_parity(device) -> None:
     check(sdf_err < 2e-3, f"32^3: SDF differs by {sdf_err} >= 2e-3")
     check(ccount > 0 and abs(gcount - ccount) <= 0.005 * ccount,
           f"32^3: triangle counts {gcount}/{ccount} differ by more than 0.5 %")
+
+
+def rollout(state, cfg, velocity, substeps: int = 2):
+    """`substeps` substeps from `state` with its velocities replaced."""
+    st = state._replace(velocity=velocity)
+    diags = []
+    for _ in range(substeps):
+        st, diag = sim.substep(st, cfg, DT)
+        diags.append(diag)
+    return st, diags
+
+
+def end_state_loss(st):
+    """A smooth loss on the end state: positions and velocities weighed, so
+    the gradient reaches both pressure solves."""
+    act = st.active.to(st.position.dtype)
+    w = torch.tensor([1.0, 2.0, -0.5], device=st.position.device)
+    return torch.sum((torch.sum(st.position * w, -1) + 1e-3 * torch.sum(st.velocity**2, -1)) * act)
+
+
+def mesh_loss(mesh):
+    """A smooth function of the vertices of the valid triangles (independent
+    of their order, so two meshes of one SDF give the same loss)."""
+    v = mesh.vertices
+    f = torch.sin(0.7 * v[..., 0] + 0.3 * v[..., 1] - 0.5 * v[..., 2])
+    return torch.sum(f * mesh.valid.to(v.dtype)[:, None])
+
+
+def compare_grads(what: str, g_dev: torch.Tensor, g_cpu: torch.Tensor, cos_min: float,
+                  q_max: float) -> None:
+    """Card against CPU: cosine similarity > `cos_min` and the 99.9th
+    percentile of |difference| / max|g| below `q_max`. The maximum is
+    printed, not held: a particle on a discontinuity (a skin push-out's
+    switch, a marching-cubes case) may take the other branch on a one-ulp
+    forward difference."""
+    g_dev = g_dev.detach().cpu().flatten().double()
+    g_cpu = g_cpu.detach().flatten().double()
+    scale = float(torch.max(torch.abs(g_cpu)))
+    diff = torch.abs(g_dev - g_cpu) / scale
+    cos = float(torch.nn.functional.cosine_similarity(g_dev, g_cpu, dim=0))
+    q = float(torch.quantile(diff, 0.999))
+    log(f"gradient parity {what}: max|g| {scale:.4e}, cosine {cos:.8f} (> {cos_min}), relative "
+        f"error max {float(diff.max()):.3e} / 99.9th percentile {q:.3e} (< {q_max})")
+    check(scale > 0 and bool(torch.isfinite(g_dev).all()), f"{what}: gradient zero or non-finite")
+    check(cos > cos_min, f"{what}: cosine similarity {cos} <= {cos_min}")
+    check(q < q_max, f"{what}: 99.9th percentile of the relative error {q} >= {q_max}")
+
+
+def grad_parity(device) -> None:
+    """Gradients at 32^3, card (kernels, backward kernels) against CPU
+    (plain versions and their autograd): the correction-off dam-break and
+    the correction + obstacle + source scene through 2 substeps, then the
+    scene's mesh on the 66^3 mesher grid.
+
+    Bounds: correction off, the forward parity's size (the two agree to
+    ~1e-6). The correction springs' Jacobian grows as 1/d^2 for close
+    pairs, and marching cubes' as 1/(v_a - v_b)^2 on edges with close
+    corner values, so there the forward differences of kernels E (2e-4
+    cells) and F (6e-5 in the SDF) show up in the gradient: adding noise of
+    that size to E's or F's output on the CPU moves the CPU gradient to
+    cosine 0.995-0.996 and a 99.9th percentile of 4e-3 (springs) and 4e-2
+    (mesh) of max|g|, so those two comparisons are held at 0.99 and 1e-2 /
+    5e-2."""
+    for what, make, cos_min, q_max in (
+            ("32^3 dam-break, correction off",
+             lambda dev: dam_break(32, dev, 1 << 15, correct=False), 0.99999, 1e-5),
+            ("32^3 scene (correction, obstacle, source)", parity_scene, 0.99, 1e-2)):
+        grads, ends = {}, {}
+        for dev in (device, torch.device("cpu")):
+            cfg, state = make(dev)
+            vel = state.velocity.clone().requires_grad_()
+            st, _ = rollout(state, cfg, vel)
+            (grads[dev.type],) = torch.autograd.grad(end_state_loss(st), vel)
+            ends[dev.type] = st
+        compare_grads(f"{what}, d loss / d initial velocity", grads[device.type], grads["cpu"],
+                      cos_min, q_max)
+
+    # the mesher: both devices mesh the card's end positions of the scene
+    pos = ends[device.type].position.detach()
+    act = ends[device.type].active
+    mgrads, counts = {}, {}
+    for dev in (device, torch.device("cpu")):
+        p = pos.to(dev).clone().requires_grad_()
+        mesh = generate_mesh(p, act.to(dev), MESH_66)
+        counts[dev.type] = int(mesh.count)
+        (mgrads[dev.type],) = torch.autograd.grad(mesh_loss(mesh), p)
+    log(f"mesh gradient 66^3: triangles gpu/cpu {counts[device.type]}/{counts['cpu']}")
+    check(counts["cpu"] > 0 and abs(counts[device.type] - counts["cpu"]) <= 0.005 * counts["cpu"],
+          "mesh gradient: triangle counts differ by more than 0.5 %")
+    compare_grads("32^3 scene mesh (66^3), d loss / d position", mgrads[device.type],
+                  mgrads["cpu"], 0.99, 5e-2)
+
+
+def descent(cfg, state, steps: int, lr: float, what: str, n0: int):
+    """`steps` steps of vel <- vel - lr * grad on the initial velocities.
+    The loss is the summed squared distance of the active particles' end
+    positions after 2 substeps from those of a run whose initial velocities
+    are offset by GRAD_OFFSET. Substeps re-sort the particles, so the two
+    sets are matched per axis in sorted order (the 1-D optimal matching).
+    Returns the losses."""
+    device = state.position.device
+    cuda = device.type == "cuda"
+    with torch.no_grad():
+        off = torch.tensor(GRAD_OFFSET, device=device) * state.active[:, None]
+        tgt, _ = rollout(state, cfg, state.velocity + off)
+        target = torch.sort(tgt.position[tgt.active], dim=0).values
+        del tgt
+    vel = state.velocity.clone()
+    losses = []
+    for i in range(steps):
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        pressure.ADJOINT_SOLVES.clear()
+        v = vel.clone().requires_grad_()
+        t0 = time.perf_counter()
+        st, diags = rollout(state, cfg, v)
+        loss = torch.sum((torch.sort(st.position[st.active], dim=0).values - target) ** 2)
+        fwd_iters = [int(d.pressure_iterations) for d in diags]
+        if cuda:
+            torch.cuda.synchronize()
+        fwd = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (g,) = torch.autograd.grad(loss, v)
+        if cuda:
+            torch.cuda.synchronize()
+        bwd = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        for j, d in enumerate(diags):
+            healthy(st, d, cfg, n0, f"{what} step {i} substep {j}")
+        gnorm = float(torch.linalg.vector_norm(g))
+        check(bool(torch.isfinite(g).all()) and gnorm > 0, f"{what} step {i}: gradient zero or non-finite")
+        adj = [it for it, _ in pressure.ADJOINT_SOLVES]
+        log(f"{what} step {i}: forward {fwd * 1e3:.1f} ms, backward {bwd * 1e3:.1f} ms, loss "
+            f"{float(loss.detach()):.6e}, |grad| {gnorm:.6e}, CG iterations forward {fwd_iters} adjoint {adj}, "
+            f"peak memory {peak / 2**30:.2f} GiB ({peak} B)")
+        # the end positions see the pressure of every substep but the last
+        check(len(adj) == len(diags) - 1 and all(a > 0 for a in adj),
+              f"{what} step {i}: adjoint solves {adj}")
+        losses.append(float(loss.detach()))
+        with torch.no_grad():
+            vel = vel - lr * g
+        del st, diags, loss, g, v
+    return losses
+
+
+def descent_32(device) -> None:
+    """3 steps at 32^3 (the learning rate tuned there): the loss falls."""
+    cfg, state = dam_break(32, device, 1 << 15, correct=False)
+    losses = descent(cfg, state, 3, GRAD_LR, "32^3 descent", int(particle_count(state)))
+    check(losses[1] < losses[0] and losses[2] < losses[1], f"32^3 descent: loss did not fall {losses}")
+
+
+def grad_run(device) -> None:
+    """The gradient path: 3 descent steps on the 128^3 correction-off
+    dam-break."""
+    cfg, state = dam_break(128, device, 1 << 21, correct=False)
+    descent(cfg, state, 3, GRAD_LR, "128^3 descent", int(particle_count(state)))
+
+
+def flip_run(device) -> None:
+    """2 substeps of the 128^3 dam-break with FLIP and the mg16 V-cycle."""
+    cfg, state = dam_break(128, device, 1 << 21, correct=False)
+    cfg = dataclasses.replace(cfg, scheme=TransferScheme.FLIP,
+                              solver=SolverConfig(preconditioner_dtype="bfloat16"))
+    n0 = int(particle_count(state))
+    for i in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, diag = sim.substep(state, cfg, DT)
+        torch.cuda.synchronize()
+        healthy(state, diag, cfg, n0, f"FLIP mg16 substep {i}")
+        log(f"128^3 FLIP + mg16 substep {i}: {(time.perf_counter() - t0) * 1e3:.1f} ms, CG "
+            f"{int(diag.pressure_iterations)} it res {float(diag.pressure_residual):.2e}, vmax "
+            f"{float(diag.max_velocity):.2f}, n {int(diag.particle_count)}")
 
 
 def healthy(state, diag, cfg, n0: int, what: str) -> None:
@@ -446,19 +756,33 @@ def main() -> None:
     cfg, state = dam_break(128, device, 1 << 21)
     state, _ = sim.substep(state, cfg, DT)
     stats = kernel_phases(cfg, state)
+    stats.update(backward_kernel_phases(cfg, state))
     del state
     torch.cuda.empty_cache()
 
     slice_parity(device)
     scene_parity(device)
+    grad_parity(device)
+    descent_32(device)
+    torch.cuda.empty_cache()
     _, launches = drive("main path (128^3, correction on, mesh)",
-                        lambda: dam_break_run(device, True, 5, True), KERNELS)
+                        lambda: dam_break_run(device, True, 5, True), FORWARD_KERNELS)
     torch.cuda.empty_cache()
     drive("128^3 correction-off path", lambda: dam_break_run(device, False, 2, False),
           ("expand", "p2g", "stencil", "g2p"))
     torch.cuda.empty_cache()
-    drive("testbed path (setup 4)", testbed_run, KERNELS)
+    _, grad_launches = drive("128^3 gradient path", lambda: grad_run(device), GRAD_KERNELS)
+    torch.cuda.empty_cache()
+    _, flip_launches = drive("128^3 FLIP + mg16 path", lambda: flip_run(device),
+                             ("expand", "p2g", "stencil", "stencil16"))
+    torch.cuda.empty_cache()
+    drive("testbed path (setup 4)", testbed_run, FORWARD_KERNELS)
 
+    # launches: each kernel's count on the path it belongs to (the main path
+    # for A-F, the gradient path for B' and D', the FLIP + mg16 path for the
+    # bfloat16 stencil)
+    launches.update(p2g_bwd=grad_launches["p2g_bwd"], g2p_bwd=grad_launches["g2p_bwd"],
+                    stencil16=flip_launches["stencil16"])
     record = {"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0], replaces=KERNELS[name][1],
              launches=launches[name], **stats[name])

@@ -21,7 +21,10 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 LIB_PATH = BUILD_DIR / "libfluid_tpu_kernels.so"
-SOURCES = ("expand.cu", "p2g.cu", "stencil.cu", "g2p.cu", "correction.cu", "surface.cu")
+SOURCES = (
+    "expand.cu", "p2g.cu", "p2g_bwd.cu", "stencil.cu", "g2p.cu", "g2p_bwd.cu",
+    "correction.cu", "surface.cu",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -35,8 +38,11 @@ _F = ctypes.c_float
 SIGNATURES = {
     "lf_expand": [_P, _P, _P, _P, _LL, _I, _I, _P],
     "lf_p2g": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P],
+    "lf_p2g_bwd": [_P] * 8 + [_I, _I, _I, _I, _F, _F, _F, _F, _I, _P],
     "lf_stencil": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
+    "lf_stencil16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     "lf_g2p": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _F, _F, _F, _F, _P],
+    "lf_g2p_bwd": [_P] * 10 + [_LL, _I, _I, _I, _F, _F, _F, _F, _P],
     "lf_correction": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P],
     "lf_surface": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P],
 }

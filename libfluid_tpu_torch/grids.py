@@ -1,4 +1,5 @@
-"""MAC (marker-and-cell) staggered grid as a tuple of dense tensors.
+"""MAC (marker-and-cell) staggered grid as a tuple of dense tensors (port of
+``libfluid_tpu.grids``).
 
 The layout is that of ``libfluid_tpu.grids``:
 
@@ -53,6 +54,46 @@ def face_index_coords(pos: torch.Tensor, cfg: SimConfig, axis: int) -> torch.Ten
     shift = torch.full((3,), 0.5, dtype=pos.dtype, device=pos.device)
     shift[axis] = 0.0
     return g - shift
+
+
+def _gather_trilerp_zero_pad(arr: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Trilinear sample of `arr` at float index coordinates (..., 3); samples
+    whose integer index falls outside the array read as 0."""
+    base_f = torch.floor(coords)
+    frac = coords - base_f
+    base = base_f.to(torch.int64)
+    out = 0.0
+    for dx in (0, 1):
+        for dy in (0, 1):
+            for dz in (0, 1):
+                ix, iy, iz = base[..., 0] + dx, base[..., 1] + dy, base[..., 2] + dz
+                inb = (
+                    (ix >= 0) & (ix < arr.shape[0]) & (iy >= 0) & (iy < arr.shape[1])
+                    & (iz >= 0) & (iz < arr.shape[2])
+                )
+                sample = arr[
+                    torch.clamp(ix, 0, arr.shape[0] - 1),
+                    torch.clamp(iy, 0, arr.shape[1] - 1),
+                    torch.clamp(iz, 0, arr.shape[2] - 1),
+                ]
+                wgt = (
+                    (frac[..., 0] if dx else 1.0 - frac[..., 0])
+                    * (frac[..., 1] if dy else 1.0 - frac[..., 1])
+                    * (frac[..., 2] if dz else 1.0 - frac[..., 2])
+                )
+                out = out + torch.where(inb, wgt, torch.zeros_like(wgt)) * sample
+    return out
+
+
+def velocity_at(grid: MacGrid, pos: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
+    """Trilinearly interpolated velocity at world positions (..., 3), zero
+    outside the face arrays (port of ``grids.velocity_at``: three staggered
+    gathers; the JAX package has no kernel here)."""
+    out = [
+        _gather_trilerp_zero_pad(arr, face_index_coords(pos, cfg, axis))
+        for axis, arr in enumerate((grid.u, grid.v, grid.w))
+    ]
+    return torch.stack(out, dim=-1)
 
 
 def divergence(grid: MacGrid, cfg: SimConfig) -> torch.Tensor:

@@ -8,7 +8,9 @@ averaged with the kernel w = max(0, 1 - d^2/extent^2)^3; the signed value is
 On CUDA tensors the node pass is kernel F (``csrc/surface.cu``): a gather
 per node over the particles binned by mesher cell in CSR form. On CPU
 tensors it is :func:`_sample_surface_torch`, the port of the JAX package's
-scatter oracle.
+scatter oracle. The gradient with respect to the positions is the autograd
+of that oracle, recomputed in backward on either device (port of
+``surface._surface_bwd``; a backward kernel is not written yet).
 """
 
 from __future__ import annotations
@@ -36,9 +38,26 @@ def sample_surface(
     """Sampled signed surface function on the (nx+1, ny+1, nz+1) node grid:
     kernel F on CUDA tensors, :func:`_sample_surface_torch` on CPU tensors."""
     r = cfg.particle_radius if particle_radius is None else particle_radius
-    if not kernels.use_kernel(position, active):
-        return _sample_surface_torch(position, active, cfg, r)
-    return _sample_surface_cuda(position, active, cfg, float(r))
+    return _SampleSurface.apply(position, active, cfg, float(r))
+
+
+class _SampleSurface(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, position, active, cfg, radius):
+        ctx.args = (cfg, radius)
+        ctx.save_for_backward(position, active)
+        if not kernels.use_kernel(position, active):
+            return _sample_surface_torch(position, active, cfg, radius)
+        return _sample_surface_cuda(position, active, cfg, radius)
+
+    @staticmethod
+    def backward(ctx, g):
+        cfg, radius = ctx.args
+        position, active = ctx.saved_tensors
+        with torch.enable_grad():
+            p = position.detach().requires_grad_()
+            (dp,) = torch.autograd.grad(_sample_surface_torch(p, active, cfg, radius), p, g)
+        return dp, None, None, None
 
 
 def _sample_surface_torch(

@@ -100,9 +100,27 @@ def _march_round(from_w, to_w, need, solid, cfg: SimConfig, max_steps: int):
     return from_w, to_w, hit
 
 
+class _March(torch.autograd.Function):
+    """The march with a straight-through gradient (port of
+    ``collisions._march``'s ``custom_vjp``): the cotangent passes to
+    `position` unchanged and `old_position` gets none."""
+
+    @staticmethod
+    def forward(ctx, old_position, position, solid, cfg):
+        return _march_plain(old_position, position, solid, cfg)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g, None, None
+
+
 def _march(old_position, position, solid, cfg: SimConfig) -> torch.Tensor:
     """Full collision march: up to one :func:`_march_round` per axis, each
-    re-marching only the lanes that hit."""
+    re-marching only the lanes that hit; straight-through in backward."""
+    return _March.apply(old_position, position, solid, cfg)
+
+
+def _march_plain(old_position, position, solid, cfg: SimConfig) -> torch.Tensor:
     max_steps = int(3 * max(cfg.cfl_number, 1.0)) + 8
     from_w, to_w = old_position, position
     need = torch.ones((position.shape[0],), dtype=torch.bool, device=position.device)

@@ -69,11 +69,35 @@ def _springs_torch(
     return springs + coincident[None] * jitter
 
 
+class _Springs(torch.autograd.Function):
+    """Kernel E (CUDA) or :func:`_springs_torch` (CPU) forward; the backward
+    recomputes :func:`_springs_torch` and takes its vector-Jacobian product
+    on either device (port of ``correction._springs_bwd``; a backward kernel
+    is not written yet)."""
+
+    @staticmethod
+    def forward(ctx, res_pos, res_mask, seed, origin, re2, cfg):
+        ctx.args = (seed, origin, re2, cfg)
+        ctx.save_for_backward(res_pos, res_mask)
+        if not kernels.use_kernel(res_pos, res_mask):
+            return _springs_torch(res_pos, res_mask, re2, seed, cfg, origin)
+        return kernels.correction_springs(res_pos, res_mask, re2, seed, origin)
+
+    @staticmethod
+    def backward(ctx, g):
+        seed, origin, re2, cfg = ctx.args
+        res_pos, res_mask = ctx.saved_tensors
+        with torch.enable_grad():
+            p = res_pos.detach().requires_grad_()
+            m = res_mask.detach().requires_grad_()
+            out = _springs_torch(p, m, re2, seed, cfg, origin)
+            dp, dm = torch.autograd.grad(out, (p, m), g)
+        return dp, dm, None, None, None, None
+
+
 def _springs(res_pos, res_mask, seed: int, origin, re2: float, cfg: SimConfig) -> torch.Tensor:
     """Kernel E on CUDA tensors, :func:`_springs_torch` on CPU tensors."""
-    if not kernels.use_kernel(res_pos, res_mask):
-        return _springs_torch(res_pos, res_mask, re2, seed, cfg, origin)
-    return kernels.correction_springs(res_pos, res_mask, re2, seed, origin)
+    return _Springs.apply(res_pos, res_mask, seed, origin, re2, cfg)
 
 
 def overflow_springs(

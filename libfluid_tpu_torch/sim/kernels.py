@@ -1,20 +1,23 @@
 """Dispatch to the hand-written CUDA kernels, and the wrappers of the P2G
 and correction kernels.
 
-Six kernels carry the substep and the mesher (sources in
+Nine kernels carry the substep, its gradient and the mesher (sources in
 ``libfluid_tpu_torch/csrc``):
 
     "expand"      slotsort.expand         slot-grid expand     (csrc/expand.cu)
     "p2g"         kernels.p2g_faces       P2G face sums        (csrc/p2g.cu)
+    "p2g_bwd"     kernels.p2g_faces_bwd   adjoint of P2G       (csrc/p2g_bwd.cu)
     "stencil"     multigrid.stencil       Poisson stencil      (csrc/stencil.cu)
+    "stencil16"   multigrid.stencil       the same in bf16     (csrc/stencil.cu)
     "g2p"         transfers.g2p_pic       G2P                  (csrc/g2p.cu)
+    "g2p_bwd"     transfers.g2p_bwd       adjoint of G2P       (csrc/g2p_bwd.cu)
     "correction"  correction._springs     correction springs   (csrc/correction.cu)
     "surface"     surface.sample_surface  mesher node pass     (csrc/surface.cu)
 
 Every wrapper dispatches on the device of its tensors: a CPU tensor takes
 the kernel's plain PyTorch version, a CUDA tensor launches the kernel (or
 raises), any other device raises. There is no fallback from a failed build
-or launch to the plain version.
+or launch to the plain version, in forward or backward.
 """
 
 from __future__ import annotations
@@ -27,7 +30,10 @@ from libfluid_tpu_torch import _build
 from libfluid_tpu_torch.config import SimConfig, TransferScheme
 
 # Kernel launches since the last reset; a wrapper adds one where it launches.
-LAUNCHES = {"expand": 0, "p2g": 0, "stencil": 0, "g2p": 0, "correction": 0, "surface": 0}
+LAUNCHES = {
+    "expand": 0, "p2g": 0, "p2g_bwd": 0, "stencil": 0, "stencil16": 0, "g2p": 0,
+    "g2p_bwd": 0, "correction": 0, "surface": 0,
+}
 
 
 def reset_launches() -> None:
@@ -74,30 +80,92 @@ def launch(name: str, entry: str, *args) -> None:
 # ---------------------------------------------------------------------------
 
 
-def p2g_faces(data: torch.Tensor, cfg: SimConfig) -> Tuple[tuple, tuple]:
-    """UNNORMALIZED face accumulators ((num_u, num_v, num_w), (den_u, den_v,
-    den_w)) of the slot payload (16, K, nx, ny, nz), every face included.
+def face_shapes(cfg: SimConfig):
+    """Shapes of the u, v, w face arrays."""
+    nx, ny, nz = cfg.grid_size
+    return [(nx + 1, ny, nz), (nx, ny + 1, nz), (nx, ny, nz + 1)]
 
-    Replaces ``libfluid_tpu/sim/kernels.py:p2g_lo_faces_pallas`` (with
-    ``transfers._p2g_hi_plane``). CUDA: ``csrc/p2g.cu``; CPU: the plain
-    ``transfers._p2g_slots_torch``.
-    """
-    from libfluid_tpu_torch.sim import transfers
 
-    if not use_kernel(data):
-        return transfers._p2g_slots_torch(data, cfg)
+def _p2g_faces_cuda(data: torch.Tensor, cfg: SimConfig) -> Tuple[tuple, tuple]:
     nx, ny, nz = cfg.grid_size
     k = data.shape[1]
     check(data, torch.float32, (16, k, nx, ny, nz), "slot payload")
-    shapes = [(nx + 1, ny, nz), (nx, ny + 1, nz), (nx, ny, nz + 1)]
-    num = [torch.empty(s, dtype=torch.float32, device=data.device) for s in shapes]
-    den = [torch.empty(s, dtype=torch.float32, device=data.device) for s in shapes]
+    num = [torch.empty(s, dtype=torch.float32, device=data.device) for s in face_shapes(cfg)]
+    den = [torch.empty(s, dtype=torch.float32, device=data.device) for s in face_shapes(cfg)]
     ox, oy, oz = (float(o) for o in cfg.grid_offset)
     launch(
         "p2g", "lf_p2g", data, *num, *den, k, nx, ny, nz,
         float(cfg.cell_size), ox, oy, oz, int(cfg.scheme == TransferScheme.APIC),
     )
     return tuple(num), tuple(den)
+
+
+def p2g_faces_bwd(data: torch.Tensor, gnum, gden, cfg: SimConfig) -> torch.Tensor:
+    """Kernel B', the adjoint of kernel B on CUDA tensors: the cotangent of
+    the slot payload (16, K, nx, ny, nz) from those of the six face arrays
+    (rows: position 0-2, mask 3, velocity 4-6, affine 7-15). Empty slots
+    get 0; the plain version's autograd gives their mask row a value, which
+    expand's backward drops with the slot. Gather form, no atomics: the same
+    bits from run to run."""
+    nx, ny, nz = cfg.grid_size
+    k = data.shape[1]
+    check(data, torch.float32, (16, k, nx, ny, nz), "slot payload")
+    gnum = [g.contiguous() for g in gnum]
+    gden = [g.contiguous() for g in gden]
+    for a, shape in enumerate(face_shapes(cfg)):
+        check(gnum[a], torch.float32, shape, f"num cotangent {a}")
+        check(gden[a], torch.float32, shape, f"den cotangent {a}")
+    out = torch.empty_like(data)
+    ox, oy, oz = (float(o) for o in cfg.grid_offset)
+    launch(
+        "p2g_bwd", "lf_p2g_bwd", data, *gnum, *gden, out, k, nx, ny, nz,
+        float(cfg.cell_size), ox, oy, oz, int(cfg.scheme == TransferScheme.APIC),
+    )
+    return out
+
+
+class _P2GFaces(torch.autograd.Function):
+    """Kernel B and its adjoint B' on CUDA tensors; the plain version and its
+    autograd (recomputed in backward, as ``transfers._p2g_bwd`` takes
+    ``jax.vjp`` of its jnp oracle) on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, data, cfg):
+        from libfluid_tpu_torch.sim import transfers
+
+        ctx.cfg = cfg
+        ctx.save_for_backward(data)
+        if not use_kernel(data):
+            num, den = transfers._p2g_slots_torch(data, cfg)
+        else:
+            num, den = _p2g_faces_cuda(data, cfg)
+        return (*num, *den)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from libfluid_tpu_torch.sim import transfers
+
+        (data,) = ctx.saved_tensors
+        if use_kernel(data):
+            return p2g_faces_bwd(data, grads[:3], grads[3:], ctx.cfg), None
+        with torch.enable_grad():
+            leaf = data.detach().requires_grad_()
+            num, den = transfers._p2g_slots_torch(leaf, ctx.cfg)
+            (dd,) = torch.autograd.grad((*num, *den), leaf, grads)
+        return dd, None
+
+
+def p2g_faces(data: torch.Tensor, cfg: SimConfig) -> Tuple[tuple, tuple]:
+    """UNNORMALIZED face accumulators ((num_u, num_v, num_w), (den_u, den_v,
+    den_w)) of the slot payload (16, K, nx, ny, nz), every face included.
+
+    Replaces ``libfluid_tpu/sim/kernels.py:p2g_lo_faces_pallas`` (with
+    ``transfers._p2g_hi_plane``) and its ``custom_vjp``. CUDA:
+    ``csrc/p2g.cu``, backward ``csrc/p2g_bwd.cu``; CPU: the plain
+    ``transfers._p2g_slots_torch``.
+    """
+    out = _P2GFaces.apply(data, cfg)
+    return tuple(out[:3]), tuple(out[3:])
 
 
 # ---------------------------------------------------------------------------

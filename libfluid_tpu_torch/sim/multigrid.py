@@ -5,7 +5,8 @@ A matrix-free V-cycle: 2x coarsening with cell-type rediscretization,
 damped-Jacobi smoothing, cell-centred trilinear prolongation P and its exact
 transpose R = P^T / 8 as restriction, per-level operator scale 4^-l. Every
 apply, smoothing sweep and residual is one pass of the masked 7-point
-stencil (:func:`stencil`, kernel C), on every level.
+stencil (:func:`stencil`, kernel C), on every level, in float32 or, for the
+"mg16" preconditioner, in bfloat16.
 """
 
 from __future__ import annotations
@@ -115,7 +116,8 @@ def _apply_level_torch(level: MGLevel, p: torch.Tensor) -> torch.Tensor:
 
 
 def _stencil_torch(level: MGLevel, x, b, mode: int, damp: float) -> torch.Tensor:
-    """Plain version of :func:`stencil`."""
+    """Plain version of :func:`stencil`; in bfloat16 every operation rounds
+    to bfloat16, as PyTorch's bfloat16 arithmetic does."""
     ax = _apply_level_torch(level, x)
     if mode == MODE_APPLY:
         return ax
@@ -124,28 +126,43 @@ def _stencil_torch(level: MGLevel, x, b, mode: int, damp: float) -> torch.Tensor
     return b - ax
 
 
+# kernel C's instances: dtype -> (launch count name, C entry point)
+_STENCIL_KERNELS = {
+    torch.float32: ("stencil", "lf_stencil"),
+    torch.bfloat16: ("stencil16", "lf_stencil16"),
+}
+
+
 def stencil(level: MGLevel, x: torch.Tensor, b: torch.Tensor, mode: int,
             damp: float = 0.0) -> torch.Tensor:
     """One stencil pass y = f(A x): MODE_APPLY gives A x, MODE_JACOBI the
     damped-Jacobi step x + damp * D^-1 (b - A x), MODE_RESIDUAL b - A x.
 
     Replaces ``libfluid_tpu/sim/multigrid.py:_stencil_kernel`` (through
-    ``_stencil_pass``). CUDA: ``csrc/stencil.cu``, on every level; CPU:
-    :func:`_stencil_torch`.
+    ``_stencil_pass``). CUDA: ``csrc/stencil.cu``, on every level, float32
+    ("stencil") or bfloat16 ("stencil16", the dtype of the JAX package's
+    "mg16" cycle); CPU: :func:`_stencil_torch`. In bfloat16 the damping
+    weight is taken as the bfloat16 value nearest to `damp`, as the JAX
+    package's weakly typed scalar is.
     """
+    if x.dtype == torch.bfloat16:
+        damp = float(torch.tensor(damp, dtype=torch.bfloat16))
     if not kernels.use_kernel(x, b, level.fluid):
         return _stencil_torch(level, x, b, mode, damp)
+    if x.dtype not in _STENCIL_KERNELS:
+        raise TypeError(f"stencil kernel takes float32 or bfloat16, got {x.dtype}")
+    name, entry = _STENCIL_KERNELS[x.dtype]
     nx, ny, nz = level.fluid.shape
     cell = (nx, ny, nz)
-    for name, t in (("x", x), ("b", b), ("diag", level.diag),
-                    ("inv_diag", level.inv_diag), ("fluid", level.fluid)):
-        kernels.check(t, torch.float32, cell, name)
-    kernels.check(level.couple_u, torch.float32, (nx + 1, ny, nz), "couple_u")
-    kernels.check(level.couple_v, torch.float32, (nx, ny + 1, nz), "couple_v")
-    kernels.check(level.couple_w, torch.float32, (nx, ny, nz + 1), "couple_w")
+    for arg, t in (("x", x), ("b", b), ("diag", level.diag),
+                   ("inv_diag", level.inv_diag), ("fluid", level.fluid)):
+        kernels.check(t, x.dtype, cell, arg)
+    kernels.check(level.couple_u, x.dtype, (nx + 1, ny, nz), "couple_u")
+    kernels.check(level.couple_v, x.dtype, (nx, ny + 1, nz), "couple_v")
+    kernels.check(level.couple_w, x.dtype, (nx, ny, nz + 1), "couple_w")
     out = torch.empty_like(x)
     kernels.launch(
-        "stencil", "lf_stencil", x, b, level.diag, level.inv_diag, level.fluid,
+        name, entry, x, b, level.diag, level.inv_diag, level.fluid,
         level.couple_u, level.couple_v, level.couple_w, out, nx, ny, nz,
         mode, float(damp), float(level.scale),
     )

@@ -1,5 +1,5 @@
 """Pressure Poisson projection: matrix-free MG-preconditioned CG on the dense
-grid (port of ``libfluid_tpu.sim.pressure``, forward only).
+grid (port of ``libfluid_tpu.sim.pressure``).
 
 - A over fluid cells: diag = #non-solid neighbors (out of bounds counts as
   solid), off-diagonal -1 between fluid neighbors, scaled by
@@ -8,6 +8,12 @@ grid (port of ``libfluid_tpu.sim.pressure``, forward only).
 - apply_pressure updates every face adjacent to >= 1 fluid cell: faces
   against solid are set to 0, the others get u -= dt/(rho*h) * (pR - pL)
   with p = 0 in air.
+- The solve is differentiable with respect to b by the implicit function
+  theorem (:func:`solve_pressure_system`): A is symmetric, so the adjoint of
+  p = A^-1 b is one more solve, b_bar = A^-1 p_bar, started cold. The warm
+  start, the operator and a_scale get no gradient.
+- "mg16" runs the V-cycle on a bfloat16 copy of the level hierarchy (kernel
+  C's bf16 instance, "stencil16"); the outer CG stays in float32.
 """
 
 from __future__ import annotations
@@ -19,6 +25,33 @@ import torch
 from libfluid_tpu_torch import grids
 from libfluid_tpu_torch.config import CellType, SimConfig
 from libfluid_tpu_torch.sim import multigrid
+
+
+class PoissonOperator(NamedTuple):
+    """Masks of the masked 7-point Laplacian."""
+
+    fluid: torch.Tensor  # (nx, ny, nz) 1.0 where fluid
+    couple_u: torch.Tensor  # (nx+1, ny, nz) 1.0 where the x-face joins two fluid cells
+    couple_v: torch.Tensor  # (nx, ny+1, nz)
+    couple_w: torch.Tensor  # (nx, ny, nz+1)
+    diag: torch.Tensor  # (nx, ny, nz) #non-solid neighbours, on fluid cells
+
+
+def build_operator(cell_type: torch.Tensor, dtype=torch.float32) -> PoissonOperator:
+    """The operator's masks (port of ``pressure.build_operator``; the same
+    masks as the finest multigrid level)."""
+    lvl = multigrid.build_levels(cell_type, dtype)[0]
+    return PoissonOperator(lvl.fluid, lvl.couple_u, lvl.couple_v, lvl.couple_w, lvl.diag)
+
+
+def apply_A(op: PoissonOperator, p: torch.Tensor, a_scale) -> torch.Tensor:
+    """y = A p on the dense grid, zero outside fluid: kernel C's apply mode
+    on CUDA tensors, its plain version on CPU tensors."""
+    # a level of scale a_scale; the apply mode reads no inv_diag
+    level = multigrid.MGLevel(
+        op.fluid, op.diag, op.diag, op.couple_u, op.couple_v, op.couple_w, float(a_scale)
+    )
+    return multigrid.apply_level(level, p)
 
 
 def open_face_masks(cell_type: torch.Tensor, dtype=torch.float32):
@@ -60,12 +93,16 @@ def _cg(levels, b: torch.Tensor, a_scale, tol, max_iters, precond, x0=None) -> P
     once per iteration to test for exit."""
     lvl0 = levels[0]
     if precond == "mg16":
-        raise NotImplementedError(
-            "the bfloat16 V-cycle ('mg16') is not ported yet (ROADMAP: "
-            "FLIP and mg16)"
+        # bfloat16 copy of the hierarchy for the preconditioner sweeps; the
+        # outer CG iteration stays in b's dtype
+        levels16 = tuple(
+            multigrid.MGLevel(*[f.to(torch.bfloat16) for f in lev[:-1]], lev.scale)
+            for lev in levels
         )
 
     def apply_M(r):
+        if precond == "mg16":
+            return multigrid.v_cycle(levels16, r.to(torch.bfloat16)).to(r.dtype) / a_scale
         if precond == "mg":
             return multigrid.v_cycle(levels, r) / a_scale
         return lvl0.inv_diag / a_scale * r
@@ -108,6 +145,38 @@ def _cg(levels, b: torch.Tensor, a_scale, tol, max_iters, precond, x0=None) -> P
     )
 
 
+# (iterations, residual) of every adjoint solve since the caller last
+# cleared the list: what the backward pass did, for the caller to read
+ADJOINT_SOLVES = []
+
+
+class _Solve(torch.autograd.Function):
+    """The CG solve, differentiable with respect to b (port of
+    ``pressure.solve_pressure_system``'s ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, b, x0, levels, a_scale, tol, max_iters, precond):
+        res = _cg(levels, b, a_scale, tol, max_iters, precond, x0=x0)
+        ctx.args = (levels, a_scale, tol, max_iters, precond)
+        ctx.mark_non_differentiable(res.residual, res.iterations)
+        return res.pressure, res.residual, res.iterations
+
+    @staticmethod
+    def backward(ctx, g, _g_residual, _g_iterations):
+        levels, a_scale, tol, max_iters, precond = ctx.args
+        adj = _cg(levels, g * levels[0].fluid, a_scale, tol, max_iters, precond)
+        ADJOINT_SOLVES.append((int(adj.iterations), float(adj.residual)))
+        return adj.pressure, None, None, None, None, None, None
+
+
+def solve_pressure_system(levels, b: torch.Tensor, a_scale, x0, tol, max_iters, precond) -> PressureResult:
+    """p = A^-1 b (restricted to fluid cells), differentiable with respect to
+    b: the backward is one cold-start solve b_bar = A^-1 (p_bar * fluid) with
+    the same levels, preconditioner and tolerance (kernel C on CUDA). The
+    warm start `x0`, the levels and a_scale get no gradient."""
+    return PressureResult(*_Solve.apply(b, x0, levels, a_scale, tol, max_iters, precond))
+
+
 def _precond_tag(cfg: SimConfig) -> str:
     """"mg"/"jacobi", "mg16" for the bfloat16 cycle."""
     p = cfg.solver.preconditioner
@@ -123,9 +192,9 @@ def solve(grid: grids.MacGrid, cfg: SimConfig, dt, x0=None) -> PressureResult:
     b = compute_rhs(grid, cfg)
     if x0 is None:
         x0 = torch.zeros_like(b)
-    return _cg(
-        levels, b, a_scale, cfg.solver.tolerance, cfg.solver.max_iterations,
-        _precond_tag(cfg), x0=x0,
+    return solve_pressure_system(
+        levels, b, a_scale, x0, cfg.solver.tolerance, cfg.solver.max_iterations,
+        _precond_tag(cfg),
     )
 
 

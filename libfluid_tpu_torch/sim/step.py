@@ -1,4 +1,4 @@
-"""The simulation time step (port of ``libfluid_tpu.sim.step``, forward only).
+"""The simulation time step (port of ``libfluid_tpu.sim.step``).
 
 Stage order of one substep:
 
@@ -9,6 +9,14 @@ Stage order of one substep:
 
 ``step`` runs the CFL substep loop on the host: substep size
 cfl_number * h / max|v|, iterated until dt is consumed.
+
+``substep`` is differentiable with ``torch.autograd`` as the JAX package's
+is with ``jax.grad``: every stage that holds a kernel is an autograd
+Function whose backward follows the JAX package's ``custom_vjp`` (P2G and
+G2P through the adjoint kernels B' and D', the pressure solve through one
+adjoint CG solve, the DDA march straight through). ``step`` stays
+forward-only, as in the JAX package, whose CFL loop is a
+``lax.while_loop``.
 
 A substep's random numbers (the sources' candidate positions, then the
 correction's jitter seed, in the order in which the JAX package splits its
@@ -102,13 +110,6 @@ def _add_gravity(grid: grids.MacGrid, cfg: SimConfig, dt) -> grids.MacGrid:
     return grid._replace(u=u, v=v, w=w)
 
 
-def _check_supported(cfg: SimConfig) -> None:
-    if cfg.scheme == TransferScheme.FLIP:
-        raise NotImplementedError(
-            "the FLIP scheme is not ported yet (ROADMAP: FLIP and mg16)"
-        )
-
-
 def _collide(state: SimState, old_position: torch.Tensor, cfg: SimConfig) -> SimState:
     if not cfg.enable_collisions:
         return state
@@ -121,7 +122,6 @@ def substep(
 ) -> Tuple[SimState, Diagnostics]:
     """One full time step of size dt (CFL-bounding is the caller's job).
     `draws` supplies the random numbers (default: the state's generator)."""
-    _check_supported(cfg)
     draws = Draws(state.generator) if draws is None else draws
     dev = state.position.device
     dt = torch.as_tensor(dt, dtype=cfg.dtype, device=dev)
@@ -148,8 +148,11 @@ def substep(
         state.active, cfg, overflow_start=sb.n_kept,
     )
     grid = grids.mark_cells(state.grid._replace(u=u, v=v, w=w), bins.occupancy)
+    old_grid = None
     if cfg.scheme == TransferScheme.APIC:
         grid = grids.remove_boundary_normal_velocities(grid)
+    elif cfg.scheme == TransferScheme.FLIP:
+        old_grid = grids.remove_boundary_normal_velocities(grid)
 
     # --- gravity, then pressure projection warm-started from the last substep ---
     grid = _add_gravity(grid, cfg, dt)
@@ -174,9 +177,13 @@ def substep(
 
     # --- velocity extrapolation + G2P ---
     grid = extrapolation_mod.extrapolate(grid, cfg)
-    vel, affine = transfers.g2p_pic(grid, state.position, cfg)
-    if cfg.scheme == TransferScheme.PIC:
+    if cfg.scheme == TransferScheme.FLIP:
+        vel = transfers.g2p_flip(grid, old_grid, state.position, state.velocity, cfg)
         affine = state.affine
+    else:
+        vel, affine = transfers.g2p_pic(grid, state.position, cfg)
+        if cfg.scheme == TransferScheme.PIC:
+            affine = state.affine
     vel = torch.where(state.active[:, None], vel, state.velocity)
     affine = torch.where(state.active[:, None, None], affine, state.affine)
 

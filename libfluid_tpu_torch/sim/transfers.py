@@ -1,4 +1,4 @@
-"""Particle<->grid transfers for PIC and APIC (port of
+"""Particle<->grid transfers for PIC, FLIP and APIC (port of
 ``libfluid_tpu.sim.transfers``).
 
 P2G runs from the dense slot grid (:func:`p2g_slots`): every face sums the
@@ -7,7 +7,13 @@ hat-weighted momentum of the slots in its staggered support
 capacity are scatter-added (:func:`_p2g_axis`) and faces normalize by total
 weight. G2P (:func:`g2p_pic`, kernel D) interpolates the velocity and its
 gradient rows (the APIC affine matrix) from the 54 face samples around each
-particle's cell. Weights are computed in cell units.
+particle's cell; FLIP (:func:`g2p_flip`) blends trilinear samples of the new
+and old grids. Weights are computed in cell units.
+
+Both kernels are differentiable: on CUDA tensors the backward of P2G is
+kernel B' (``csrc/p2g_bwd.cu``) and that of G2P kernel D'
+(``csrc/g2p_bwd.cu``); on CPU tensors it is the autograd of the plain
+version. The hats take the JAX package's subgradients (:func:`hat`).
 """
 
 from __future__ import annotations
@@ -25,6 +31,15 @@ from libfluid_tpu_torch.sim import slots as slots_mod
 _WEIGHT_EPS = 1e-6
 
 _OFFSETS = [(dx, dy, dz) for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)]
+
+
+def hat(t: torch.Tensor) -> torch.Tensor:
+    """The trilinear hat max(1 - |t|, 0), with the subgradients of the JAX
+    package's ``jnp.maximum(1 - jnp.abs(t), 0)``: slope -1 at t = 0 (where
+    ``torch.abs`` has 0) and half the slope at |t| = 1 (where
+    ``torch.clamp`` passes all of it)."""
+    a = torch.where(t >= 0, t, -t)
+    return torch.maximum(1.0 - a, torch.zeros_like(a))
 
 
 def _face_world_shift(cfg: SimConfig, axis: int, device) -> torch.Tensor:
@@ -79,6 +94,27 @@ def _normalize(num, den):
     return torch.where(
         den > _WEIGHT_EPS, num / torch.clamp(den, min=_WEIGHT_EPS), torch.zeros_like(num)
     )
+
+
+def p2g(
+    position: torch.Tensor,
+    velocity: torch.Tensor,
+    affine: torch.Tensor,
+    active: torch.Tensor,
+    cfg: SimConfig,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Scatter-form particle-to-grid transfer (port of ``transfers.p2g``):
+    normalized (u, v, w) face arrays; the affine rows add the APIC term for
+    the APIC scheme only."""
+    use_affine = cfg.scheme == TransferScheme.APIC
+    out = []
+    for axis in range(3):
+        num, den = _p2g_axis(
+            position, velocity[:, axis], affine[:, axis, :] if use_affine else None,
+            active, cfg, axis,
+        )
+        out.append(_normalize(num, den))
+    return tuple(out)
 
 
 def _face_axes_of_offset(d):
@@ -141,7 +177,7 @@ def _p2g_slots_torch(data: torch.Tensor, cfg: SimConfig):
             w = mask
             for dim in range(3):
                 t = gpos[dim] - shift[dim] - (cell_iota[dim] + d[dim]).to(cfg.dtype)
-                w = w * torch.clamp(1.0 - torch.abs(t), min=0.0)
+                w = w * hat(t)
             val = vel[axis]
             if use_affine:
                 arow = sg.affine_row(axis)
@@ -265,7 +301,7 @@ def g2p_from_table(
         coords = grids.face_index_coords(position, cfg, axis)
         f = cell3c[:, None, :] + offsets[None]  # (N, 18, 3)
         d = coords[:, None, :] - f.to(cfg.dtype)
-        n = torch.clamp(1.0 - torch.abs(d), min=0.0)
+        n = hat(d)
         w = torch.prod(n, dim=-1)  # (N, 18)
         vals.append(torch.sum(w * samples, dim=-1))
         # derivative factor of the hat on the HALF-OPEN support [-1, 1)
@@ -285,6 +321,77 @@ def g2p_from_table(
     return torch.stack(vals, dim=-1), torch.stack(rows_out, dim=-2)
 
 
+def _g2p_cuda(u, v, w, position, cfg: SimConfig):
+    nx, ny, nz = cfg.grid_size
+    n = position.shape[0]
+    kernels.check(u, torch.float32, (nx + 1, ny, nz), "u")
+    kernels.check(v, torch.float32, (nx, ny + 1, nz), "v")
+    kernels.check(w, torch.float32, (nx, ny, nz + 1), "w")
+    kernels.check(position, torch.float32, (n, 3), "position")
+    vel = torch.empty((n, 3), dtype=torch.float32, device=position.device)
+    aff = torch.empty((n, 3, 3), dtype=torch.float32, device=position.device)
+    ox, oy, oz = (float(o) for o in cfg.grid_offset)
+    kernels.launch(
+        "g2p", "lf_g2p", u, v, w, position, vel, aff, n,
+        nx, ny, nz, float(cfg.cell_size), ox, oy, oz,
+    )
+    return vel, aff
+
+
+def _g2p_plain(u, v, w, position, cfg: SimConfig):
+    grid = grids.MacGrid(u, v, w, None)
+    return g2p_from_table(build_g2p_table(grid, cfg), position, cfg)
+
+
+def g2p_bwd(u, v, w, position, gvel, gaff, cfg: SimConfig):
+    """Kernel D', the adjoint of kernel D on CUDA tensors: the cotangents of
+    (u, v, w, position) from those of the velocity (N, 3) and the affine
+    matrix (N, 3, 3). The face cotangents are summed with atomics, so their
+    last bits vary from run to run."""
+    nx, ny, nz = cfg.grid_size
+    n = position.shape[0]
+    gvel = gvel.contiguous()
+    gaff = gaff.contiguous()
+    kernels.check(u, torch.float32, (nx + 1, ny, nz), "u")
+    kernels.check(v, torch.float32, (nx, ny + 1, nz), "v")
+    kernels.check(w, torch.float32, (nx, ny, nz + 1), "w")
+    kernels.check(position, torch.float32, (n, 3), "position")
+    kernels.check(gvel, torch.float32, (n, 3), "velocity cotangent")
+    kernels.check(gaff, torch.float32, (n, 3, 3), "affine cotangent")
+    gu, gv, gw = (torch.zeros_like(a) for a in (u, v, w))
+    gpos = torch.empty_like(position)
+    ox, oy, oz = (float(o) for o in cfg.grid_offset)
+    kernels.launch(
+        "g2p_bwd", "lf_g2p_bwd", u, v, w, position, gvel, gaff, gu, gv, gw, gpos, n,
+        nx, ny, nz, float(cfg.cell_size), ox, oy, oz,
+    )
+    return gu, gv, gw, gpos
+
+
+class _G2P(torch.autograd.Function):
+    """Kernel D and its adjoint D' on CUDA tensors; the plain version and
+    its autograd (recomputed in backward) on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, u, v, w, position, cfg):
+        ctx.cfg = cfg
+        ctx.save_for_backward(u, v, w, position)
+        if not kernels.use_kernel(u, v, w, position):
+            return _g2p_plain(u, v, w, position, cfg)
+        return _g2p_cuda(u, v, w, position, cfg)
+
+    @staticmethod
+    def backward(ctx, gvel, gaff):
+        u, v, w, position = ctx.saved_tensors
+        if kernels.use_kernel(u, v, w, position):
+            return (*g2p_bwd(u, v, w, position, gvel, gaff, ctx.cfg), None)
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (u, v, w, position)]
+            out = _g2p_plain(*leaves, ctx.cfg)
+            grads = torch.autograd.grad(out, leaves, (gvel, gaff), allow_unused=True)
+        return (*grads, None)
+
+
 def g2p_pic(
     grid: grids.MacGrid, position: torch.Tensor, cfg: SimConfig
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -293,22 +400,23 @@ def g2p_pic(
 
     Replaces ``libfluid_tpu/sim/transfers.py:_transpose_major`` and
     ``_transpose_rows`` (the two layout-pinning kernels of G2P) with the
-    whole of ``g2p_pic``. CUDA: ``csrc/g2p.cu``; CPU: the plain
-    :func:`build_g2p_table` + :func:`g2p_from_table`.
+    whole of ``g2p_pic``. CUDA: ``csrc/g2p.cu``, backward
+    ``csrc/g2p_bwd.cu``; CPU: the plain :func:`build_g2p_table` +
+    :func:`g2p_from_table`.
     """
-    if not kernels.use_kernel(grid.u, grid.v, grid.w, position):
-        return g2p_from_table(build_g2p_table(grid, cfg), position, cfg)
-    nx, ny, nz = cfg.grid_size
-    n = position.shape[0]
-    kernels.check(grid.u, torch.float32, (nx + 1, ny, nz), "u")
-    kernels.check(grid.v, torch.float32, (nx, ny + 1, nz), "v")
-    kernels.check(grid.w, torch.float32, (nx, ny, nz + 1), "w")
-    kernels.check(position, torch.float32, (n, 3), "position")
-    vel = torch.empty((n, 3), dtype=torch.float32, device=position.device)
-    aff = torch.empty((n, 3, 3), dtype=torch.float32, device=position.device)
-    ox, oy, oz = (float(o) for o in cfg.grid_offset)
-    kernels.launch(
-        "g2p", "lf_g2p", grid.u, grid.v, grid.w, position, vel, aff, n,
-        nx, ny, nz, float(cfg.cell_size), ox, oy, oz,
-    )
-    return vel, aff
+    return _G2P.apply(grid.u, grid.v, grid.w, position, cfg)
+
+
+def g2p_flip(
+    new_grid: grids.MacGrid,
+    old_grid: grids.MacGrid,
+    position: torch.Tensor,
+    velocity: torch.Tensor,
+    cfg: SimConfig,
+) -> torch.Tensor:
+    """FLIP blend v_new_grid + blend * (v_particle - v_old_grid) (port of
+    ``transfers.g2p_flip``); plain trilinear gathers, as in the JAX
+    package."""
+    v_new = grids.velocity_at(new_grid, position, cfg)
+    v_old = grids.velocity_at(old_grid, position, cfg)
+    return v_new + (velocity - v_old) * cfg.blending_factor

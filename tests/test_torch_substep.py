@@ -78,7 +78,8 @@ def _compare(j_state, t_state, pos_atol):
 
 @pytest.mark.parametrize(
     "n,scheme",
-    [(12, TransferScheme.APIC), (16, TransferScheme.APIC), (12, TransferScheme.PIC)],
+    [(12, TransferScheme.APIC), (16, TransferScheme.APIC), (12, TransferScheme.PIC),
+     (12, TransferScheme.FLIP)],
 )
 def test_substep_matches_jax(n, scheme):
     cfg, state = _dam_break(n, scheme)
