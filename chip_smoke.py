@@ -12,11 +12,19 @@ Phases, one line of output each (or a few):
    source, in parallel, sm_90a);
 3. each kernel (A-F) against its plain PyTorch version on the card, at the
    shapes the 128^3 main path gives it (the state after one substep with
-   position correction on, meshed on the 261^3-node grid), with error and
-   median time of both; then the backward kernels B' (at 64^3: the plain
-   autograd of P2G does not fit the card at 128^3) and D' (at 128^3)
-   against the autograd of their plain versions, and kernel C's bfloat16
-   instance against the plain bfloat16 stencil on every level and mode;
+   position correction on, meshed on the 261^3-node grid), with error,
+   median time of both and the least time the card could take (its bound);
+   the fused V-cycle's four kernels each against its plain stage function,
+   and the whole fused cycle against the plain cycle, on the 128^3 levels
+   and on the 50^3 levels of testbed setup 4, with the times of the fused,
+   the per-pass and the plain cycle and the launches of one cycle; the
+   host-clock ms of one V-cycle and one operator call, the kernels of a CG
+   iteration; CG iterations of a substep with the fused and with the
+   per-pass cycle; kernel E also at 16 and 32 slots a cell;
+   then the backward kernels B' (at 64^3: the plain autograd of P2G does
+   not fit the card at 128^3) and D' (at 128^3) against the autograd of
+   their plain versions, and kernel C's bfloat16 instance against the
+   plain bfloat16 stencil on every level and mode;
 4. a seeded 32^3 dam-break with position correction off, and a 32^3 scene
    with the default options (position correction, a solid block, a
    source), each run for 2 substeps on the card (kernels) and on the CPU
@@ -30,7 +38,10 @@ Phases, one line of output each (or a few):
 6. the main path: the 128^3 APIC dam-break with position correction on
    (~2.0M particles), one warm-up substep, 5 timed substeps, one CFL
    ``step(1/60)``, then ``generate_mesh`` on the 260^3-cell mesher grid,
-   with the healthy-output checks and the launch counts;
+   with the healthy-output checks and the launch counts; then the stage
+   split of a substep (a synchronize around each stage), ms per CG
+   iteration beside phase 3's times of its kernels, and the device's busy
+   share of one substep (torch.profiler);
 7. the same dam-break with position correction off, 2 substeps;
 8. the gradient path: the 128^3 correction-off dam-break, 3 steps of
    gradient descent on the initial velocities through 2 unrolled substeps
@@ -58,13 +69,15 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
-from libfluid_tpu_torch import _build
+from libfluid_tpu_torch import _build, testbed
 from libfluid_tpu_torch.config import MesherConfig, SimConfig, SolverConfig, TransferScheme
 from libfluid_tpu_torch import sim
 from libfluid_tpu_torch.io.obj import load_obj
 from libfluid_tpu_torch.mesher import generate_mesh, surface
-from libfluid_tpu_torch.sim import correction, kernels, multigrid, pressure, slotsort, sources, transfers
+from libfluid_tpu_torch.sim import (correction, extrapolation, kernels, multigrid, pressure, slotsort,
+                                    sources, transfers)
 from libfluid_tpu_torch.sim.state import particle_count, set_solid
 from libfluid_tpu_torch.testbed import __main__ as testbed_cli
 
@@ -73,6 +86,11 @@ KERNELS = {
     "expand": ("libfluid_tpu_torch/csrc/expand.cu", "libfluid_tpu/sim/slotsort.py:78"),
     "p2g": ("libfluid_tpu_torch/csrc/p2g.cu", "libfluid_tpu/sim/kernels.py:58"),
     "stencil": ("libfluid_tpu_torch/csrc/stencil.cu", "libfluid_tpu/sim/multigrid.py:127"),
+    # the fused float32 V-cycle
+    "mg_pre": ("libfluid_tpu_torch/csrc/vcycle.cu", "libfluid_tpu/sim/multigrid.py:127"),
+    "mg_restrict": ("libfluid_tpu_torch/csrc/vcycle.cu", "libfluid_tpu/sim/multigrid.py:127"),
+    "mg_up": ("libfluid_tpu_torch/csrc/vcycle.cu", "libfluid_tpu/sim/multigrid.py:127"),
+    "mg_coarse": ("libfluid_tpu_torch/csrc/vcycle.cu", "libfluid_tpu/sim/multigrid.py:127"),
     "g2p": ("libfluid_tpu_torch/csrc/g2p.cu", "libfluid_tpu/sim/transfers.py:177,508"),
     "correction": ("libfluid_tpu_torch/csrc/correction.cu", "libfluid_tpu/sim/kernels.py:284"),
     "surface": ("libfluid_tpu_torch/csrc/surface.cu", "libfluid_tpu/mesher/surface.py:164"),
@@ -81,8 +99,13 @@ KERNELS = {
     "g2p_bwd": ("libfluid_tpu_torch/csrc/g2p_bwd.cu", "libfluid_tpu/sim/transfers.py:177,508"),
     "stencil16": ("libfluid_tpu_torch/csrc/stencil.cu", "libfluid_tpu/sim/multigrid.py:127"),
 }
-FORWARD_KERNELS = ("expand", "p2g", "stencil", "g2p", "correction", "surface")
-GRAD_KERNELS = ("expand", "p2g", "p2g_bwd", "stencil", "g2p", "g2p_bwd")
+VCYCLE_KERNELS = ("mg_pre", "mg_restrict", "mg_up", "mg_coarse")
+FORWARD_KERNELS = ("expand", "p2g", "stencil", *VCYCLE_KERNELS, "g2p", "correction", "surface")
+GRAD_KERNELS = ("expand", "p2g", "p2g_bwd", "stencil", *VCYCLE_KERNELS, "g2p", "g2p_bwd")
+# the card's published peaks (H100 SXM): device memory and float32 outside
+# the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
 # the gradient descent: the velocity offset of its target run, and its
 # learning rate (tuned at 32^3 on the CPU; the per-particle gradient does
 # not depend on the grid size)
@@ -148,15 +171,173 @@ def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float(torch.max(torch.abs(got - want)))
 
 
-def kernel_phases(cfg, state) -> dict:
-    """Each kernel against its plain version at the main path's shapes."""
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(moved_bytes: float, flops: float = 0.0) -> dict:
+    """The least time the card could take: the larger of the bytes the
+    function must move (each input read once, each output written once)
+    over the memory rate and its float32 operations over the peak rate.
+    No kernel here has one PyTorch call that computes the same function
+    (A's gather needs a mask as well, C's operator has per-face
+    coefficients, B-F are particle-grid sums), so library_ms is null."""
+    by_bytes = moved_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / FP32_FLOP_PER_S * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops), bound_by="bytes" if by_bytes >= by_ops else "operations",
+                library_ms=None)
+
+
+def wall_ms(fn, reps: int = 20) -> float:
+    """Host-clock ms per call of `fn` over `reps` calls ending in a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def vcycle_phases(levels, what: str):
+    """The fused V-cycle's kernels on `levels`: each against its plain stage
+    function on the inputs the plain cycle gives that stage (rtol 1e-6 /
+    atol 1e-5), the coarse kernel on its own, then the whole cycle against
+    the plain one (1e-5 max|b|), with times and the launches of one cycle.
+    Returns the record of each kernel at its first (largest) level, and the
+    host-clock ms of one fused cycle."""
+    dev = levels[0].fluid.device
+    gen = torch.Generator(device=dev).manual_seed(2)
+    b = 20.0 * torch.randn(levels[0].fluid.shape, generator=gen, device=dev) * levels[0].fluid
+    first = multigrid.first_coarse_level(levels)
+    shapes = [tuple(lv.fluid.shape) for lv in levels]
+    out, bs = {}, [b]
+    for l in range(first):
+        lv, lc, bl = levels[l], levels[l + 1], bs[l]
+        xw = multigrid._pre_torch(lv, bl)
+        rcw = multigrid._restrict_residual_torch(lv, lc, xw, bl)
+        ec = multigrid._coarse_torch(levels, rcw, l + 1)
+        upw = multigrid._up_torch(lv, xw, ec, bl)
+        bs.append(rcw)
+        stages = {
+            "mg_pre": (lambda: multigrid.pre_smooth(lv, bl), lambda: multigrid._pre_torch(lv, bl), xw,
+                       bound(nbytes(bl, xw, *multigrid._level_args(lv)), 40.0 * bl.numel())),
+            "mg_restrict": (lambda: multigrid.restrict_residual(lv, lc, xw, bl),
+                            lambda: multigrid._restrict_residual_torch(lv, lc, xw, bl), rcw,
+                            bound(nbytes(xw, bl, lc.fluid, rcw, *multigrid._level_args(lv)),
+                                  40.0 * bl.numel())),
+            "mg_up": (lambda: multigrid.prolong_smooth(lv, xw, ec, bl),
+                      lambda: multigrid._up_torch(lv, xw, ec, bl), upw,
+                      bound(nbytes(xw, ec, bl, upw, *multigrid._level_args(lv)), 60.0 * bl.numel())),
+        }
+        for name, (fused, plain, want, bnd) in stages.items():
+            got = fused()
+            err = max_err(got, want)
+            check(close(got, want, 1e-6, 1e-5), f"{name} at {shapes[l]} ({what}) error {err}")
+            rec = dict(max_abs_err=err, ms=median_ms(fused), plain_ms=median_ms(plain), **bnd)
+            log(f"kernel {name} ({what}) level {shapes[l]}: within rtol 1e-6/atol 1e-5, {rec}")
+            out.setdefault(name, rec)
+    bc = bs[first]
+    lows = levels[first:]
+    got = multigrid.coarse_cycle(levels, bc, first)
+    want = multigrid._coarse_torch(levels, bc, first)
+    err = max_err(got, want)
+    check(close(got, want, 1e-6, 1e-5), f"mg_coarse from {shapes[first]} ({what}) error {err}")
+    out["mg_coarse"] = dict(
+        max_abs_err=err, ms=median_ms(lambda: multigrid.coarse_cycle(levels, bc, first)),
+        plain_ms=median_ms(lambda: multigrid._coarse_torch(levels, bc, first)),
+        **bound(nbytes(bc, got, *(a for lv in lows for a in multigrid._level_args(lv))),
+                40.0 * sum(lv.fluid.numel() for lv in lows) * 6))
+    log(f"kernel mg_coarse ({what}) levels {shapes[first:]}: within rtol 1e-6/atol 1e-5 of max "
+        f"{float(want.abs().max()):.3e}, {out['mg_coarse']}")
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    got = multigrid.v_cycle(levels, b)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    want = multigrid._coarse_torch(levels, b, 0)
+    err, tol = max_err(got, want), 1e-5 * float(b.abs().max())
+    check(err <= tol, f"fused V-cycle ({what}) differs from the plain cycle by {err} > {tol}")
+    check(set(launches) <= set(VCYCLE_KERNELS) and sum(launches.values()) <= 10,
+          f"fused V-cycle ({what}) launched {launches}")
+    err_pp = max_err(got, multigrid.v_cycle_per_pass(levels, b))
+    cyc = bound(nbytes(b, got, *(a for lv in levels for a in multigrid._level_args(lv))))
+    fused_wall = wall_ms(lambda: multigrid.v_cycle(levels, b))
+    log(f"V-cycle ({what}) levels {shapes}: fused against plain max abs error {err:.3e} (<= 1e-5 max|b| = "
+        f"{tol:.3e}), against per-pass {err_pp:.3e}; {sum(launches.values())} launches a cycle {launches}; "
+        f"device ms fused {median_ms(lambda: multigrid.v_cycle(levels, b)):.4f}, per-pass "
+        f"{median_ms(lambda: multigrid.v_cycle_per_pass(levels, b)):.4f}, plain "
+        f"{median_ms(lambda: multigrid._coarse_torch(levels, b, 0), PLAIN_REPS_SLOW):.4f}; wall ms fused "
+        f"{fused_wall:.4f}, per-pass "
+        f"{wall_ms(lambda: multigrid.v_cycle_per_pass(levels, b), 5):.4f}; bound {cyc['bound_ms']:.4f} ms "
+        f"({cyc['bound_by']})")
+    return out, fused_wall
+
+
+def cg_parity(state, cfg) -> None:
+    """One substep from `state` with the fused cycle and one with the
+    per-pass cycle: the same preconditioner gives the same CG iterations
+    (within 1)."""
+    runs = {}
+    fused = multigrid.v_cycle
+    for name, cycle in (("fused", fused), ("per-pass", multigrid.v_cycle_per_pass)):
+        draws = state.generator.get_state()
+        multigrid.v_cycle = cycle
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, diag = sim.substep(state, cfg, DT)
+            torch.cuda.synchronize()
+            runs[name] = ((time.perf_counter() - t0) * 1e3, int(diag.pressure_iterations),
+                          float(diag.pressure_residual))
+        finally:
+            multigrid.v_cycle = fused
+            state.generator.set_state(draws)
+    log("CG parity on one 128^3 substep: " + ", ".join(
+        f"{name} cycle {ms:.1f} ms, {it} iterations, residual {res:.2e}"
+        for name, (ms, it, res) in runs.items()))
+    check(abs(runs["fused"][1] - runs["per-pass"][1]) <= 1, f"CG iterations differ by more than 1: {runs}")
+    check(runs["fused"][2] < 1e-5, f"CG residual with the fused cycle {runs['fused'][2]}")
+
+
+def correction_many_slots(device) -> None:
+    """Kernel E's shared memory grows with the slots a cell may hold, up to
+    32 (186 KB a block; the main path has 12). 16 and 32 slots a cell on
+    random slots of a small grid with an empty third, against the plain
+    version."""
+    shape = (20, 18, 28)
+    cfg = SimConfig(grid_size=shape, particle_capacity=8)
+    gen = torch.Generator(device=device).manual_seed(5)
+    cell = torch.stack(torch.meshgrid(
+        *(torch.arange(n, device=device, dtype=torch.float32) for n in shape), indexing="ij"))
+    errs = {}
+    for kc in (16, 32):
+        mask = (torch.rand((kc, *shape), generator=gen, device=device) < 0.4).float()
+        mask[..., : shape[2] // 3] = 0.0
+        pos = (cell[:, None] + torch.rand((3, kc, *shape), generator=gen, device=device)) * mask
+        got = kernels.correction_springs(pos, mask, 0.5, 99, (2, 0, 5))
+        want = correction._springs_torch(pos, mask, 0.5, 99, cfg, (2, 0, 5))
+        errs[kc] = max_err(got, want) / (100.0 * float(torch.max(torch.abs(pos))))
+        check(errs[kc] < 2e-6, f"correction with {kc} slots a cell: normalized error {errs[kc]} >= 2e-6")
+    log(f"kernel correction, more slots a cell at {shape}: normalized error "
+        + ", ".join(f"{e:.3e} with {kc} slots a cell" for kc, e in errs.items()) + " (< 2e-6)")
+
+
+def kernel_phases(cfg, state):
+    """Each kernel against its plain version at the main path's shapes.
+    Returns the kernels' records and the host-clock ms of the two parts of a
+    128^3 CG iteration that are kernels: (fused V-cycle, operator)."""
     out = {}
 
     rs = slotsort.sort_rank_major(state, cfg)
     got = slotsort.expand(rs.payT, rs.ins, rs.counts)
     want = slotsort._expand_torch(rs.payT, rs.ins, rs.counts)
     check(torch.equal(got, want), "expand kernel differs from its plain version")
+    k_slots = cfg.max_neighbors_per_cell
+    valid = int(torch.clamp(rs.counts, max=k_slots).sum())  # slots that read a payload row
     out["expand"] = dict(
+        **bound(nbytes(got, rs.ins, rs.counts) + 16 * 4 * valid),
         max_abs_err=max_err(got, want),
         ms=median_ms(lambda: slotsort.expand(rs.payT, rs.ins, rs.counts)),
         plain_ms=median_ms(lambda: slotsort._expand_torch(rs.payT, rs.ins, rs.counts)),
@@ -175,8 +356,13 @@ def kernel_phases(cfg, state) -> dict:
         errs.append(max_err(ko, po) / (float(torch.max(torch.abs(po))) + 1e-9))
         abs_errs.append(max_err(ko, po))
     check(max(errs) < 2e-5, f"p2g normalized error {errs} >= 2e-5")
+    faces_b = nbytes(*kn, *kd)
     del kn, kd, pn, pd
+    occ = int((data[3] != 0).sum())
+    # the mask row of every slot, the other 15 rows of the occupied ones; a
+    # slot reaches at most 54 faces, ~12 operations each
     out["p2g"] = dict(
+        **bound(data[3].numel() * 4 + 15 * 4 * occ + faces_b, 54 * 12.0 * occ),
         max_abs_err=max(abs_errs),
         ms=median_ms(lambda: kernels.p2g_faces(data, cfg)),
         plain_ms=median_ms(lambda: transfers._p2g_slots_torch(data, cfg)),
@@ -200,13 +386,26 @@ def kernel_phases(cfg, state) -> dict:
     x = torch.randn(lvl.fluid.shape, generator=gen, device=lvl.fluid.device) * lvl.fluid
     b = torch.randn(lvl.fluid.shape, generator=gen, device=lvl.fluid.device) * lvl.fluid
     out["stencil"] = dict(
+        **bound(nbytes(x, b, x, *multigrid._level_args(lvl)), 20.0 * x.numel()),
         max_abs_err=worst,
         ms=median_ms(lambda: multigrid.stencil(lvl, x, b, multigrid.MODE_JACOBI, 0.8)),
         plain_ms=median_ms(lambda: multigrid._stencil_torch(lvl, x, b, multigrid.MODE_JACOBI, 0.8)),
     )
     log(f"kernel stencil: {len(levels)} levels {[tuple(l.fluid.shape) for l in levels]} x 3 modes "
         f"within rtol 1e-6/atol 1e-5, time at {tuple(lvl.fluid.shape)} Jacobi mode, {out['stencil']}")
-    del levels, lvl, x, b
+    operator_wall = wall_ms(lambda: multigrid.apply_level(lvl, x))
+    del lvl, x, b
+    records, cycle_wall = vcycle_phases(levels, "128^3")
+    out.update(records)
+    log(f"a 128^3 CG iteration's kernels on the host clock: V-cycle {cycle_wall:.4f} ms, operator "
+        f"(apply_level) {operator_wall:.4f} ms")
+    del levels
+    tcfg, tstate = testbed.build_setup(4)
+    for _ in range(2):
+        tstate, _ = sim.substep(tstate, tcfg, 0.005)
+    vcycle_phases(multigrid.build_levels(tstate.grid.cell_type), "50^3 testbed setup 4")
+    del tstate
+    cg_parity(state, cfg)
 
     grid, pos = state.grid, state.position
     vk, ak = transfers.g2p_pic(grid, pos, cfg)
@@ -217,7 +416,9 @@ def kernel_phases(cfg, state) -> dict:
     vp, ap = plain()
     check(close(vk, vp, 1e-5, 1e-5) and close(ak, ap, 1e-5, 1e-5),
           f"g2p error velocity {max_err(vk, vp)} affine {max_err(ak, ap)}")
+    n_act = int(state.active.sum())
     out["g2p"] = dict(
+        **bound(nbytes(grid.u, grid.v, grid.w) + n_act * (12 + 12 + 36), 54 * 8.0 * n_act),
         max_abs_err=max(max_err(vk, vp), max_err(ak, ap)),
         ms=median_ms(lambda: transfers.g2p_pic(grid, pos, cfg)),
         plain_ms=median_ms(plain),
@@ -235,16 +436,22 @@ def kernel_phases(cfg, state) -> dict:
     want = correction._springs_torch(res_pos, res_mask, re2, seed, cfg)
     norm = max_err(got, want) / (100.0 * float(torch.max(torch.abs(res_pos))))
     check(norm < 2e-6, f"correction normalized error {norm} >= 2e-6")
+    occ = int((res_mask != 0).sum())
+    per_cell = (res_mask != 0).sum(0, dtype=torch.float32)
+    around = 27.0 * torch.nn.functional.avg_pool3d(per_cell[None, None], 3, 1, 1)[0, 0]
+    pairs = float((per_cell * (around - 1.0)).sum())  # the pairs inside the grid, ~20 operations each
     out["correction"] = dict(
+        **bound(nbytes(res_mask, got) + 12 * occ, 20.0 * pairs),
         max_abs_err=max_err(got, want),
         ms=median_ms(lambda: kernels.correction_springs(res_pos, res_mask, re2, seed)),
         plain_ms=median_ms(lambda: correction._springs_torch(res_pos, res_mask, re2, seed, cfg),
                            PLAIN_REPS_SLOW),
     )
-    log(f"kernel correction: springs {tuple(got.shape)} of {int(res_mask.sum())} resident slots, "
+    log(f"kernel correction: springs {tuple(got.shape)} of {occ} resident slots, {pairs:.4e} pairs, "
         f"normalized error {norm:.3e} (< 2e-6), plain timed over {PLAIN_REPS_SLOW} reps, "
         f"{out['correction']}")
     del sb, res_pos, res_mask, got, want
+    correction_many_slots(state.position.device)
 
     act = state.active
     got = surface.sample_surface(pos, act, MESH_128)
@@ -252,7 +459,10 @@ def kernel_phases(cfg, state) -> dict:
     err = max_err(got, want)
     check(err < 2e-3, f"surface error {err} >= 2e-3")
     check(bool((want < 0).any()), "surface: no node inside the fluid")
+    # a particle weighs on the nodes within its extent, ~21 operations a pair
+    reach = 4.0 / 3.0 * np.pi * (MESH_128.particle_extent / MESH_128.cell_size) ** 3
     out["surface"] = dict(
+        **bound(nbytes(got) + 12 * n_act, 21.0 * reach * n_act),
         max_abs_err=err,
         ms=median_ms(lambda: surface.sample_surface(pos, act, MESH_128)),
         plain_ms=median_ms(lambda: surface._sample_surface_torch(pos, act, MESH_128),
@@ -262,7 +472,7 @@ def kernel_phases(cfg, state) -> dict:
     log(f"kernel surface: {tuple(got.shape)} nodes from {int(act.sum())} particles, max abs "
         f"error {err:.3e} (< 2e-3); ms includes the CSR binning ({bin_ms:.3f} ms of it); "
         f"plain timed over {PLAIN_REPS_SLOW} reps, {out['surface']}")
-    return out
+    return out, (cycle_wall, operator_wall)
 
 
 def backward_kernel_phases(cfg, state) -> dict:
@@ -295,7 +505,9 @@ def backward_kernel_phases(cfg, state) -> dict:
     rel = err / float(torch.max(torch.abs(want * occ)))
     check(rel < 1e-5, f"p2g_bwd relative error {rel} >= 1e-5")
     check(bool((got[:, ~occ] == 0).all()), "p2g_bwd: an empty slot got a cotangent")
+    n_occ = int(occ.sum())
     out["p2g_bwd"] = dict(
+        **bound(data[3].numel() * 4 + 15 * 4 * n_occ + nbytes(*faces, got), 54 * 14.0 * n_occ),
         max_abs_err=err,
         ms=median_ms(lambda: kernels.p2g_faces_bwd(data, faces[:3], faces[3:], cfg64)),
         plain_ms=median_ms(plain_bwd, PLAIN_REPS_SLOW),
@@ -331,7 +543,9 @@ def backward_kernel_phases(cfg, state) -> dict:
     rels = [max_err(a, b) / float(torch.max(torch.abs(b))) for a, b in zip(got, want)]
     check(max(rels[:3]) < 1e-4 and rels[3] < 1e-5,
           f"g2p_bwd relative errors (u, v, w, position) {rels}: faces >= 1e-4 or position >= 1e-5")
+    n_act = int(state.active.sum())
     out["g2p_bwd"] = dict(
+        **bound(2 * nbytes(grid.u, grid.v, grid.w) + n_act * (12 + 12 + 36 + 12), 54 * 16.0 * n_act),
         max_abs_err=max(max_err(a, b) for a, b in zip(got, want)),
         ms=median_ms(lambda: transfers.g2p_bwd(grid.u, grid.v, grid.w, pos, gv, ga, cfg)),
         plain_ms=median_ms(plain_g2p_bwd, PLAIN_REPS_SLOW),
@@ -363,6 +577,7 @@ def backward_kernel_phases(cfg, state) -> dict:
     b = (torch.randn(l16.fluid.shape, generator=gen, device=device) * levels[0].fluid).to(torch.bfloat16)
     damp = float(torch.tensor(0.8, dtype=torch.bfloat16))
     out["stencil16"] = dict(
+        **bound(nbytes(x, b, x, *multigrid._level_args(l16)), 20.0 * x.numel()),
         max_abs_err=worst,
         ms=median_ms(lambda: multigrid.stencil(l16, x, b, multigrid.MODE_JACOBI, 0.8)),
         plain_ms=median_ms(lambda: multigrid._stencil_torch(l16, x, b, multigrid.MODE_JACOBI, damp)),
@@ -669,9 +884,94 @@ def drive(name: str, fn, needed):
     return result, launches
 
 
-def dam_break_run(device, correct: bool, substeps: int, with_step: bool) -> None:
+# the stages of a substep: (label, module, function)
+STAGES = (
+    ("sort_and_build (two sorts + kernel A)", slotsort, "sort_and_build"),
+    ("p2g_slots (kernel B + overflow scatter + normalize)", transfers, "p2g_slots"),
+    ("pressure.solve (MG-PCG: kernel C, fused V-cycle)", pressure, "solve"),
+    ("apply_pressure", pressure, "apply_pressure"),
+    ("correct_positions (kernel E + overflow pass + gathers)", correction, "correct_positions"),
+    ("extrapolate", extrapolation, "extrapolate"),
+    ("g2p_pic (kernel D)", transfers, "g2p_pic"),
+)
+
+
+def stage_split(state, cfg, n0: int, cg_parts, substeps: int = 3):
+    """`substeps` substeps with a synchronize around each stage: ms per
+    stage (mean), CG iterations and ms per CG iteration, held beside
+    `cg_parts`, the ms of one V-cycle and one operator call. The stages are
+    timed by wrapping the functions `substep` calls, for this run only."""
+    spent = {label: 0.0 for label, _, _ in STAGES}
+    originals = [(mod, name, getattr(mod, name)) for _, mod, name in STAGES]
+
+    def timed(label, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[label] += (time.perf_counter() - t0) * 1e3
+            return result
+        return run
+
+    total, iters = 0.0, 0
+    try:
+        for (label, mod, name), (_, _, fn) in zip(STAGES, originals):
+            setattr(mod, name, timed(label, fn))
+        for i in range(substeps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, diag = sim.substep(state, cfg, DT)
+            torch.cuda.synchronize()
+            total += (time.perf_counter() - t0) * 1e3
+            iters += int(diag.pressure_iterations)
+            healthy(state, diag, cfg, n0, f"staged substep {i}")
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+    rest = total - sum(spent.values())
+    solve = spent[STAGES[2][0]]
+    log(f"128^3 stage split, mean of {substeps} staged substeps: total {total / substeps:.2f} ms, "
+        f"CG {iters / substeps:.2f} iterations a substep, {solve / max(iters, 1):.3f} ms per CG iteration")
+    for label, ms in (*spent.items(), ("advect, collisions, mark cells, gravity, diagnostics", rest)):
+        log(f"  stage {label}: {ms / substeps:.2f} ms ({100.0 * ms / total:.1f} %)")
+    # what a CG iteration is made of: its V-cycle and its operator as timed
+    # alone in phase 3 (outside this path, whose launch counts are its own);
+    # the rest is the loop's vector operations and its host read of the
+    # residual
+    cycle, operator = cg_parts
+    per_it = solve / max(iters, 1)
+    log(f"  a CG iteration of {per_it:.3f} ms: V-cycle {cycle:.3f} ms ({100.0 * cycle / per_it:.0f} %), "
+        f"operator {operator:.3f} ms, the loop's vector operations and host read "
+        f"{per_it - cycle - operator:.3f} ms")
+    return state
+
+
+def busy_share(state, cfg, n0: int):
+    """One substep under torch.profiler: the device's busy share of the
+    wall time and the largest device items."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, diag = sim.substep(state, cfg, DT)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    healthy(state, diag, cfg, n0, "profiled substep")
+    on_device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in on_device) / 1e3
+    check(busy > 0, "torch.profiler saw no device time")
+    log(f"128^3 profiled substep: wall {wall:.1f} ms with {int(diag.pressure_iterations)} CG iterations, "
+        f"device busy {busy:.2f} ms = {100.0 * busy / wall:.1f} % of the wall time; largest device items: "
+        + "; ".join(f"{e.key[:48]} x{e.count} {e.device_time_total / 1e3:.2f} ms"
+                    for e in sorted(on_device, key=lambda e: -e.device_time_total)[:8]))
+    return state
+
+
+def dam_break_run(device, correct: bool, substeps: int, cg_parts=None) -> None:
     """The 128^3 dam-break: one warm-up substep, `substeps` timed ones and,
-    if `with_step`, one CFL step(1/60); then, with correction, the mesh."""
+    given `cg_parts` (see :func:`stage_split`), the stage split, the
+    profiled substep and one CFL step(1/60); then, with correction, the
+    mesh."""
     cfg, state = dam_break(128, device, 1 << 21, correct)
     what = "correction on" if correct else "correction off"
     n0 = int(particle_count(state))
@@ -700,7 +1000,9 @@ def dam_break_run(device, correct: bool, substeps: int, with_step: bool) -> None
         f"{np.mean(per):.1f} ms/substep (mean of {substeps}; median {np.median(per):.1f}), "
         f"peak memory {peak / 2**30:.2f} GiB ({peak} B)")
 
-    if with_step:
+    if cg_parts is not None:
+        state = stage_split(state, cfg, n0, cg_parts)
+        state = busy_share(state, cfg, n0)
         t0 = time.perf_counter()
         state, sdiag = sim.step(state, cfg, 1.0 / 60.0)
         torch.cuda.synchronize()
@@ -755,7 +1057,7 @@ def main() -> None:
 
     cfg, state = dam_break(128, device, 1 << 21)
     state, _ = sim.substep(state, cfg, DT)
-    stats = kernel_phases(cfg, state)
+    stats, cg_parts = kernel_phases(cfg, state)
     stats.update(backward_kernel_phases(cfg, state))
     del state
     torch.cuda.empty_cache()
@@ -766,10 +1068,10 @@ def main() -> None:
     descent_32(device)
     torch.cuda.empty_cache()
     _, launches = drive("main path (128^3, correction on, mesh)",
-                        lambda: dam_break_run(device, True, 5, True), FORWARD_KERNELS)
+                        lambda: dam_break_run(device, True, 5, cg_parts), FORWARD_KERNELS)
     torch.cuda.empty_cache()
-    drive("128^3 correction-off path", lambda: dam_break_run(device, False, 2, False),
-          ("expand", "p2g", "stencil", "g2p"))
+    drive("128^3 correction-off path", lambda: dam_break_run(device, False, 2),
+          ("expand", "p2g", "stencil", *VCYCLE_KERNELS, "g2p"))
     torch.cuda.empty_cache()
     _, grad_launches = drive("128^3 gradient path", lambda: grad_run(device), GRAD_KERNELS)
     torch.cuda.empty_cache()

@@ -22,13 +22,17 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 LIB_PATH = BUILD_DIR / "libfluid_tpu_kernels.so"
 SOURCES = (
-    "expand.cu", "p2g.cu", "p2g_bwd.cu", "stencil.cu", "g2p.cu", "g2p_bwd.cu",
+    "expand.cu", "p2g.cu", "p2g_bwd.cu", "stencil.cu", "vcycle.cu", "g2p.cu", "g2p_bwd.cu",
     "correction.cu", "surface.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
 )
+
+# flags of single sources: the fused V-cycle keeps the plain versions'
+# unfused multiplies and adds
+SOURCE_FLAGS = {"vcycle.cu": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,6 +45,10 @@ SIGNATURES = {
     "lf_p2g_bwd": [_P] * 8 + [_I, _I, _I, _I, _F, _F, _F, _F, _I, _P],
     "lf_stencil": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     "lf_stencil16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
+    "lf_mg_pre": [_P] * 8 + [_I, _I, _I, _F, _F, _P],
+    "lf_mg_restrict": [_P] * 10 + [_I, _I, _I, _F, _P],
+    "lf_mg_up": [_P] * 10 + [_I, _I, _I, _F, _F, _P],
+    "lf_mg_coarse": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _P],
     "lf_g2p": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _F, _F, _F, _F, _P],
     "lf_g2p_bwd": [_P] * 10 + [_LL, _I, _I, _I, _F, _F, _F, _F, _P],
     "lf_correction": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P],
@@ -89,7 +97,7 @@ def build() -> None:
     tag = f"{os.getpid()}.tmp"
     objs = [BUILD_DIR / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
     _run([
-        [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+        [_nvcc(), *NVCC_FLAGS, *SOURCE_FLAGS.get(s, ()), "-c", "-o", str(o), str(CSRC / s)]
         for s, o in zip(SOURCES, objs)
     ])
     tmp = BUILD_DIR / f"{LIB_PATH.name}.{tag}"

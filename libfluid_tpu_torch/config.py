@@ -14,6 +14,20 @@ from typing import Tuple
 import torch
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device a constructor builds on: the CUDA card unless the caller
+    names another (``device="cpu"``, as the tests do). ``device=None`` never
+    falls back to the CPU: without a card it raises."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "device=None selects the CUDA card, but torch.cuda.is_available() is False; "
+            'pass device="cpu" to build on the CPU'
+        )
+    return torch.device("cuda")
+
+
 class TransferScheme(enum.Enum):
     """Particle<->grid transfer scheme."""
 

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from libfluid_tpu_torch import grids
-from libfluid_tpu_torch.config import SimConfig, SolverConfig, TransferScheme
+from libfluid_tpu_torch.config import SimConfig, SolverConfig, TransferScheme, resolve_device
 from libfluid_tpu_torch.sim.state import SimState, empty_sources, make_generator
 
 STATE_KEYS = (
@@ -51,10 +51,12 @@ def config_from_fields(**fields) -> SimConfig:
 
 
 def state_from_numpy(arrays: Mapping[str, np.ndarray], cfg: SimConfig, device=None) -> SimState:
-    """The port's :class:`SimState` on `device` from a flat dict of numpy
+    """The port's :class:`SimState` on `device` (None: the CUDA card; ``"cpu"``
+    on request) from a flat dict of numpy
     arrays (:data:`STATE_KEYS`, plus :data:`GENERATOR_KEY` if present). The
     state has no sources; its generator is restored from the arrays, or
     else seeded from 0 (replace ``generator`` to reseed)."""
+    device = resolve_device(device)
     missing = [k for k in STATE_KEYS if k not in arrays]
     if missing:
         raise KeyError(f"state arrays missing {missing}")

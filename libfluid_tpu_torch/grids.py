@@ -16,7 +16,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from libfluid_tpu_torch.config import CellType, SimConfig
+from libfluid_tpu_torch.config import CellType, SimConfig, resolve_device
 
 
 class MacGrid(NamedTuple):
@@ -31,6 +31,8 @@ class MacGrid(NamedTuple):
 
 
 def zeros(cfg: SimConfig, device=None) -> MacGrid:
+    """An all-air grid at rest on `device` (None: the CUDA card)."""
+    device = resolve_device(device)
     nx, ny, nz = cfg.grid_size
     dt = cfg.dtype
     return MacGrid(

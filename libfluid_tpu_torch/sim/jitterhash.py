@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from libfluid_tpu_torch.config import resolve_device
+
 # lowbias32 constants as int32 (two's-complement wraparound gives the bits
 # of the uint32 original)
 _M1 = 0x7FEB352D
@@ -55,7 +57,9 @@ def jitter_value(seed, gx, gy, gz, slot, comp) -> torch.Tensor:
 
 def jitter_field(seed, kc: int, shape, origin, dtype, device=None) -> torch.Tensor:
     """(3, kc, nx, ny, nz) jitter field over a local grid window whose cell
-    (0, 0, 0) has global coordinates ``origin``."""
+    (0, 0, 0) has global coordinates ``origin``, on `device` (None: the CUDA
+    card)."""
+    device = resolve_device(device)
     nx, ny, nz = shape
     ox, oy, oz = origin
 

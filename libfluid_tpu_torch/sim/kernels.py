@@ -1,7 +1,7 @@
 """Dispatch to the hand-written CUDA kernels, and the wrappers of the P2G
 and correction kernels.
 
-Nine kernels carry the substep, its gradient and the mesher (sources in
+Thirteen kernels carry the substep, its gradient and the mesher (sources in
 ``libfluid_tpu_torch/csrc``):
 
     "expand"      slotsort.expand         slot-grid expand     (csrc/expand.cu)
@@ -9,6 +9,10 @@ Nine kernels carry the substep, its gradient and the mesher (sources in
     "p2g_bwd"     kernels.p2g_faces_bwd   adjoint of P2G       (csrc/p2g_bwd.cu)
     "stencil"     multigrid.stencil       Poisson stencil      (csrc/stencil.cu)
     "stencil16"   multigrid.stencil       the same in bf16     (csrc/stencil.cu)
+    "mg_pre"      multigrid.pre_smooth    V-cycle pre-sweeps   (csrc/vcycle.cu)
+    "mg_restrict" multigrid.restrict_residual  residual + R    (csrc/vcycle.cu)
+    "mg_up"       multigrid.prolong_smooth     P + post-sweeps (csrc/vcycle.cu)
+    "mg_coarse"   multigrid.coarse_cycle  small levels' cycle  (csrc/vcycle.cu)
     "g2p"         transfers.g2p_pic       G2P                  (csrc/g2p.cu)
     "g2p_bwd"     transfers.g2p_bwd       adjoint of G2P       (csrc/g2p_bwd.cu)
     "correction"  correction._springs     correction springs   (csrc/correction.cu)
@@ -31,8 +35,9 @@ from libfluid_tpu_torch.config import SimConfig, TransferScheme
 
 # Kernel launches since the last reset; a wrapper adds one where it launches.
 LAUNCHES = {
-    "expand": 0, "p2g": 0, "p2g_bwd": 0, "stencil": 0, "stencil16": 0, "g2p": 0,
-    "g2p_bwd": 0, "correction": 0, "surface": 0,
+    "expand": 0, "p2g": 0, "p2g_bwd": 0, "stencil": 0, "stencil16": 0, "mg_pre": 0,
+    "mg_restrict": 0, "mg_up": 0, "mg_coarse": 0, "g2p": 0, "g2p_bwd": 0, "correction": 0,
+    "surface": 0,
 }
 
 
@@ -182,13 +187,16 @@ def correction_springs(
     version.
 
     Replaces ``libfluid_tpu/sim/kernels.py:correction_springs_pallas``.
-    CUDA: ``csrc/correction.cu``. The slot grid's position and mask columns
-    are contiguous when KC is the slot capacity; otherwise this takes one
-    contiguous copy of each.
+    CUDA: ``csrc/correction.cu``, one block per tile of cells with the
+    tile's and its halo's occupied slots in shared memory; KC <= 32. The
+    slot grid's position and mask columns are contiguous when KC is the slot
+    capacity; otherwise this takes one contiguous copy of each.
     """
     if not use_kernel(res_pos, res_mask):
         raise ValueError(f"correction_springs takes CUDA tensors, got {res_pos.device}")
     kc, nx, ny, nz = res_mask.shape
+    if not 1 <= kc <= 32:
+        raise ValueError(f"correction kernel takes 1 to 32 slots a cell, got {kc}")
     res_pos = res_pos.contiguous()
     res_mask = res_mask.contiguous()
     check(res_pos, torch.float32, (3, kc, nx, ny, nz), "res_pos")

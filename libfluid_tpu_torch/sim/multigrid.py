@@ -3,14 +3,17 @@
 
 A matrix-free V-cycle: 2x coarsening with cell-type rediscretization,
 damped-Jacobi smoothing, cell-centred trilinear prolongation P and its exact
-transpose R = P^T / 8 as restriction, per-level operator scale 4^-l. Every
-apply, smoothing sweep and residual is one pass of the masked 7-point
-stencil (:func:`stencil`, kernel C), on every level, in float32 or, for the
-"mg16" preconditioner, in bfloat16.
+transpose R = P^T / 8 as restriction, per-level operator scale 4^-l. One
+pass of the masked 7-point stencil (:func:`stencil`, kernel C) is the CG
+operator and, in bfloat16, every sweep of the "mg16" cycle
+(:func:`v_cycle_per_pass`). The float32 cycle (:func:`v_cycle`) is fused
+into four stage kernels (``csrc/vcycle.cu``), each with its plain version
+here; on CPU tensors the cycle is composed of exactly those plain stages.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import List, NamedTuple, Tuple
 
 import torch
@@ -19,6 +22,7 @@ from libfluid_tpu_torch.config import CellType
 from libfluid_tpu_torch.grids import pad1
 from libfluid_tpu_torch.sim import kernels
 
+_MAX_LEVELS = 6  # of a hierarchy, and of the coarse kernel's argument block
 _SMOOTH_DAMP = 0.8  # damped-Jacobi weight
 _PRE_SMOOTH = 2
 _POST_SMOOTH = 2
@@ -84,17 +88,24 @@ def _coarsen_types(ct: torch.Tensor) -> torch.Tensor:
     return out
 
 
+class Hierarchy(tuple):
+    """The levels of :func:`build_levels`, finest first: a tuple that
+    remembers once the fused kernels' wrappers have checked its arrays."""
+
+    fused_checked = False
+
+
 def build_levels(cell_type: torch.Tensor, dtype=torch.float32) -> Tuple[MGLevel, ...]:
     levels: List[MGLevel] = []
     ct = cell_type
     scale = 1.0
     while True:
         levels.append(_operator_from_types(ct, scale, dtype))
-        if min(ct.shape) <= _MIN_SIZE or len(levels) >= 6:
+        if min(ct.shape) <= _MIN_SIZE or len(levels) >= _MAX_LEVELS:
             break
         ct = _coarsen_types(ct)
         scale *= 0.25
-    return tuple(levels)
+    return Hierarchy(levels)
 
 
 # ---------------------------------------------------------------------------
@@ -253,14 +264,243 @@ def _prolong(e_c: torch.Tensor, fine_shape) -> torch.Tensor:
     return e[: fine_shape[0], : fine_shape[1], : fine_shape[2]]
 
 
-def v_cycle(levels: Tuple[MGLevel, ...], b: torch.Tensor, l: int = 0) -> torch.Tensor:
+def v_cycle_per_pass(levels: Tuple[MGLevel, ...], b: torch.Tensor, l: int = 0) -> torch.Tensor:
+    """The V-cycle as one stencil pass per launch with PyTorch ops between
+    the passes: the bfloat16 ("mg16") cycle, whose passes are kernel
+    "stencil16", and the yardstick the fused float32 cycle is timed against."""
     level = levels[l]
     if l == len(levels) - 1:
         return _smooth(level, torch.zeros_like(b), b, _COARSE_ITERS)
     x = _smooth(level, torch.zeros_like(b), b, _PRE_SMOOTH)
     r = residual(level, x, b)
     rc = _restrict(levels[l + 1], r)
-    ec = v_cycle(levels, rc, l + 1)
+    ec = v_cycle_per_pass(levels, rc, l + 1)
     x = x + _prolong(ec, b.shape) * level.fluid
     x = _smooth(level, x, b, _POST_SMOOTH)
     return x
+
+
+# ---------------------------------------------------------------------------
+# Kernel C, fused: the float32 V-cycle in stages (csrc/vcycle.cu)
+# ---------------------------------------------------------------------------
+
+# A level of at most this many cells, and every level below it, runs inside
+# the one-block kernel "mg_coarse"; the larger levels above take "mg_pre",
+# "mg_restrict" and "mg_up", one launch each. The last level is always
+# coarse; "mg_coarse" sweeps its levels out of device memory with one block,
+# and a level above _COARSE_CELLS_MAX cells is refused (a hierarchy that
+# ends so large: a thin slab, or more than _MAX_LEVELS halvings to go).
+_COARSE_CELLS = 16 * 16 * 16
+_COARSE_CELLS_MAX = 32 * 32 * 32
+
+
+def _smooth_plain(level: MGLevel, x: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:
+    for _ in range(iters):
+        x = _stencil_torch(level, x, b, MODE_JACOBI, _SMOOTH_DAMP)
+    return x * level.fluid
+
+
+def _pre_torch(level: MGLevel, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`pre_smooth`."""
+    return _smooth_plain(level, torch.zeros_like(b), b, _PRE_SMOOTH)
+
+
+def _restrict_residual_torch(level: MGLevel, level_c: MGLevel, x, b) -> torch.Tensor:
+    """Plain version of :func:`restrict_residual`."""
+    r = _stencil_torch(level, x, b, MODE_RESIDUAL, 0.0) * level.fluid
+    return _restrict(level_c, r)
+
+
+def _up_torch(level: MGLevel, x, ec, b) -> torch.Tensor:
+    """Plain version of :func:`prolong_smooth`."""
+    x = x + _prolong(ec, b.shape) * level.fluid
+    return _smooth_plain(level, x, b, _POST_SMOOTH)
+
+
+def _coarse_torch(levels: Tuple[MGLevel, ...], b: torch.Tensor, l: int) -> torch.Tensor:
+    """Plain version of :func:`coarse_cycle`: the sub-cycle from level `l`
+    down, out of the plain stage functions."""
+    level = levels[l]
+    if l == len(levels) - 1:
+        return _smooth_plain(level, torch.zeros_like(b), b, _COARSE_ITERS)
+    x = _pre_torch(level, b)
+    rc = _restrict_residual_torch(level, levels[l + 1], x, b)
+    ec = _coarse_torch(levels, rc, l + 1)
+    return _up_torch(level, x, ec, b)
+
+
+def _coarse_shape(shape) -> Tuple[int, ...]:
+    return tuple((n + 1) // 2 for n in shape)
+
+
+def _check_level(level: MGLevel, name: str = "level") -> Tuple[int, int, int]:
+    """Raise unless the level's arrays are what the fused kernels take."""
+    nx, ny, nz = cell = tuple(level.fluid.shape)
+    if nx * ny * nz >= 1 << 30:
+        raise ValueError(f"{name}: {cell} cells, the fused kernels index with 32 bits")
+    for arg, t in (("diag", level.diag), ("inv_diag", level.inv_diag), ("fluid", level.fluid)):
+        kernels.check(t, torch.float32, cell, f"{name}.{arg}")
+    kernels.check(level.couple_u, torch.float32, (nx + 1, ny, nz), f"{name}.couple_u")
+    kernels.check(level.couple_v, torch.float32, (nx, ny + 1, nz), f"{name}.couple_v")
+    kernels.check(level.couple_w, torch.float32, (nx, ny, nz + 1), f"{name}.couple_w")
+    return cell
+
+
+def _check_hierarchy(levels: Tuple[MGLevel, ...]) -> None:
+    """Raise unless every level is what the fused kernels take and each is
+    the 2x coarsening of the one above. A :class:`Hierarchy` is checked
+    once."""
+    if getattr(levels, "fused_checked", False):
+        return
+    if (_PRE_SMOOTH, _POST_SMOOTH) != (2, 2):
+        raise RuntimeError("the fused V-cycle kernels are written for 2 pre- and 2 post-sweeps")
+    cells = [_check_level(lev, f"level {i}") for i, lev in enumerate(levels)]
+    for fine, coarse in zip(cells, cells[1:]):
+        if coarse != _coarse_shape(fine):
+            raise ValueError(f"level {coarse} is not the 2x coarsening of {fine}")
+    if isinstance(levels, Hierarchy):
+        levels.fused_checked = True
+
+
+def _check_coarse(sub: Tuple[MGLevel, ...]) -> None:
+    """Raise unless the one-block kernel takes these levels."""
+    if len(sub) > _MAX_LEVELS:
+        raise ValueError(f"mg_coarse takes at most {_MAX_LEVELS} levels, got {len(sub)}")
+    cells = tuple(sub[0].fluid.shape)
+    if sub[0].fluid.numel() > _COARSE_CELLS_MAX:
+        raise ValueError(f"mg_coarse takes levels of at most {_COARSE_CELLS_MAX} cells, got {cells}: "
+                         "the hierarchy's last level is too large for one block")
+
+
+def _level_args(level: MGLevel):
+    return (level.diag, level.inv_diag, level.fluid, level.couple_u, level.couple_v,
+            level.couple_w)
+
+
+# The launchers: arguments already checked, outputs allocated here.
+
+
+def _launch_pre(level: MGLevel, b: torch.Tensor) -> torch.Tensor:
+    out = torch.empty_like(b)
+    kernels.launch("mg_pre", "lf_mg_pre", b, *_level_args(level), out, *b.shape,
+                   _SMOOTH_DAMP, level.scale)
+    return out
+
+
+def _launch_restrict(level: MGLevel, level_c: MGLevel, x, b) -> torch.Tensor:
+    rc = torch.empty_like(level_c.fluid)
+    kernels.launch("mg_restrict", "lf_mg_restrict", x, b, *_level_args(level), level_c.fluid, rc,
+                   *b.shape, level.scale)
+    return rc
+
+
+def _launch_up(level: MGLevel, x, ec, b) -> torch.Tensor:
+    out = torch.empty_like(b)
+    kernels.launch("mg_up", "lf_mg_up", x, ec, b, *_level_args(level), out, *b.shape,
+                   _SMOOTH_DAMP, level.scale)
+    return out
+
+
+def _launch_coarse(levels: Tuple[MGLevel, ...], b: torch.Tensor, l: int) -> torch.Tensor:
+    sub = levels[l:]
+    _check_coarse(sub)
+    sizes = [lev.fluid.numel() for lev in sub]
+    # xa and xb of every level, and the right-hand sides below the first
+    scratch = torch.empty(3 * sum(sizes) - sizes[0], dtype=torch.float32, device=b.device)
+    out = torch.empty_like(b)
+    arrays = (ctypes.c_void_p * (6 * len(sub)))(
+        *(t.data_ptr() for lev in sub for t in _level_args(lev)))
+    dims = (ctypes.c_int * (3 * len(sub)))(*(n for lev in sub for n in lev.fluid.shape))
+    scales = (ctypes.c_float * len(sub))(*(lev.scale for lev in sub))
+    kernels.launch("mg_coarse", "lf_mg_coarse", b, arrays, dims, scales, len(sub), scratch, out,
+                   _PRE_SMOOTH, _POST_SMOOTH, _COARSE_ITERS, _SMOOTH_DAMP)
+    return out
+
+
+def pre_smooth(level: MGLevel, b: torch.Tensor) -> torch.Tensor:
+    """Down leg, first half: the pre-sweeps from x = 0, masked
+    (``_smooth(level, 0, b, _PRE_SMOOTH)`` of the JAX package). CUDA:
+    "mg_pre" of ``csrc/vcycle.cu``; CPU: :func:`_pre_torch`."""
+    if not kernels.use_kernel(b, level.fluid):
+        return _pre_torch(level, b)
+    _check_hierarchy((level,))
+    kernels.check(b, torch.float32, level.fluid.shape, "b")
+    return _launch_pre(level, b)
+
+
+def restrict_residual(level: MGLevel, level_c: MGLevel, x: torch.Tensor,
+                      b: torch.Tensor) -> torch.Tensor:
+    """Down leg, second half: ``_restrict(level_c, residual(level, x, b))``
+    of the JAX package, the residual kept on the chip. CUDA: "mg_restrict";
+    CPU: :func:`_restrict_residual_torch`."""
+    if not kernels.use_kernel(x, b, level.fluid, level_c.fluid):
+        return _restrict_residual_torch(level, level_c, x, b)
+    _check_hierarchy((level, level_c))
+    kernels.check(x, torch.float32, level.fluid.shape, "x")
+    kernels.check(b, torch.float32, level.fluid.shape, "b")
+    return _launch_restrict(level, level_c, x, b)
+
+
+def prolong_smooth(level: MGLevel, x: torch.Tensor, ec: torch.Tensor,
+                   b: torch.Tensor) -> torch.Tensor:
+    """Up leg: ``_smooth(level, x + _prolong(ec) * fluid, b, _POST_SMOOTH)``
+    of the JAX package. CUDA: "mg_up"; CPU: :func:`_up_torch`."""
+    if not kernels.use_kernel(x, ec, b, level.fluid):
+        return _up_torch(level, x, ec, b)
+    _check_hierarchy((level,))
+    kernels.check(x, torch.float32, level.fluid.shape, "x")
+    kernels.check(b, torch.float32, level.fluid.shape, "b")
+    kernels.check(ec, torch.float32, _coarse_shape(level.fluid.shape), "ec")
+    return _launch_up(level, x, ec, b)
+
+
+def coarse_cycle(levels: Tuple[MGLevel, ...], b: torch.Tensor, l: int) -> torch.Tensor:
+    """``v_cycle(levels, b, l)`` of the JAX package for the small levels:
+    the whole sub-cycle from level `l` down, the coarsest level's sweeps
+    included. CUDA: "mg_coarse", one launch of one block; CPU:
+    :func:`_coarse_torch`."""
+    if not kernels.use_kernel(b, *(lev.fluid for lev in levels[l:])):
+        return _coarse_torch(levels, b, l)
+    _check_hierarchy(levels)
+    kernels.check(b, torch.float32, levels[l].fluid.shape, "b")
+    return _launch_coarse(levels, b, l)
+
+
+def first_coarse_level(levels: Tuple[MGLevel, ...]) -> int:
+    """The first level that :func:`coarse_cycle` takes."""
+    for l, lev in enumerate(levels):
+        if lev.fluid.numel() <= _COARSE_CELLS:
+            return l
+    return len(levels) - 1
+
+
+def v_cycle(levels: Tuple[MGLevel, ...], b: torch.Tensor, l: int = 0) -> torch.Tensor:
+    """One V-cycle from x = 0: the preconditioner M^-1 b up to the operator
+    scale (port of ``multigrid.v_cycle``).
+
+    In float32 the cycle is composed of the four stages :func:`pre_smooth`,
+    :func:`restrict_residual`, :func:`coarse_cycle` and
+    :func:`prolong_smooth`: on CUDA tensors these are the fused kernels of
+    ``csrc/vcycle.cu`` and nothing runs between them but the allocation of
+    their outputs (3 launches per large level and 1 for the small levels);
+    on CPU tensors, their plain versions. The bfloat16 cycle of "mg16" runs
+    :func:`v_cycle_per_pass`.
+    """
+    if b.dtype == torch.bfloat16:
+        return v_cycle_per_pass(levels, b, l)
+    coarse = max(l, first_coarse_level(levels))
+    if kernels.use_kernel(b, levels[l].fluid):
+        # the hierarchy is checked once; below, the kernels' own outputs
+        _check_hierarchy(levels)
+        kernels.check(b, torch.float32, levels[l].fluid.shape, "b")
+        pre, down, up, bottom = _launch_pre, _launch_restrict, _launch_up, _launch_coarse
+    else:
+        pre, down, up, bottom = _pre_torch, _restrict_residual_torch, _up_torch, _coarse_torch
+    xs, bs = [], [b]
+    for m in range(l, coarse):
+        xs.append(pre(levels[m], bs[-1]))
+        bs.append(down(levels[m], levels[m + 1], xs[-1], bs[-1]))
+    e = bottom(levels, bs.pop(), coarse)
+    for m in reversed(range(l, coarse)):
+        e = up(levels[m], xs.pop(), e, bs.pop())
+    return e

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from libfluid_tpu_torch import grids
-from libfluid_tpu_torch.config import SimConfig
+from libfluid_tpu_torch.config import SimConfig, resolve_device
 from libfluid_tpu_torch.sim.state import SimState, SourceSet
 
 MAX_SEED_PER_CELL = 8  # = default seeding density 2^3
@@ -105,8 +105,9 @@ def seed_sources(state: SimState, occupancy: torch.Tensor, cfg: SimConfig) -> Si
 def make_source_set(
     cells, velocity, active=True, coerce_velocity=False, target_density=2, device=None
 ) -> SourceSet:
-    """A SourceSet from host data; `cells` is (S, 3) int, `velocity` either
-    (3,) shared or (S, 3)."""
+    """A SourceSet on `device` (None: the CUDA card) from host data; `cells`
+    is (S, 3) int, `velocity` either (3,) shared or (S, 3)."""
+    device = resolve_device(device)
     cells = np.asarray(cells, np.int32).reshape(-1, 3)
     s = cells.shape[0]
     vel = np.broadcast_to(np.asarray(velocity, np.float32), (s, 3))

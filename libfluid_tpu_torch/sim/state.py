@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from libfluid_tpu_torch import grids
-from libfluid_tpu_torch.config import CellType, SimConfig
+from libfluid_tpu_torch.config import CellType, SimConfig, resolve_device
 
 
 class SourceSet(NamedTuple):
@@ -29,6 +29,8 @@ class SourceSet(NamedTuple):
 
 
 def empty_sources(device=None) -> SourceSet:
+    """No sources, on `device` (None: the CUDA card)."""
+    device = resolve_device(device)
     return SourceSet(
         cells=torch.zeros((0, 3), dtype=torch.int32, device=device),
         velocity=torch.zeros((0, 3), dtype=torch.float32, device=device),
@@ -59,10 +61,12 @@ def make_generator(seed: int) -> torch.Generator:
 
 
 def new_state(cfg: SimConfig, device=None, generator: int = 0) -> SimState:
-    """An empty state on `device` whose CPU generator, seeded from
+    """An empty state on `device` (None: the CUDA card; ``"cpu"`` on
+    request) whose CPU generator, seeded from
     `generator`, draws the substeps' random numbers (source seeding, the
     correction jitter seed). States derived from this one share the
     generator, not a copy of it; each draw advances it."""
+    device = resolve_device(device)
     n = cfg.particle_capacity
     dt = cfg.dtype
     return SimState(

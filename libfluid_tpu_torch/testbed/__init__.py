@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from libfluid_tpu_torch.config import MesherConfig, SimConfig, TransferScheme
+from libfluid_tpu_torch.config import MesherConfig, SimConfig, TransferScheme, resolve_device
 from libfluid_tpu_torch.sim import SimState, new_state, seed_box, seed_sphere
 from libfluid_tpu_torch.sim.sources import make_source_set
 from libfluid_tpu_torch.sim.state import set_solid
@@ -50,8 +50,10 @@ def default_config(setup: int, capacity: Optional[int] = None, **overrides) -> S
 def build_setup(
     setup: int, cfg: Optional[SimConfig] = None, seed: int = 0, device=None
 ) -> Tuple[SimConfig, SimState]:
-    """Initial state on `device` for testbed scenario 0-4; `seed` seeds the
-    particle jitter and the state's generator."""
+    """Initial state on `device` (None: the CUDA card; ``"cpu"`` on request)
+    for testbed scenario 0-4; `seed` seeds the particle jitter and the
+    state's generator."""
+    device = resolve_device(device)
     if setup not in SETUP_NAMES:
         raise ValueError(f"unknown setup {setup}; choose from {sorted(SETUP_NAMES)}")
     cfg = cfg or default_config(setup)

@@ -19,6 +19,8 @@ import time
 import numpy as np
 import torch
 
+from libfluid_tpu_torch.config import resolve_device
+
 
 def _log(*a):
     print(*a, flush=True)
@@ -89,9 +91,7 @@ def run_sim(args) -> int:
         raise NotImplementedError(
             "--render-every needs the renderer, which is not ported yet (ROADMAP: the renderer)"
         )
-    if not torch.cuda.is_available():
-        raise RuntimeError("the testbed runs on a CUDA device; torch.cuda.is_available() is False")
-    device = torch.device("cuda")
+    device = resolve_device(None)  # the card; raises where there is none
     cfg, state = build_setup(args.setup, seed=args.seed, device=device)
     _log(f"setup {args.setup}: {SETUP_NAMES[args.setup]}")
     _log(

@@ -52,7 +52,7 @@ def test_jitter_bits_equal_jax():
 @pytest.mark.parametrize("origin", [(0, 0, 0), (5, -3, 1000)])
 def test_jitter_field_equal_jax(origin):
     want = np.asarray(jitterhash.jitter_field(987654321, 7, (6, 5, 4), origin, jnp.float32))
-    got = t_jitterhash.jitter_field(987654321, 7, (6, 5, 4), origin, torch.float32).numpy()
+    got = t_jitterhash.jitter_field(987654321, 7, (6, 5, 4), origin, torch.float32, "cpu").numpy()
     np.testing.assert_array_equal(got, want)
 
 
@@ -94,6 +94,45 @@ def test_springs_match_jax(kc, h):
     no_jitter = np.asarray(correction._springs_jnp(jnp.asarray(pos), jnp.asarray(mask), re2,
                                                    jnp.int32(54321), cfg))
     assert np.max(np.abs(no_jitter - want)) > 1e-3
+
+
+def test_springs_across_tile_edges_match_jax():
+    """Particles only in cells 3, 4 and 7, 8 along each axis, the rest of the
+    grid empty: the clusters straddle the edges of the CUDA kernel's 4x4x8
+    cell tiles, so a slot's pairs lie in the neighbouring tile's cells, which
+    a tile has to see as its halo; the empty region gives 0."""
+    kc, h, shape = 6, 1.0, (12, 12, 16)
+    cfg = SimConfig(grid_size=shape, cell_size=h, particle_capacity=64)
+    tcfg = convert.config_from_fields(**vars(cfg))
+    pos, mask = _slot_fixture(kc, shape=shape, h=h, seed=13)
+    on = [np.isin(np.arange(n), (3, 4, 7, 8)) for n in shape]
+    keep = on[0][:, None, None] & on[1][None, :, None] & on[2][None, None, :]
+    mask = mask * keep[None]
+    mask[0, 3:5, 3:5, 7:9] = 1.0  # both sides of every edge are occupied
+    pos = (pos + (pos == 0) * (np.stack(np.meshgrid(
+        *(np.arange(n) for n in shape), indexing="ij"))[:, None] + 0.5) * h).astype(np.float32)
+    # two pairs a fifth of a cell apart, across x = 4 and across z = 8
+    pairs = (((3, 3, 7), (3.9, 3.5, 7.5), (4, 3, 7), (4.1, 3.5, 7.5)),
+             ((4, 4, 7), (4.5, 4.5, 7.9), (4, 4, 8), (4.5, 4.5, 8.1)))
+    for near, at_near, far, at_far in pairs:
+        pos[(slice(None), 0, *near)] = at_near
+        pos[(slice(None), 0, *far)] = at_far
+    pos = pos * mask[None]
+    re2 = h * h / 2.0
+    want = np.asarray(correction._springs_jnp(jnp.asarray(pos), jnp.asarray(mask), re2,
+                                              jnp.int32(777), cfg))
+    got = t_correction._springs(_t(pos), _t(mask), 777, (0, 0, 0), re2, tcfg).numpy()
+    err = np.max(np.abs(got - want)) / (100.0 * np.max(np.abs(pos)))
+    assert err < 2e-6, err
+    assert not got[:, :, ~keep].any()
+    # a slot of cell 3 feels cell 4 (across x = 4) and one of cell 7 feels
+    # cell 8 along z (across z = 8): emptying the far cell changes its spring
+    for near, _, far, _ in pairs:
+        alone = mask.copy()
+        alone[(slice(None), *far)] = 0.0
+        lone = t_correction._springs(_t(pos * alone[None]), _t(alone), 777, (0, 0, 0), re2,
+                                     tcfg).numpy()
+        assert np.abs(lone[(slice(None), 0, *near)] - got[(slice(None), 0, *near)]).max() > 1e-4
 
 
 def _crowded_state(n_extra):

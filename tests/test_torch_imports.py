@@ -76,7 +76,7 @@ def test_default_options_run():
     a source run substep and step, and the state meshes."""
     cfg = SimConfig(grid_size=(8, 8, 8), particle_capacity=512)
     assert cfg.enable_position_correction and cfg.has_obstacles
-    state = _state(cfg)._replace(sources=sources.make_source_set([[6, 6, 6]], (0.0, -5.0, 0.0)))
+    state = _state(cfg)._replace(sources=sources.make_source_set([[6, 6, 6]], (0.0, -5.0, 0.0), device="cpu"))
     n0 = int(state.active.sum())
     state, diag = sim.substep(state, cfg, 0.01)
     state, diag = sim.step(state, cfg, 0.02)
@@ -118,3 +118,44 @@ def test_wrappers_dispatch_by_device():
     with pytest.raises(RuntimeError):
         sample_surface(torch.empty((4, 3), device="meta"),
                        torch.empty(4, dtype=torch.bool, device="meta"), MesherConfig())
+
+
+def _constructors():
+    """name -> constructor taking only `device`, one per constructor that
+    allocates the port's tensors."""
+    import numpy as np
+
+    from libfluid_tpu_torch import convert, grids, testbed
+    from libfluid_tpu_torch.sim import jitterhash, state as state_mod
+
+    cfg = _cfg()
+    arrays = convert.state_to_numpy(sim.new_state(cfg, "cpu"))
+    return {
+        "new_state": lambda device: sim.new_state(cfg, device).position,
+        "empty_sources": lambda device: state_mod.empty_sources(device).cells,
+        "grids.zeros": lambda device: grids.zeros(cfg, device).u,
+        "state_from_numpy": lambda device: convert.state_from_numpy(arrays, cfg, device).position,
+        "build_setup": lambda device: testbed.build_setup(
+            4, testbed.default_config(4, capacity=1 << 12), device=device)[1].sources.cells,
+        "make_source_set": lambda device: sources.make_source_set(
+            np.array([[1, 2, 3]]), (0.0, 1.0, 0.0), device=device).cells,
+        "jitter_field": lambda device: jitterhash.jitter_field(
+            7, 2, (3, 3, 3), (0, 0, 0), torch.float32, device),
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "new_state", "empty_sources", "grids.zeros", "state_from_numpy", "build_setup",
+    "make_source_set", "jitter_field",
+])
+def test_constructors_default_to_the_card(name):
+    """``device=None`` is the CUDA card and never the CPU: without a card it
+    raises a RuntimeError that names the argument; ``"cpu"`` builds on the
+    CPU."""
+    make = _constructors()[name]
+    assert make("cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert make(None).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device=None"):
+            make(None)

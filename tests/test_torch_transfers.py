@@ -152,7 +152,7 @@ def test_g2p_pic_matches_jax():
     want_v, want_a = transfers.g2p_pic(
         g._replace(u=jnp.asarray(u), v=jnp.asarray(v), w=jnp.asarray(w)), jnp.asarray(pos), cfg
     )
-    tg = t_grids.zeros(tcfg)._replace(u=_t(u), v=_t(v), w=_t(w))
+    tg = t_grids.zeros(tcfg, "cpu")._replace(u=_t(u), v=_t(v), w=_t(w))
     got_v, got_a = t_transfers.g2p_pic(tg, _t(pos), tcfg)
     np.testing.assert_allclose(got_v.numpy(), np.asarray(want_v), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(got_a.numpy(), np.asarray(want_a), rtol=1e-5, atol=1e-5)
