@@ -20,9 +20,13 @@ Phases, one line of output each (or a few):
    the per-pass and the plain cycle and the launches of one cycle; the
    host-clock ms of one V-cycle and one operator call, the kernels of a CG
    iteration; CG iterations of a substep with the fused and with the
-   per-pass cycle; kernel E also at 16 and 32 slots a cell;
+   per-pass cycle; kernel E also at 16 and 32 slots a cell; kernels B and F
+   also on grids no tile divides (B at 5, 12 and 32 slots a cell, F with a
+   support of 1, 2 and 4 cells and a crammed bin), two launches bit-equal,
+   and with the device's own time beside the event medians;
    then the backward kernels B' (at 64^3: the plain autograd of P2G does
-   not fit the card at 128^3) and D' (at 128^3) against the autograd of
+   not fit the card at 128^3; its time and bound also at 128^3) and D' (at
+   128^3) against the autograd of
    their plain versions, and kernel C's bfloat16 instance against the
    plain bfloat16 stencil on every level and mode;
 4. a seeded 32^3 dam-break with position correction off, and a 32^3 scene
@@ -324,6 +328,105 @@ def correction_many_slots(device) -> None:
         + ", ".join(f"{e:.3e} with {kc} slots a cell" for kc, e in errs.items()) + " (< 2e-6)")
 
 
+def p2g_odd_shapes(device) -> None:
+    """Kernel B away from the main path's shapes: a grid no tile divides,
+    a cell size and offset that are not 1 and 0, 5, 12 and 32 slots a cell
+    (32 fills more than one shared-memory chunk), slots that are not
+    prefix-dense, a third of the grid empty, one cell full, APIC and PIC;
+    each against the plain version, and two launches bit-equal."""
+    shape = (20, 18, 28)
+    gen = torch.Generator(device=device).manual_seed(7)
+    cell = torch.stack(torch.meshgrid(
+        *(torch.arange(n, device=device, dtype=torch.float32) for n in shape), indexing="ij"))
+    errs = {}
+    for scheme in (TransferScheme.APIC, TransferScheme.PIC):
+        for k in (5, 12, 32):
+            cfg = SimConfig(grid_size=shape, cell_size=0.7, grid_offset=(0.3, -0.2, 0.1),
+                            scheme=scheme, max_neighbors_per_cell=k, particle_capacity=8)
+            mask = (torch.rand((k, *shape), generator=gen, device=device) < 0.4).float()
+            mask[..., : shape[2] // 3] = 0.0
+            mask[:, 7, 5, 15] = 1.0
+            off = torch.tensor(cfg.grid_offset, device=device).reshape(3, 1, 1, 1, 1)
+            pos = (cell[:, None] + torch.rand((3, k, *shape), generator=gen, device=device)) * 0.7 + off
+            rest = torch.randn((12, k, *shape), generator=gen, device=device)
+            rest[3:] *= 0.2
+            data = (torch.cat([pos, mask[None], rest]) * mask[None]).contiguous()
+            kn, kd = kernels.p2g_faces(data, cfg)
+            kn2, kd2 = kernels.p2g_faces(data, cfg)
+            check(all(torch.equal(a, b) for a, b in zip((*kn, *kd), (*kn2, *kd2))),
+                  f"p2g with {k} slots a cell, {scheme.name}: two launches differ")
+            pn, pd = transfers._p2g_slots_torch(data, cfg)
+            err = 0.0
+            for a in range(3):
+                po = transfers._normalize(pn[a], pd[a])
+                err = max(err, max_err(transfers._normalize(kn[a], kd[a]), po)
+                          / (float(torch.max(torch.abs(po))) + 1e-9))
+            errs[f"{scheme.name} {k}"] = err
+            check(err < 2e-5, f"p2g with {k} slots a cell, {scheme.name}: normalized error {err} >= 2e-5")
+    log(f"kernel p2g, odd shapes at {shape}, cell 0.7: normalized error "
+        + ", ".join(f"{e:.3e} ({what} slots a cell)" for what, e in errs.items())
+        + " (< 2e-5), two launches bit-equal")
+
+
+def surface_odd_shapes(device) -> None:
+    """Kernel F away from the main path's shapes: a node grid no tile
+    divides, a support of 1, 2 and 4 cells, inactive particles, particles
+    outside the grid within and beyond the padding, one bin of 5,000
+    particles (more than one shared-memory chunk), half the grid empty; each
+    against the plain version, and two launches bit-equal."""
+    grid, h, origin = (37, 30, 45), 0.5, (-1.0, 0.5, 0.25)
+    gen = torch.Generator(device=device).manual_seed(11)
+    lo = torch.tensor(origin, device=device)
+    size = torch.tensor(grid, device=device) * h
+    fluid = lo + torch.rand((200_000, 3), generator=gen, device=device) * size * torch.tensor(
+        [0.5, 1.0, 1.0], device=device)
+    # around the fluid's half of the grid, up to 3 units outside it
+    around = lo - 3.0 + torch.rand((20_000, 3), generator=gen, device=device) * (
+        size * torch.tensor([0.5, 1.0, 1.0], device=device) + 6.0)
+    crammed = lo + (torch.tensor([5.0, 17.0, 30.0], device=device)
+                    + torch.rand((5_000, 3), generator=gen, device=device)) * h
+    pos = torch.cat([fluid, around, crammed]).contiguous()
+    act = torch.arange(pos.shape[0], device=device) % 7 != 0
+    errs = {}
+    for extent in (0.5, 1.0, 2.0):
+        cfg = MesherConfig(grid_size=grid, cell_size=h, grid_offset=origin, particle_extent=extent,
+                           particle_radius=extent / 4.0)
+        got = surface.sample_surface(pos, act, cfg)
+        check(torch.equal(got, surface.sample_surface(pos, act, cfg)),
+              f"surface with extent {extent}: two launches differ")
+        want = surface._sample_surface_torch(pos, act, cfg)
+        errs[extent] = max_err(got, want)
+        check(errs[extent] < 2e-3, f"surface with extent {extent}: max abs error {errs[extent]} >= 2e-3")
+        check(bool((want < 0).any()) and bool((want == 1.0).any()),
+              f"surface with extent {extent}: no node inside the fluid, or none away from it")
+    log(f"kernel surface, odd shapes at {tuple(n + 1 for n in grid)} nodes from {pos.shape[0]} "
+        f"particles: max abs error "
+        + ", ".join(f"{e:.3e} (support {round(x / h)} cells)" for x, e in errs.items())
+        + " (< 2e-3), two launches bit-equal")
+
+
+def device_ms(fn, kernel: str, reps: int = 5) -> str:
+    """The device's own time for one launch of the CUDA kernel whose name
+    contains `kernel`, from torch.profiler over `reps` calls of `fn` (an
+    event median around a wrapper carries the launch path and whatever
+    else the wrapper runs), as text. The profiler now and then misses
+    launches of a window: the mean is over those it saw, after up to three
+    windows, and "not measured" if it saw none."""
+    fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        items = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
+        count = sum(e.count for e in items)
+        if count:
+            return f"{sum(e.device_time_total for e in items) / 1e3 / count:.4f} ms"
+    return "not measured"
+
+
 def kernel_phases(cfg, state):
     """Each kernel against its plain version at the main path's shapes.
     Returns the kernels' records and the host-clock ms of the two parts of a
@@ -367,8 +470,10 @@ def kernel_phases(cfg, state):
         ms=median_ms(lambda: kernels.p2g_faces(data, cfg)),
         plain_ms=median_ms(lambda: transfers._p2g_slots_torch(data, cfg)),
     )
-    log(f"kernel p2g: normalized error {max(errs):.3e} (< 2e-5), {out['p2g']}")
+    log(f"kernel p2g: normalized error {max(errs):.3e} (< 2e-5), {out['p2g']}; the device's own "
+        f"time {device_ms(lambda: kernels.p2g_faces(data, cfg), 'p2g_kernel')} (torch.profiler)")
     del data, rs
+    p2g_odd_shapes(state.position.device)
 
     levels = multigrid.build_levels(state.grid.cell_type)
     gen = torch.Generator(device=state.position.device).manual_seed(0)
@@ -470,8 +575,12 @@ def kernel_phases(cfg, state):
     )
     bin_ms = median_ms(lambda: surface.bin_particles(pos, act, MESH_128))
     log(f"kernel surface: {tuple(got.shape)} nodes from {int(act.sum())} particles, max abs "
-        f"error {err:.3e} (< 2e-3); ms includes the CSR binning ({bin_ms:.3f} ms of it); "
-        f"plain timed over {PLAIN_REPS_SLOW} reps, {out['surface']}")
+        f"error {err:.3e} (< 2e-3); ms includes the CSR binning ({bin_ms:.3f} ms of it); the device's "
+        f"own time for the node pass "
+        f"{device_ms(lambda: surface.sample_surface(pos, act, MESH_128), 'surface_kernel')} "
+        f"(torch.profiler); plain timed over {PLAIN_REPS_SLOW} reps, {out['surface']}")
+    del got, want
+    surface_odd_shapes(state.position.device)
     return out, (cycle_wall, operator_wall)
 
 
@@ -518,10 +627,13 @@ def backward_kernel_phases(cfg, state) -> dict:
     data = sb.slot_grid.data.contiguous()
     faces = [torch.randn(sh, generator=gen, device=device) for sh in kernels.face_shapes(cfg) * 2]
     ms_128 = median_ms(lambda: kernels.p2g_faces_bwd(data, faces[:3], faces[3:], cfg))
-    out["p2g_bwd"]["ms_128"] = ms_128
+    n_occ = int((data[3] != 0).sum())
+    bound_128 = bound(data[3].numel() * 4 + 15 * 4 * n_occ + nbytes(*faces, data), 54 * 14.0 * n_occ)
+    out["p2g_bwd"].update(ms_128=ms_128, bound_ms_128=bound_128["bound_ms"])
     log(f"kernel p2g_bwd (B'): at 64^3 (the plain autograd does not fit at 128^3), relative error "
         f"{rel:.3e} (< 1e-5) on the occupied slots, empty slots 0, plain = recompute + autograd "
-        f"over {PLAIN_REPS_SLOW} reps, {out['p2g_bwd']}; B' on the 128^3 payload {ms_128:.3f} ms")
+        f"over {PLAIN_REPS_SLOW} reps, {out['p2g_bwd']}; B' on the 128^3 payload {ms_128:.3f} ms "
+        f"against a bound of {bound_128['bound_ms']:.3f} ms ({bound_128['bound_by']})")
     del sb, data, faces
     torch.cuda.empty_cache()
 

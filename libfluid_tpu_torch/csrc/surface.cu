@@ -8,84 +8,218 @@
 //
 // and writes |X/W - x_n| - r, or +1 where W = 0.
 //
-// Design: a gather per node over particles binned by mesher cell in CSR
-// form (the wrapper sorts the particles' cell ids and builds the bin
-// starts with bincount/cumsum). A particle in cell b reaches nodes
-// b - cr + 1 ... b + cr along each axis (cr = ceil(ext/h)), so node n reads
-// the (2 cr)^3 cells b = n - cr ... n + cr - 1. The bin grid is padded by
-// cr cells on every side, so particles outside the node grid still reach
-// the nodes inside it (as in the scatter oracle, whose bounds test is on
-// the node); a particle beyond the padding reaches no node and is not
-// binned. There is no cap on particles per cell (the TPU kernel's 8-slot
-// grid dropped the excess). The 2 cr cells along z are adjacent bins, so
-// each (x, y) row of the support is one contiguous range of the sorted
-// particles: 4 cr^2 ranges per node. No atomics: deterministic.
+// A gather per node over particles binned by mesher cell in CSR form (the
+// wrapper sorts the particles' cell ids and builds the bin starts). A
+// particle in cell b reaches nodes b - cr + 1 ... b + cr along each axis
+// (cr = ceil(ext/h)), so node n reads cells b = n - cr ... n + cr - 1. The
+// bin grid is padded by cr cells on every side, so particles outside the
+// node grid still reach the nodes inside it (as in the scatter oracle, whose
+// bounds test is on the node); a particle beyond the padding reaches no node
+// and is not binned. There is no cap on particles per cell (the TPU kernel's
+// 8-slot grid dropped the excess). Cells along z are adjacent bins, so each
+// (x, y) row of a node's support is one contiguous range of the sorted
+// particles. No atomics: the same bits from run to run.
 //
-// Bound: loads of the sorted particles (12 B each) by every node whose
-// support holds them, ~(2 cr)^3 = 512 times at cr = 4, served by L1/L2
-// because neighbouring threads (z fastest) share all but one z-row of
-// their support. Nodes far from the fluid read 4 cr^2 pairs of bin starts
-// and write +1.
+// Bound: operations, ~21 a particle and node in reach (0.17 ms at the main
+// path's 2.0M particles, support 4 cells); the bytes (the particles once,
+// the nodes once) are less. A thread a node walking device memory (the
+// kernel this replaces) loaded 8 cr^2 bin starts for every node, near the
+// fluid or not, and every particle of a node's support from L1/L2.
+//
+// Design: one block per tile of TX x TY x TZ nodes, a thread a node.
+//   1. The tile's support box is (TX + 2 cr - 1) x (TY + 2 cr - 1) rows of
+//      TZ + 2 cr - 1 bins, each row one contiguous range of particles. The
+//      block first reads the two ends of each plane of rows over all z (the
+//      particles of a plane lie together), then the rows' own ends; where
+//      all are empty (most of the grid) it writes +1 and returns.
+//   2. Otherwise it copies the box's bin starts into shared memory, as
+//      places in the list of the box's particles (row after row), and then
+//      the particles themselves as 16-byte words, CAP a chunk, a thread a
+//      particle: a crammed bin or a dense floor takes several chunks, and
+//      the sums stay in registers across them.
+//   3. Per chunk a thread walks the (2 cr)^2 rows of its node's support in
+//      the order x, y, then particle, and takes from each row the 2 cr bins
+//      its z reaches. Every node sees its particles in the order of the
+//      one-thread-per-node kernel, whatever the tile or the chunks, so its
+//      bits depend on neither.
+// d^2 / ext^2 is a multiplication by 1 / ext^2. Measured and not kept, being
+// no faster: two by two nodes a thread, which load a particle once for four
+// nodes (the time goes to the ~18 operations a pair, not to shared
+// memory), and leaving out the bins of a row that lie farther than ext from
+// the node (a fifth of them at cr = 4).
+//
+// Shared memory: 16 B x CAP for a chunk of particles, 4 B for every bin
+// start of the box and 12 B a row: 56 + 17 KB at cr = 4, three blocks an SM.
+// cr <= MAX_CR, where the box's starts still fit; the entry point refuses
+// more.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-__global__ void surface_kernel(const float* __restrict__ pos, const int* __restrict__ starts,
-                               float* __restrict__ out, int mx, int my, int mz, int cr,
-                               float h, float ox, float oy, float oz, float ext2,
-                               float radius) {
-  const long long ex = mx + 1, ey = my + 1, ez = mz + 1;
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= ex * ey * ez) return;
-  const int c = (int)(t % ez);
-  const int b = (int)((t / ez) % ey);
-  const int a = (int)(t / (ez * ey));
-  const long long BY = my + 2 * cr, BZ = mz + 2 * cr;
-  const float nx = ox + (float)a * h, ny = oy + (float)b * h, nz = oz + (float)c * h;
+constexpr int TX = 8, TY = 8, TZ = 8;  // nodes a tile
+constexpr int THREADS = TX * TY * TZ;
+constexpr int CAP = 3584;  // particles a chunk
+constexpr int MAX_CR = 12;
+constexpr int MAX_ROWS = (TX + 2 * MAX_CR - 1) * (TY + 2 * MAX_CR - 1);
+constexpr int MAX_GROUPS = (MAX_ROWS + 31) / 32;
 
+__global__ void __launch_bounds__(THREADS)
+surface_kernel(const float* __restrict__ pos, const int* __restrict__ starts,
+               float* __restrict__ out, int mx, int my, int mz, int cr, float h, float ox,
+               float oy, float oz, float ext2, float radius) {
+  extern __shared__ float4 chunk[];  // CAP particles, then the arrays below
+  __shared__ int group_len[MAX_GROUPS];
+  const int n2 = 2 * cr;
+  const int wx = TX + n2 - 1, wy = TY + n2 - 1, wz = TZ + n2 - 1;  // the box, in bins
+  const int rows = wx * wy;
+  int* glo = (int*)(chunk + CAP);     // [rows] a row's first particle in `pos`
+  int* len = glo + rows;              // [rows] its particles
+  int* rb = len + rows;               // [rows + 1] its place in the box's list
+  int* lstart = rb + rows + 1;        // [rows][wz + 1] its bins' places in the list
+  const int BX = mx + n2, BY = my + n2, BZ = mz + n2;  // the padded bin grid
+  const int t0x = blockIdx.z * TX, t0y = blockIdx.y * TY, t0z = blockIdx.x * TZ;
+  const int tz = threadIdx.x % TZ, ty = (threadIdx.x / TZ) % TY, tx = threadIdx.x / (TZ * TY);
+  const int a = t0x + tx, b = t0y + ty, c = t0z + tz;  // the node; z fastest: stores coalesce
+  const bool inside = a <= mx && b <= my && c <= mz;
+  float* node = out + ((long long)a * (my + 1) + b) * (mz + 1) + c;
+
+  // 1. is any particle in reach? First the box's (x, y) rows over all z,
+  // which lie together in the sorted particles: two loads a plane of rows
+  // tell most tiles away from the fluid. The padded bin of cell n - cr is n.
+  int any = 0;
+  for (int lx = threadIdx.x; lx < wx; lx += THREADS) {
+    const long long bx = t0x + lx;
+    if (bx < BX) any |= starts[(bx * BY + min(t0y + wy, BY)) * BZ] - starts[(bx * BY + t0y) * BZ];
+  }
+  if (!__syncthreads_or(any)) {
+    if (inside) *node = 1.0f;
+    return;
+  }
+  // then the rows' own ends; bins past the padded grid (a tile that
+  // overhangs the node grid) are empty
+  const int z0 = min(t0z, BZ), z1 = min(t0z + wz, BZ);
+  any = 0;
+  for (int r = threadIdx.x; r < rows; r += THREADS) {
+    const int bx = t0x + r / wy, by = t0y + r % wy;
+    int lo = 0, n = 0;
+    if (bx < BX && by < BY) {
+      const long long row = ((long long)bx * BY + by) * BZ;
+      lo = starts[row + z0];
+      n = starts[row + z1] - lo;
+    }
+    glo[r] = lo;
+    len[r] = n;
+    any |= n;
+  }
+  if (!__syncthreads_or(any)) {
+    if (inside) *node = 1.0f;
+    return;
+  }
+
+  // 2. each row's place in the list of the box's particles (the rows of
+  // each group of 32, then each row in its group), then its bins' places
+  const int groups = (rows + 31) / 32;
+  for (int g = threadIdx.x; g < groups; g += THREADS) {
+    int sum = 0;
+    for (int r = 32 * g; r < 32 * g + 32 && r < rows; ++r) sum += len[r];
+    group_len[g] = sum;
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r < rows; r += THREADS) {
+    int before = 0;
+    for (int g = 0; g < r / 32; ++g) before += group_len[g];
+    for (int q = r & ~31; q < r; ++q) before += len[q];
+    rb[r] = before;
+    if (r == rows - 1) rb[rows] = before + len[r];
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < rows * (wz + 1); t += THREADS) {
+    const int r = t / (wz + 1), z = t % (wz + 1);
+    const int bx = t0x + r / wy, by = t0y + r % wy;
+    int place = rb[r];
+    if (bx < BX && by < BY)
+      place += starts[((long long)bx * BY + by) * BZ + min(t0z + z, BZ)] - glo[r];
+    lstart[t] = place;
+  }
+  const int total = rb[rows];
+  const int top = 1 << (31 - __clz(rows));  // the largest power of two <= rows
+
+  const float inv_ext2 = 1.0f / ext2;
+  const float nxp = ox + (float)a * h, nyp = oy + (float)b * h, nzp = oz + (float)c * h;
   float W = 0.f, X = 0.f, Y = 0.f, Z = 0.f;
-  // padded bin index of cell n - cr is n
-  for (int px = a; px < a + 2 * cr; ++px) {
-    for (int py = b; py < b + 2 * cr; ++py) {
-      const long long row = ((long long)px * BY + py) * BZ;
-      const int lo = starts[row + c], hi = starts[row + c + 2 * cr];
-      for (int q = lo; q < hi; ++q) {
-        const float x = pos[3 * (long long)q], y = pos[3 * (long long)q + 1],
-                    z = pos[3 * (long long)q + 2];
-        const float dx = x - nx, dy = y - ny, dz = z - nz;
-        const float kl = 1.0f - (dx * dx + dy * dy + dz * dz) / ext2;
-        if (kl > 0.0f) {
+
+  // 3. the list, CAP particles [e0, e1) at a time
+  for (int e0 = 0; e0 < total; e0 += CAP) {
+    const int e1 = min(e0 + CAP, total);
+    __syncthreads();  // the places are written; the last chunk is read
+    // 3a. the chunk's particles, a thread a particle (loads that do not
+    // wait for each other): its row is the last r with rb[r] <= e
+#pragma unroll 4
+    for (int e = e0 + threadIdx.x; e < e1; e += THREADS) {
+      int r = 0;
+      for (int step = top; step > 0; step >>= 1)
+        if (r + step < rows && rb[r + step] <= e) r += step;
+      const float* p = pos + 3 * ((long long)glo[r] + (e - rb[r]));
+      chunk[e - e0] = make_float4(p[0], p[1], p[2], 0.f);
+    }
+    __syncthreads();
+
+    // 3b. the rows of the node's support: x, y, then particle ascending
+    for (int rx = 0; rx < n2; ++rx) {
+      const int lx = tx + rx;
+      if (rb[(lx + 1) * wy] <= e0 || rb[lx * wy] >= e1) continue;
+      for (int ry = 0; ry < n2; ++ry) {
+        const int* bins = lstart + (lx * wy + ty + ry) * (wz + 1) + tz;
+        const int lo = max(bins[0], e0), hi = min(bins[n2], e1);
+#pragma unroll 2
+        for (int e = lo; e < hi; ++e) {
+          const float4 p = chunk[e - e0];
+          const float dx = p.x - nxp, dy = p.y - nyp, dz = p.z - nzp;
+          const float kl = fmaxf(1.0f - (dx * dx + dy * dy + dz * dz) * inv_ext2, 0.0f);
           const float w = kl * kl * kl;
           W += w;
-          X += w * x;
-          Y += w * y;
-          Z += w * z;
+          X += w * p.x;
+          Y += w * p.y;
+          Z += w * p.z;
         }
       }
     }
   }
+
+  if (!inside) return;
   float value = 1.0f;
   if (W > 0.0f) {
     const float Wc = fmaxf(W, 1e-30f);
-    const float dx = X / Wc - nx, dy = Y / Wc - ny, dz = Z / Wc - nz;
+    const float dx = X / Wc - nxp, dy = Y / Wc - nyp, dz = Z / Wc - nzp;
     value = sqrtf(dx * dx + dy * dy + dz * dz + 1e-30f) - radius;
   }
-  out[t] = value;
+  *node = value;
+}
+
+// a chunk of particles, and per row of the box its bins' places and three
+// ints
+size_t shared_bytes(int cr) {
+  const size_t wx = TX + 2 * cr - 1, wy = TY + 2 * cr - 1, wz = TZ + 2 * cr - 1;
+  return CAP * sizeof(float4) + (wx * wy * (wz + 1 + 3) + 1) * sizeof(int);
 }
 
 }  // namespace
 
 // pos: (M, 3) f32 particles sorted by padded bin; starts: ((mx+2cr)(my+2cr)(mz+2cr) + 1)
-// int32 CSR starts; out: (mx+1, my+1, mz+1) f32.
+// int32 CSR starts; out: (mx+1, my+1, mz+1) f32; 1 <= cr <= 12.
 extern "C" int lf_surface(const float* pos, const int* starts, float* out, int mx, int my, int mz,
                           int cr, float h, float ox, float oy, float oz, float ext2,
                           float radius, void* stream) {
-  const long long total = (long long)(mx + 1) * (my + 1) * (mz + 1);
-  const int threads = 128;
-  const long long blocks = (total + threads - 1) / threads;
-  surface_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+  if (cr < 1 || cr > MAX_CR) return (int)cudaErrorInvalidValue;
+  const size_t smem = shared_bytes(cr);
+  // above 48 KB a kernel has to ask for its dynamic shared memory
+  cudaError_t err = cudaFuncSetAttribute(surface_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((mz + TZ) / TZ, (my + TY) / TY, (mx + TX) / TX);  // m + 1 nodes an axis
+  surface_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       pos, starts, out, mx, my, mz, cr, h, ox, oy, oz, ext2, radius);
   return (int)cudaGetLastError();
 }

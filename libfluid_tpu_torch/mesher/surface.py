@@ -6,9 +6,14 @@ averaged with the kernel w = max(0, 1 - d^2/extent^2)^3; the signed value is
 |x_avg - x_node| - r, or +1 where no particle is near (outside).
 
 On CUDA tensors the node pass is kernel F (``csrc/surface.cu``): a gather
-per node over the particles binned by mesher cell in CSR form. On CPU
-tensors it is :func:`_sample_surface_torch`, the port of the JAX package's
-scatter oracle. The gradient with respect to the positions is the autograd
+per node over the particles binned by mesher cell in CSR form
+(:func:`bin_particles`), one block per 8 x 8 x 8 tile of nodes with the
+particles and bin starts of the tile's support box in shared memory, a
+chunk at a time; a tile with no particle in reach writes +1 and returns.
+No cap on the particles a cell holds; a support of up to
+``MAX_SUPPORT_CELLS`` cells. On CPU tensors it is
+:func:`_sample_surface_torch`, the port of the JAX package's scatter
+oracle. The gradient with respect to the positions is the autograd
 of that oracle, recomputed in backward on either device (port of
 ``surface._surface_bwd``; a backward kernel is not written yet).
 """
@@ -22,6 +27,10 @@ import torch
 
 from libfluid_tpu_torch.config import MesherConfig
 from libfluid_tpu_torch.sim import kernels
+
+
+# kernel F keeps the bin starts of a tile's support box in shared memory
+MAX_SUPPORT_CELLS = 12
 
 
 def _support_cells(cfg: MesherConfig) -> int:
@@ -129,10 +138,11 @@ def bin_particles(position: torch.Tensor, active: torch.Tensor, cfg: MesherConfi
     bins = (pb[:, 0] * pdims[1] + pb[:, 1]) * pdims[2] + pb[:, 2]
     bins = torch.where(ok, bins, torch.full_like(bins, n_bins))
 
-    bins_s, order = torch.sort(bins, stable=True)
-    counts = torch.bincount(bins_s, minlength=n_bins + 1)[:n_bins]
-    starts = torch.zeros((n_bins + 1,), dtype=torch.int32, device=dev)
-    starts[1:] = torch.cumsum(counts, dim=0)
+    order = torch.sort(bins, stable=True).indices
+    # a bin's start is the count of the bins before it, in int32 throughout
+    counts = torch.zeros((n_bins + 2,), dtype=torch.int32, device=dev)
+    counts.index_add_(0, bins + 1, torch.ones_like(bins))
+    starts = torch.cumsum(counts[: n_bins + 1], dim=0, dtype=torch.int32)
     return position[order].contiguous(), starts
 
 
@@ -141,9 +151,15 @@ def _sample_surface_cuda(
 ) -> torch.Tensor:
     """Kernel F on CUDA tensors. Replaces
     ``libfluid_tpu/mesher/surface.py:_sample_surface_pallas`` (with its
-    8-slot mesher grid ``_build_mesh_slots``): no per-cell cap."""
+    8-slot mesher grid ``_build_mesh_slots``): no per-cell cap. Raises for
+    a support of more than ``MAX_SUPPORT_CELLS`` cells, never falls back."""
     nx, ny, nz = cfg.grid_size
     cr = _support_cells(cfg)
+    if cr > MAX_SUPPORT_CELLS:
+        raise ValueError(
+            f"surface kernel takes a support of up to {MAX_SUPPORT_CELLS} cells, got {cr} "
+            f"(particle_extent {cfg.particle_extent} / cell_size {cfg.cell_size})"
+        )
     pos_s, starts = bin_particles(position, active, cfg)
     kernels.check(pos_s, torch.float32, (position.shape[0], 3), "sorted positions")
     out = torch.empty((nx + 1, ny + 1, nz + 1), dtype=torch.float32, device=position.device)

@@ -18,6 +18,14 @@ Thirteen kernels carry the substep, its gradient and the mesher (sources in
     "correction"  correction._springs     correction springs   (csrc/correction.cu)
     "surface"     surface.sample_surface  mesher node pass     (csrc/surface.cu)
 
+"p2g", "correction" and "surface" are tile kernels: a block brings what its
+tile of lattice points, cells or nodes reaches into shared memory once (for
+"p2g" and "surface" in chunks, so shared memory caps neither the slots a
+cell nor the particles a bin) and tiles away from the fluid return at once.
+"p2g" takes up to ``P2G_MAX_SLOTS`` slots a cell, "correction" up to 32,
+"surface" a support of up to ``surface.MAX_SUPPORT_CELLS`` mesher cells;
+the wrappers raise above that.
+
 Every wrapper dispatches on the device of its tensors: a CPU tensor takes
 the kernel's plain PyTorch version, a CUDA tensor launches the kernel (or
 raises), any other device raises. There is no fallback from a failed build
@@ -85,6 +93,10 @@ def launch(name: str, entry: str, *args) -> None:
 # ---------------------------------------------------------------------------
 
 
+# kernel B keeps a cell's occupied slots as a 32-bit mask
+P2G_MAX_SLOTS = 32
+
+
 def face_shapes(cfg: SimConfig):
     """Shapes of the u, v, w face arrays."""
     nx, ny, nz = cfg.grid_size
@@ -94,6 +106,8 @@ def face_shapes(cfg: SimConfig):
 def _p2g_faces_cuda(data: torch.Tensor, cfg: SimConfig) -> Tuple[tuple, tuple]:
     nx, ny, nz = cfg.grid_size
     k = data.shape[1]
+    if not 1 <= k <= P2G_MAX_SLOTS:
+        raise ValueError(f"p2g kernel takes 1 to {P2G_MAX_SLOTS} slots a cell, got {k}")
     check(data, torch.float32, (16, k, nx, ny, nz), "slot payload")
     num = [torch.empty(s, dtype=torch.float32, device=data.device) for s in face_shapes(cfg)]
     den = [torch.empty(s, dtype=torch.float32, device=data.device) for s in face_shapes(cfg)]
@@ -166,8 +180,10 @@ def p2g_faces(data: torch.Tensor, cfg: SimConfig) -> Tuple[tuple, tuple]:
 
     Replaces ``libfluid_tpu/sim/kernels.py:p2g_lo_faces_pallas`` (with
     ``transfers._p2g_hi_plane``) and its ``custom_vjp``. CUDA:
-    ``csrc/p2g.cu``, backward ``csrc/p2g_bwd.cu``; CPU: the plain
-    ``transfers._p2g_slots_torch``.
+    ``csrc/p2g.cu`` (one block per tile of lattice points with the occupied
+    slots of its cells and their halo in shared memory, a chunk at a time;
+    K <= 32; the same bits from run to run), backward ``csrc/p2g_bwd.cu``;
+    CPU: the plain ``transfers._p2g_slots_torch``.
     """
     out = _P2GFaces.apply(data, cfg)
     return tuple(out[:3]), tuple(out[3:])

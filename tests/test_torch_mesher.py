@@ -1,8 +1,9 @@
 """Parity of the PyTorch port's mesher with the JAX package: the surface
 node pass (kernel F's plain version) against ``_sample_surface_jnp`` on the
 fixture of ``tests/test_tpu_kernels.py`` (particles outside the node grid
-included), the CSR binning kernel F reads, marching cubes on one SDF fed to
-both, and ``generate_mesh`` end to end.
+included), the CSR binning kernel F reads and a numpy model of its tile
+algorithm, marching cubes on one SDF fed to both, and ``generate_mesh`` end
+to end.
 
 Tolerances: SDF atol 1e-4; marching cubes ``count`` equal and vertices
 atol 1e-5."""
@@ -62,8 +63,10 @@ def test_sample_surface_matches_jax():
 
 
 def _csr_gather(pos, active, cfg):
-    """Kernel F's algorithm in numpy over the port's CSR bins: each node
-    sums the (2 cr)^3 bins b = n - cr ... n + cr - 1 of the padded grid."""
+    """The gather kernel F computes, node by node, in numpy over the port's
+    CSR bins: each node sums the (2 cr)^3 bins b = n - cr ... n + cr - 1 of
+    the padded grid (:func:`_tile_gather` models how the kernel's tiles walk
+    them)."""
     pos_s, starts = (t.numpy() for t in t_surface.bin_particles(
         torch.from_numpy(pos), torch.from_numpy(active), cfg))
     cr = t_surface._support_cells(cfg)
@@ -99,6 +102,142 @@ def test_csr_bins_reach_what_the_scatter_reaches():
     got = _csr_gather(pos, active, tcfg)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
     assert (want < 0).any() and (want == 1.0).any()
+
+
+def _tile_gather(pos, active, cfg, tile, cap):
+    """Kernel F's algorithm (``csrc/surface.cu``) in numpy, float32
+    throughout: a block per tile of nodes; the (x, y) rows of bins of the
+    tile's support box, each one contiguous range of the sorted particles;
+    the quick test on whole planes of rows, then on the rows' own ends;
+    the box's particles as one list, row after row, staged `cap` at a time;
+    a node summing the (2 cr)^2 rows of its support in the order x, y,
+    particle, each row clipped to the bins its z reaches and to the chunk.
+    Returns the SDF and the most chunks a tile took."""
+    f32 = np.float32
+    pos_s, starts = (t.numpy() for t in t_surface.bin_particles(
+        torch.from_numpy(pos), torch.from_numpy(active), cfg))
+    cr = t_surface._support_cells(cfg)
+    n2 = 2 * cr
+    mx, my, mz = cfg.grid_size
+    bx_n, by_n, bz_n = mx + n2, my + n2, mz + n2  # the padded bin grid
+    tx, ty, tz = tile
+    wx, wy, wz = tx + n2 - 1, ty + n2 - 1, tz + n2 - 1  # the box, in bins
+    h, off = f32(cfg.cell_size), np.asarray(cfg.grid_offset, f32)
+    inv_ext2 = f32(1.0) / f32(cfg.particle_extent**2)
+    out = np.full((mx + 1, my + 1, mz + 1), np.nan, f32)
+    most_chunks = 0
+    for t0x in range(0, mx + 1, tx):
+        for t0y in range(0, my + 1, ty):
+            for t0z in range(0, mz + 1, tz):
+                box = (slice(t0x, t0x + tx), slice(t0y, t0y + ty), slice(t0z, t0z + tz))
+                planes = [
+                    starts[(bx * by_n + min(t0y + wy, by_n)) * bz_n] - starts[(bx * by_n + t0y) * bz_n]
+                    for bx in range(t0x, min(t0x + wx, bx_n))
+                ]
+                if not any(planes):
+                    out[box] = 1.0
+                    continue
+                z0, z1 = min(t0z, bz_n), min(t0z + wz, bz_n)
+                glo, lstart, place = [], [], 0
+                for r in range(wx * wy):
+                    bx, by = t0x + r // wy, t0y + r % wy
+                    if bx < bx_n and by < by_n:
+                        row = (bx * by_n + by) * bz_n
+                        ends = starts[[row + min(t0z + z, bz_n) for z in range(wz + 1)]]
+                    else:
+                        ends = np.zeros(wz + 1, np.int64)
+                    glo.append(int(ends[0]))
+                    lstart.append(place + (ends - ends[0]))  # the bins' places in the list
+                    place += int(ends[-1] - ends[0])
+                total = place
+                if total == 0:
+                    out[box] = 1.0
+                    continue
+                # the list's particle at place e: row r's glo[r] + e - lstart[r][0]
+                src = np.concatenate([glo[r] + np.arange(lstart[r][-1] - lstart[r][0])
+                                      for r in range(wx * wy)]).astype(np.int64)
+                sums = np.zeros((tx, ty, tz, 4), f32)
+                chunks = 0
+                for e0 in range(0, total, cap):
+                    e1 = min(e0 + cap, total)
+                    chunk = pos_s[src[e0:e1]]
+                    chunks += 1
+                    for a in range(tx):
+                        for b in range(ty):
+                            for c in range(tz):
+                                node = off + np.array([t0x + a, t0y + b, t0z + c], f32) * h
+                                acc = sums[a, b, c]
+                                for rx in range(n2):
+                                    for ry in range(n2):
+                                        bins = lstart[(a + rx) * wy + b + ry]
+                                        lo, hi = max(bins[c], e0), min(bins[c + n2], e1)
+                                        if lo >= hi:
+                                            continue
+                                        p = chunk[lo - e0:hi - e0]
+                                        d = p - node
+                                        d2 = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+                                        kl = np.maximum(f32(1.0) - d2 * inv_ext2, f32(0.0))
+                                        w = kl * kl * kl
+                                        terms = np.concatenate([w[:, None], w[:, None] * p], axis=1)
+                                        # one particle after the other, as the thread adds them
+                                        acc[:] = np.add.accumulate(np.concatenate([acc[None], terms]), axis=0)[-1]
+                    del chunk
+                most_chunks = max(most_chunks, chunks)
+                for a in range(min(tx, mx + 1 - t0x)):
+                    for b in range(min(ty, my + 1 - t0y)):
+                        for c in range(min(tz, mz + 1 - t0z)):
+                            wsum = sums[a, b, c, 0]
+                            value = f32(1.0)
+                            if wsum > 0:
+                                node = off + np.array([t0x + a, t0y + b, t0z + c], f32) * h
+                                d = sums[a, b, c, 1:] / max(wsum, f32(1e-30)) - node
+                                value = np.sqrt(np.sum(d * d) + f32(1e-30)) - f32(cfg.particle_radius)
+                            out[t0x + a, t0y + b, t0z + c] = value
+    assert not np.isnan(out).any()
+    return out, most_chunks
+
+
+@pytest.mark.parametrize("extent", [0.5, 1.0, 2.0], ids=["support-1", "support-2", "support-4"])
+def test_surface_tile_algorithm_matches_jax_oracle(extent):
+    """The tile algorithm of kernel F against ``_sample_surface_jnp`` on a
+    node grid no tile divides, with a support of 1, 2 and 4 cells:
+    inactive particles, particles outside the grid within and beyond the
+    padding, a bin of 300 particles that takes several chunks; and the same
+    bits whatever the tile's shape and the chunk size."""
+    kw = dict(KERNEL_CFG, grid_size=(8, 6, 7), particle_extent=extent, particle_radius=extent / 4)
+    cfg, tcfg = _cfgs(**kw)
+    pos, active = _particles(n=600, seed=3)
+    pos = pos * 0.45 - 1.0
+    rng = np.random.default_rng(9)
+    crammed = np.asarray(cfg.grid_offset) + (np.array([2.0, 3.0, 4.0]) + rng.uniform(size=(300, 3))) * 0.5
+    pos = np.concatenate([pos, crammed.astype(np.float32)])
+    active = np.concatenate([active, np.ones(300, bool)])
+    want = np.asarray(surface._sample_surface_jnp(jnp.asarray(pos), jnp.asarray(active), cfg, extent / 4))
+    got, chunks = _tile_gather(pos, active, tcfg, (4, 4, 4), cap=128)
+    assert chunks > 2
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    if extent < 2.0:  # a support of 4 cells reaches every node of this grid
+        assert (want < 0).any() and (want == 1.0).any()
+    again, chunks = _tile_gather(pos, active, tcfg, (3, 2, 5), cap=1 << 20)
+    assert chunks == 1
+    np.testing.assert_array_equal(got, again)
+
+
+@pytest.mark.parametrize("case", ["support", "dtype"])
+def test_surface_kernel_wrapper_refuses(case):
+    """What kernel F's wrapper does not take raises before anything is
+    launched: a support of more than 12 cells, positions that are not
+    float32."""
+    pos, active = _particles(n=50)
+    if case == "support":
+        _, tcfg = _cfgs(**dict(KERNEL_CFG, particle_extent=6.2))
+        assert t_surface._support_cells(tcfg) == 13
+        args, error = (torch.from_numpy(pos), torch.from_numpy(active), tcfg, 0.5), ValueError
+    else:
+        _, tcfg = _cfgs(**KERNEL_CFG)
+        args, error = (torch.from_numpy(pos).double(), torch.from_numpy(active), tcfg, 0.5), TypeError
+    with pytest.raises(error):
+        t_surface._sample_surface_cuda(*args)
 
 
 def _sphere_sdf(cfg, center, radius):

@@ -1,0 +1,85 @@
+"""Two trees of the port on one card in one call: kernels B and F.
+
+Runs this file's measurement in a process of its own for each tree, in the
+order parent, change, change, parent (two calls may land on two cards, so
+two versions compare only inside one call), and prints one line a turn: the
+event-median ms of kernel B (``kernels.p2g_faces``) and of kernel F with its
+binning (``surface.sample_surface``, ``surface.bin_particles``) at the 128^3
+main path's shapes, three medians each, and the host-clock ms of the
+``p2g_slots`` stage, of ``generate_mesh`` and of five substeps.
+
+Run from the repository root on a machine with an H100, with the parent
+commit unpacked beside it (``git archive <commit> libfluid_tpu_torch
+chip_smoke.py | tar -x -C <dir>``):
+
+    python3 tools/kernel_ab.py <dir of the parent tree>
+"""
+
+import os
+import subprocess
+import sys
+import time
+
+
+def measure(tag: str) -> None:
+    """The tree in the current directory."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+
+    import chip_smoke as cs
+    from libfluid_tpu_torch import _build, sim
+    from libfluid_tpu_torch.mesher import generate_mesh, surface
+    from libfluid_tpu_torch.sim import kernels, slotsort, transfers
+
+    _build.load()
+    cfg, state = cs.dam_break(128, torch.device("cuda"), 1 << 21)
+    state, _ = sim.substep(state, cfg, cs.DT)
+    rs = slotsort.sort_rank_major(state, cfg)
+    data = slotsort.expand(rs.payT, rs.ins, rs.counts).reshape(
+        16, cfg.max_neighbors_per_cell, *cfg.grid_size)
+    del rs
+    b = [cs.median_ms(lambda: kernels.p2g_faces(data, cfg)) for _ in range(3)]
+    del data
+    pos, act, mesher = state.position, state.active, cs.MESH_128
+    f = [cs.median_ms(lambda: surface.sample_surface(pos, act, mesher)) for _ in range(3)]
+    binning = [cs.median_ms(lambda: surface.bin_particles(pos, act, mesher)) for _ in range(3)]
+    sb = slotsort.sort_and_build(state, cfg)
+    st = sb.state
+
+    def stage():
+        return transfers.p2g_slots(sb.slot_grid, st.position, st.velocity, st.affine, st.active,
+                                   cfg, overflow_start=sb.n_kept)
+
+    p2g_slots = [cs.wall_ms(stage, 10) for _ in range(3)]
+    mesh = [cs.wall_ms(lambda: generate_mesh(pos, act, mesher), 5) for _ in range(3)]
+    substeps = []
+    for _ in range(6):  # the first is left out
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = sim.substep(state, cfg, cs.DT)
+        torch.cuda.synchronize()
+        substeps.append((time.perf_counter() - t0) * 1e3)
+
+    def fmt(xs):
+        return " ".join(f"{x:.4f}" for x in xs)
+
+    print(f"{tag}: B ms {fmt(b)} | F ms {fmt(f)} (binning {fmt(binning)}) | p2g_slots wall ms "
+          f"{fmt(p2g_slots)} | mesh wall ms {fmt(mesh)} | substeps ms {fmt(substeps[1:])}", flush=True)
+
+
+def main() -> None:
+    if len(sys.argv) == 3 and sys.argv[1] == "--measure":
+        measure(sys.argv[2])
+        return
+    if len(sys.argv) != 2:
+        raise SystemExit(__doc__)
+    parent = sys.argv[1]
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    me = os.path.abspath(__file__)
+    for tag, cwd in (("parent", parent), ("change", "."), ("change", "."), ("parent", parent)):
+        subprocess.run([sys.executable, me, "--measure", tag], cwd=cwd, check=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,190 @@
+"""Kernels B (``csrc/p2g.cu``) and F (``csrc/surface.cu``) in other shapes.
+
+Builds each kernel again from its source with the tile shape and the chunk
+size replaced in the text, or with one part switched off (its loop bounds
+made empty by a condition the compiler cannot see through), loads each
+build under a name of its own, and times it at the 128^3 main path's shapes:
+two event medians and the device's own time (torch.profiler). A build that
+computes everything must give the bits of the library's kernel, whatever
+its tile. Then the pieces of ``surface.bin_particles`` one by one, beside
+the two ways of making the bin starts that were not taken.
+
+Run from the repository root on a machine with an H100:
+
+    python3 tools/kernel_variants.py
+"""
+
+import ctypes
+import os
+import subprocess
+import sys
+import tempfile
+
+import torch
+
+sys.path.insert(0, os.getcwd())
+
+import chip_smoke as cs  # noqa: E402
+from libfluid_tpu_torch import _build, sim  # noqa: E402
+from libfluid_tpu_torch.mesher import surface  # noqa: E402
+from libfluid_tpu_torch.sim import kernels, slotsort  # noqa: E402
+
+# kernel B: the line of the tile, the line of the chunk, and the parts
+B_TILE = "constexpr int TX = 4, TY = 16, TZ = 16, THREADS = TY * TZ;"
+B_CAP = "constexpr int CAP = 1024; "
+B_SHAPES = [(4, 16, 16, 1024), (4, 8, 16, 512), (4, 16, 16, 768), (4, 16, 16, 1536), (6, 16, 16, 1024),
+            (3, 16, 16, 1024), (8, 16, 16, 1024), (2, 8, 16, 512), (4, 8, 32, 1024), (4, 16, 8, 512)]
+B_PARTS = {
+    "no face sums": ("if ((p + 1) * PLANE_CELLS <= c0 || p * PLANE_CELLS >= c1) continue;",
+                     "if (K > 0 || (p + 1) * PLANE_CELLS <= c0 || p * PLANE_CELLS >= c1) continue;"),
+    "no loads of the slots": ("t < ncell * most; t += THREADS", "t < ncell * most * (K < 0); t += THREADS"),
+    "every tile as if empty": ("if (!seen) {", "if (!seen || K > 0) {"),
+}
+# kernel F
+F_TILE = "constexpr int TX = 8, TY = 8, TZ = 8;  // nodes a tile"
+F_CAP = "constexpr int CAP = 3584; "
+F_SHAPES = [(8, 8, 8, 3584), (8, 8, 8, 2048), (8, 8, 8, 1024), (4, 8, 8, 2048), (8, 4, 8, 2048),
+            (8, 8, 4, 2560), (8, 8, 16, 5632), (16, 8, 8, 5632)]
+F_PARTS = {
+    "no sums": ("if (rb[(lx + 1) * wy] <= e0 || rb[lx * wy] >= e1) continue;",
+                "if (cr > 0 || rb[(lx + 1) * wy] <= e0 || rb[lx * wy] >= e1) continue;"),
+    "every tile as if empty": ("  // 2. each row's place",
+                               "  if (cr > 0) { if (inside) *node = 1.0f; return; }\n  // 2. each row's place"),
+    "particle loop not unrolled": ("#pragma unroll 2\n        for (int e = lo; e < hi; ++e) {",
+                                   "#pragma unroll 1\n        for (int e = lo; e < hi; ++e) {"),
+}
+
+
+def build(source: str, swaps, tag: str, folder: str):
+    """The library of `source` with each (old, new) of `swaps` replaced in
+    its text, and what ptxas says of its registers and spills."""
+    text = (_build.CSRC / source).read_text()
+    for old, new in swaps:
+        if old not in text:
+            raise RuntimeError(f"{source} has no {old!r}")
+        text = text.replace(old, new)
+    path = os.path.join(folder, tag)
+    with open(path + ".cu", "w") as f:
+        f.write(text)
+    done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o",
+                           path + ".so", path + ".cu"], capture_output=True, text=True)
+    if done.returncode != 0:
+        raise RuntimeError(f"{tag}: nvcc failed\n{done.stderr[-2000:]}")
+    said = [line.split(":", 1)[-1].strip() for line in done.stderr.splitlines()
+            if "registers" in line or "spill" in line]
+    return ctypes.CDLL(path + ".so"), "; ".join(said)
+
+
+def run(source, entry, kernel, variants, args, outs, want, folder) -> None:
+    stream = torch.cuda.current_stream().cuda_stream
+    for n, (what, swaps) in enumerate(variants):
+        lib, said = build(source, swaps, f"{entry}_{n}", folder)
+        fn = getattr(lib, entry)
+        fn.argtypes = _build.SIGNATURES[entry]
+        fn.restype = ctypes.c_int
+        cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+
+        def call():
+            err = fn(*cargs, stream)
+            if err != 0:
+                raise RuntimeError(f"{entry} ({what}): CUDA error {err}")
+
+        for o in outs:
+            o.fill_(-7.0)
+        call()
+        torch.cuda.synchronize()
+        same = all(torch.equal(o, w) for o, w in zip(outs, want))
+        ms = [cs.median_ms(call) for _ in range(2)]
+        print(f"{entry} {what}: ms {ms[0]:.4f} {ms[1]:.4f}, device {cs.device_ms(call, kernel)}, "
+              f"the library's bits: {same}; {said}", flush=True)
+
+
+def binning_pieces(pos, act, mesher) -> None:
+    dev = pos.device
+    cr = surface._support_cells(mesher)
+    dims = [n + 2 * cr for n in mesher.grid_size]
+    pdims = torch.tensor(dims, dtype=torch.int32, device=dev)
+    n_bins = dims[0] * dims[1] * dims[2]
+    off = torch.tensor(mesher.grid_offset, dtype=pos.dtype, device=dev)
+
+    def keys():
+        pb = torch.floor((pos - off) / mesher.cell_size).to(torch.int32) + cr
+        ok = act & torch.all((pb >= 0) & (pb < pdims), dim=-1)
+        bins = (pb[:, 0] * pdims[1] + pb[:, 1]) * pdims[2] + pb[:, 2]
+        return torch.where(ok, bins, torch.full_like(bins, n_bins))
+
+    bins = keys()
+    bins_s, order = torch.sort(bins, stable=True)
+    probe = torch.arange(n_bins + 1, dtype=torch.int32, device=dev)
+
+    def scatter_cumsum():  # as bin_particles has it
+        counts = torch.zeros((n_bins + 2,), dtype=torch.int32, device=dev)
+        counts.index_add_(0, bins + 1, torch.ones_like(bins))
+        return torch.cumsum(counts[: n_bins + 1], dim=0, dtype=torch.int32)
+
+    def bincount_cumsum():  # as it was
+        counts = torch.bincount(bins_s, minlength=n_bins + 1)[:n_bins]
+        starts = torch.zeros((n_bins + 1,), dtype=torch.int32, device=dev)
+        starts[1:] = torch.cumsum(counts, dim=0)
+        return starts
+
+    def searchsorted():
+        return torch.searchsorted(bins_s, probe, out_int32=True)
+
+    want = scatter_cumsum()
+    for what, fn in (("bin keys", keys), ("stable sort", lambda: torch.sort(bins, stable=True)),
+                     ("starts by int32 scatter + cumsum", scatter_cumsum),
+                     ("starts by bincount + cumsum (not taken)", bincount_cumsum),
+                     ("starts by searchsorted (not taken)", searchsorted),
+                     ("gather of the positions", lambda: pos[order].contiguous()),
+                     ("bin_particles", lambda: surface.bin_particles(pos, act, mesher))):
+        print(f"binning, {what}: {cs.median_ms(fn):.4f} ms", flush=True)
+    if not (torch.equal(bincount_cumsum(), want) and torch.equal(searchsorted(), want)):
+        raise RuntimeError("the three ways of making the bin starts differ")
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_variants.py needs a CUDA device")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    _build.load()
+    dev = torch.device("cuda")
+    cfg, state = cs.dam_break(128, dev, 1 << 21)
+    state, _ = sim.substep(state, cfg, cs.DT)
+    rs = slotsort.sort_rank_major(state, cfg)
+    nx, ny, nz = cfg.grid_size
+    data = slotsort.expand(rs.payT, rs.ins, rs.counts).reshape(16, cfg.max_neighbors_per_cell, nx, ny, nz)
+    del rs
+    with tempfile.TemporaryDirectory() as folder:
+        num, den = kernels.p2g_faces(data, cfg)
+        outs = [torch.empty_like(t) for t in (*num, *den)]
+        ox, oy, oz = (float(o) for o in cfg.grid_offset)
+        variants = [(f"tile {tx} x {ty} x {tz}, {cap} slots a chunk",
+                     [(B_TILE, f"constexpr int TX = {tx}, TY = {ty}, TZ = {tz}, THREADS = TY * TZ;"),
+                      (B_CAP, f"constexpr int CAP = {cap};")]) for tx, ty, tz, cap in B_SHAPES]
+        variants += [(what, [swap]) for what, swap in B_PARTS.items()]
+        run("p2g.cu", "lf_p2g", "p2g_kernel", variants,
+            (data, *outs, data.shape[1], nx, ny, nz, float(cfg.cell_size), ox, oy, oz, 1),
+            outs, (*num, *den), folder)
+        del data, num, den, outs
+
+        pos, act, mesher = state.position, state.active, cs.MESH_128
+        want = surface.sample_surface(pos, act, mesher)
+        pos_s, starts = surface.bin_particles(pos, act, mesher)
+        out = torch.empty_like(want)
+        mx, my, mz = mesher.grid_size
+        ox, oy, oz = (float(o) for o in mesher.grid_offset)
+        variants = [(f"tile {tx} x {ty} x {tz}, {cap} particles a chunk",
+                     [(F_TILE, f"constexpr int TX = {tx}, TY = {ty}, TZ = {tz};"),
+                      (F_CAP, f"constexpr int CAP = {cap};")]) for tx, ty, tz, cap in F_SHAPES]
+        variants += [(what, [swap]) for what, swap in F_PARTS.items()]
+        run("surface.cu", "lf_surface", "surface_kernel", variants,
+            (pos_s, starts, out, mx, my, mz, surface._support_cells(mesher), float(mesher.cell_size),
+             ox, oy, oz, float(mesher.particle_extent) ** 2, float(mesher.particle_radius)),
+            [out], [want], folder)
+    binning_pieces(pos, act, mesher)
+
+
+if __name__ == "__main__":
+    main()
