@@ -368,6 +368,59 @@ def p2g_odd_shapes(device) -> None:
         + " (< 2e-5), two launches bit-equal")
 
 
+def g2p_odd_shapes(device) -> None:
+    """Kernels D and D' away from the main path's shapes: a grid no block
+    divides evenly, a cell size and offset that are not 1 and 0, particles
+    in random order and in cell order (the order the substep gives them),
+    some exactly on faces, some up to 0.4 cells outside the domain, a count
+    that is no multiple of the block, none and one; D against the plain
+    version (rtol/atol 1e-5), D' against the plain version's autograd (faces
+    within 1e-4 of the largest face cotangent, positions within 1e-5 of the
+    largest position cotangent, as at 128^3). The plain version runs on CPU
+    copies here: a kernel divides by the cell size as the CPU does, while
+    PyTorch on the card multiplies by its reciprocal, and with a cell of 0.7
+    a particle on a face then falls into the other cell, where the affine
+    rows (the gradient of a piecewise trilinear field) jump."""
+    shape, h = (20, 18, 28), 0.7
+    cfg = SimConfig(grid_size=shape, cell_size=h, grid_offset=(0.3, -0.2, 0.1), particle_capacity=8)
+    gen = torch.Generator(device=device).manual_seed(13)
+    off = torch.tensor(cfg.grid_offset, device=device)
+    dims = torch.tensor(shape, device=device, dtype=torch.float32)
+    u, v, w = (torch.randn(sh, generator=gen, device=device) for sh in kernels.face_shapes(cfg))
+    grid = sim.new_state(cfg, device).grid._replace(u=u, v=v, w=w)
+    n = 40_003
+    pos = off + (torch.rand((n, 3), generator=gen, device=device) * (dims + 0.8) - 0.4) * h
+    on_faces = torch.floor(torch.rand((512, 3), generator=gen, device=device) * (dims + 1.0))
+    pos[:512] = off + on_faces * h
+    cell = torch.clamp(torch.floor((pos - off) / h), min=0).int()
+    order = torch.argsort((cell[:, 0] * shape[1] + cell[:, 1]) * shape[2] + cell[:, 2], stable=True)
+    errs = {}
+    cpu = [t.cpu() for t in (u, v, w)]
+    for what, p in (("random order", pos), ("cell order", pos[order].contiguous()),
+                    ("no particle", pos[:0]), ("one particle", pos[7:8].contiguous())):
+        vk, ak = transfers.g2p_pic(grid, p, cfg)
+        gv = torch.randn(vk.shape, generator=gen, device=device)
+        ga = torch.randn(ak.shape, generator=gen, device=device)
+        got = transfers.g2p_bwd(u, v, w, p, gv, ga, cfg)
+        leaves = [t.requires_grad_() for t in (*cpu, p.cpu())]
+        vp, ap = transfers._g2p_plain(*leaves, cfg)
+        want = [g.to(device) for g in torch.autograd.grad((vp, ap), leaves, (gv.cpu(), ga.cpu()))]
+        vp, ap = vp.detach().to(device), ap.detach().to(device)
+        check(vk.shape == vp.shape and ak.shape == ap.shape, f"g2p, {what}: shapes")
+        if p.shape[0] == 0:
+            check(all(not bool(g.any()) for g in got), "g2p_bwd, no particle: a cotangent is not zero")
+            continue
+        check(close(vk, vp, 1e-5, 1e-5) and close(ak, ap, 1e-5, 1e-5),
+              f"g2p, {what}: error velocity {max_err(vk, vp)} affine {max_err(ak, ap)}")
+        rels = [max_err(a, b) / float(torch.max(torch.abs(b))) for a, b in zip(got, want)]
+        check(max(rels[:3]) < 1e-4 and rels[3] < 1e-5, f"g2p_bwd, {what}: relative errors {rels}")
+        errs[what] = (max(max_err(vk, vp), max_err(ak, ap)), max(rels[:3]), rels[3])
+    log(f"kernels g2p and g2p_bwd, odd shapes at {shape}, cell {h}, {n} particles: "
+        + ", ".join(f"{what}: D max abs error {d:.3e}, D' relative error faces {f:.3e} position {q:.3e}"
+                    for what, (d, f, q) in errs.items())
+        + " (D rtol/atol 1e-5; D' faces < 1e-4, position < 1e-5); none and one particle too")
+
+
 def surface_odd_shapes(device) -> None:
     """Kernel F away from the main path's shapes: a node grid no tile
     divides, a support of 1, 2 and 4 cells, inactive particles, particles
@@ -474,6 +527,7 @@ def kernel_phases(cfg, state):
         f"time {device_ms(lambda: kernels.p2g_faces(data, cfg), 'p2g_kernel')} (torch.profiler)")
     del data, rs
     p2g_odd_shapes(state.position.device)
+    g2p_odd_shapes(state.position.device)
 
     levels = multigrid.build_levels(state.grid.cell_type)
     gen = torch.Generator(device=state.position.device).manual_seed(0)

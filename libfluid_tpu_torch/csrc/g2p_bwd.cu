@@ -3,7 +3,7 @@
 // Replaces the backward of G2P, which the JAX package takes by autodiff of
 // g2p_from_table (libfluid_tpu/sim/transfers.py:597-641) around its Pallas
 // layout kernels _transpose_major and _transpose_rows. Forward, for each
-// axis a and each of the 18 faces f around the particle's cell,
+// axis a and each face f around the particle's cell,
 //   vel_a   += n0 n1 n2 S_f
 //   aff_a,r += (prod_{q != r} n_q) s_r / h * S_f,
 // with d_q = coord_q - f_q, n_q = hat(d_q) and s_q the derivative factor on
@@ -17,19 +17,34 @@
 // other two axes. n' takes the JAX package's subgradients (slope -1 at
 // d = 0, half the slope at |d| = 1).
 //
-// One thread per particle. The face cotangents are sums of atomicAdds in
-// an order that changes from run to run, so their last bits do too (about
-// one float32 rounding per contribution, up to ~50 contributions a face).
+// Bound: instruction issue and the atomics; the bytes (the faces read, their
+// cotangents written, 72 bytes a particle) are a fourteenth of the time.
+// The design is kernel D's read backwards (csrc/g2p.cu):
+//  - per-axis tables of n, s and n', computed once a particle, with the
+//    bounds of a face array resolved there; with P = gv n0 + ga_0 s0 / h,
+//    Q = ga_1 n0 / h, R = ga_2 n0 / h per x entry and T = n1 P + s1 Q,
+//    U = n1 R per (x, y) pair, a face's cotangent is n2 T + s2 U, and the
+//    position cotangent needs the three sums of n2 S, s2 S and n2' S along z;
+//  - the window of two live half-shifted offsets per axis (8 faces an array,
+//    24 atomics a particle at most, not 54); windows of three where a
+//    distance rounds onto an end of the support with a nonzero factor
+//    (d = -1 for s, |d| = 1 for n');
+//  - positions and cotangents in, position cotangents out through shared
+//    memory, coalesced.
 //
-// Bound: the 54 face loads and up to 54 atomics per particle (2M particles
-// at 128^3). Particles arrive in slot order, so neighbouring threads add to
-// neighbouring faces; the atomics resolve in L2, where the three face
-// arrays (26 MB at 128^3) fit.
+// The face cotangents are sums of atomicAdds in an order that changes from
+// run to run, so their last bits do too (about one float32 rounding per
+// contribution, up to ~50 contributions a face). Particles arrive in slot
+// order, so neighbouring threads add to neighbouring faces and a warp's
+// atomic instruction falls into one or two lines of L2, where the three
+// face arrays (26 MB at 128^3) fit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr int THREADS = 128;
 
 __device__ __forceinline__ float hat(float d) { return fmaxf(1.0f - fabsf(d), 0.0f); }
 
@@ -45,83 +60,185 @@ __device__ __forceinline__ float dhat(float d) {
   return d >= 0.0f ? -gate : gate;
 }
 
-__global__ void g2p_bwd_kernel(const float* __restrict__ u, const float* __restrict__ v,
-                               const float* __restrict__ w, const float* __restrict__ pos,
-                               const float* __restrict__ gvel, const float* __restrict__ gaff,
-                               float* __restrict__ gu, float* __restrict__ gv,
-                               float* __restrict__ gw, float* __restrict__ gpos, long long n,
-                               int nx, int ny, int nz, float h, float ox, float oy, float oz) {
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  const float g[3] = {(pos[3 * p] - ox) / h, (pos[3 * p + 1] - oy) / h,
-                      (pos[3 * p + 2] - oz) / h};
-  const int dims[3] = {nx, ny, nz};
-  int cell[3];
-#pragma unroll
-  for (int q = 0; q < 3; ++q) {
-    const int c = (int)floorf(g[q]);
-    cell[q] = c < 0 ? 0 : (c > dims[q] - 1 ? dims[q] - 1 : c);
+__device__ __forceinline__ void stage_in(float* sm, const float* __restrict__ src, int count,
+                                         bool vec) {
+  if (vec && (count & 3) == 0) {
+    const float4* src4 = reinterpret_cast<const float4*>(src);
+    float4* sm4 = reinterpret_cast<float4*>(sm);
+    for (int i = threadIdx.x; i < count / 4; i += THREADS) sm4[i] = __ldg(src4 + i);
+  } else {
+    for (int i = threadIdx.x; i < count; i += THREADS) sm[i] = __ldg(src + i);
   }
-  const float* arrs[3] = {u, v, w};
-  float* garrs[3] = {gu, gv, gw};
-  float gd[3] = {0.0f, 0.0f, 0.0f};  // cotangent of d_q
+}
 
+__device__ __forceinline__ void stage_out(float* __restrict__ dst, const float* sm, int count,
+                                          bool vec) {
+  if (vec && (count & 3) == 0) {
+    float4* dst4 = reinterpret_cast<float4*>(dst);
+    const float4* sm4 = reinterpret_cast<const float4*>(sm);
+    for (int i = threadIdx.x; i < count / 4; i += THREADS) dst4[i] = sm4[i];
+  } else {
+    for (int i = threadIdx.x; i < count; i += THREADS) dst[i] = sm[i];
+  }
+}
+
+// One axis of one particle, as in kernel D; `triple` also where the distance
+// to offset -1 is exactly 1 (n' = -1/2 there).
+struct Axis {
+  float g, gh;
+  int cell;
+  bool low, triple;
+};
+
+__device__ __forceinline__ Axis axis_of(float x, float origin, float h, int dim) {
+  Axis ax;
+  ax.g = (x - origin) / h;
+  const int c = (int)floorf(ax.g);
+  ax.cell = c < 0 ? 0 : (c > dim - 1 ? dim - 1 : c);
+  ax.gh = ax.g - 0.5f;
+  ax.low = ax.gh - (float)ax.cell < 0.0f;
+  ax.triple = ax.low ? (ax.cell + 1 < dim && ax.gh - (float)(ax.cell + 1) == -1.0f)
+                     : (ax.cell > 0 && ax.gh - (float)(ax.cell - 1) == 1.0f);
+  return ax;
+}
+
+// entries [0, 2): the face array staggered along this axis (offsets 0, 1);
+// entries [2, 2 + W): the window of half-shifted offsets
+template <int W>
+struct Tab {
+  float n[2 + W], s[2 + W], e[2 + W];
+  int idx[2 + W];
+};
+
+template <int W>
+__device__ __forceinline__ Tab<W> tab_of(const Axis& ax, int dim) {
+  Tab<W> t;
 #pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const int fx = nx + (a == 0), fy = ny + (a == 1), fz = nz + (a == 2);
-    const float* arr = arrs[a];
-    float* garr = garrs[a];
-    const float cv = gvel[3 * p + a];
-    const float ca0 = gaff[9 * p + 3 * a] / h, ca1 = gaff[9 * p + 3 * a + 1] / h,
-                ca2 = gaff[9 * p + 3 * a + 2] / h;
-    float coord[3];
+  for (int o = 0; o < 2; ++o) {
+    const float d = ax.g - (float)(ax.cell + o);
+    t.n[o] = hat(d);
+    t.s[o] = sfac(d);
+    t.e[o] = dhat(d);
+    t.idx[o] = ax.cell + o;
+  }
+  const int first = ax.cell + ((W == 3 || ax.low) ? -1 : 0);
 #pragma unroll
-    for (int q = 0; q < 3; ++q) coord[q] = g[q] - (q == a ? 0.0f : 0.5f);
-    for (int di = (a == 0 ? 0 : -1); di <= 1; ++di) {
-      const int ix = cell[0] + di;
-      if (ix < 0 || ix >= fx) continue;
-      const float d0 = coord[0] - (float)ix;
-      const float n0 = hat(d0), s0 = sfac(d0), e0 = dhat(d0);
-      for (int dj = (a == 1 ? 0 : -1); dj <= 1; ++dj) {
-        const int iy = cell[1] + dj;
-        if (iy < 0 || iy >= fy) continue;
-        const float d1 = coord[1] - (float)iy;
-        const float n1 = hat(d1), s1 = sfac(d1), e1 = dhat(d1);
-        for (int dk = (a == 2 ? 0 : -1); dk <= 1; ++dk) {
-          const int iz = cell[2] + dk;
-          if (iz < 0 || iz >= fz) continue;
-          const float d2 = coord[2] - (float)iz;
-          const float n2 = hat(d2), s2 = sfac(d2), e2 = dhat(d2);
-          const long long f = ((long long)ix * fy + iy) * fz + iz;
-          const float gs = cv * n0 * n1 * n2 + ca0 * s0 * n1 * n2 + ca1 * n0 * s1 * n2 +
-                           ca2 * n0 * n1 * s2;
-          if (gs != 0.0f) atomicAdd(garr + f, gs);
-          const float S = arr[f];
-          if (S == 0.0f) continue;
-          gd[0] += S * (cv * e0 * n1 * n2 + ca1 * e0 * s1 * n2 + ca2 * e0 * n1 * s2);
-          gd[1] += S * (cv * n0 * e1 * n2 + ca0 * s0 * e1 * n2 + ca2 * n0 * e1 * s2);
-          gd[2] += S * (cv * n0 * n1 * e2 + ca0 * s0 * n1 * e2 + ca1 * n0 * s1 * e2);
-        }
+  for (int o = 0; o < W; ++o) {
+    const int i = first + o;
+    const bool inside = i >= 0 && i < dim;
+    const float d = ax.gh - (float)i;
+    t.n[2 + o] = inside ? hat(d) : 0.0f;
+    t.s[2 + o] = inside ? sfac(d) : 0.0f;
+    t.e[2 + o] = inside ? dhat(d) : 0.0f;
+    t.idx[2 + o] = i < 0 ? 0 : (i > dim - 1 ? dim - 1 : i);
+  }
+  return t;
+}
+
+// Face array A: scatter the cotangents of its faces, and add its share of
+// the cotangents gd[3] of the particle's grid coordinates. cv is the
+// velocity cotangent of component A, ca0..2 its affine row's over h.
+template <int A, int W>
+__device__ __forceinline__ void scatter(const float* __restrict__ arr, float* __restrict__ garr,
+                                        int fy, int fz, const Tab<W>& tx, const Tab<W>& ty,
+                                        const Tab<W>& tz, float cv, float ca0, float ca1,
+                                        float ca2, float* gd) {
+  constexpr int X0 = A == 0 ? 0 : 2, XN = A == 0 ? 2 : W;
+  constexpr int Y0 = A == 1 ? 0 : 2, YN = A == 1 ? 2 : W;
+  constexpr int Z0 = A == 2 ? 0 : 2, ZN = A == 2 ? 2 : W;
+#pragma unroll
+  for (int i = X0; i < X0 + XN; ++i) {
+    const float P = cv * tx.n[i] + ca0 * tx.s[i], Q = ca1 * tx.n[i], R = ca2 * tx.n[i];
+#pragma unroll
+    for (int j = Y0; j < Y0 + YN; ++j) {
+      const float T = ty.n[j] * P + ty.s[j] * Q, U = ty.n[j] * R;
+      const int row = (tx.idx[i] * fy + ty.idx[j]) * fz;
+      float sn = 0.0f, ss = 0.0f, se = 0.0f;
+#pragma unroll
+      for (int k = Z0; k < Z0 + ZN; ++k) {
+        const int f = row + tz.idx[k];
+        const float S = __ldg(arr + f);
+        sn += tz.n[k] * S;
+        ss += tz.s[k] * S;
+        se += tz.e[k] * S;
+        const float gs = tz.n[k] * T + tz.s[k] * U;
+        if (gs != 0.0f) atomicAdd(garr + f, gs);
       }
+      gd[0] += tx.e[i] * (ty.n[j] * (cv * sn + ca2 * ss) + ty.s[j] * (ca1 * sn));
+      gd[1] += ty.e[j] * (P * sn + R * ss);
+      gd[2] += se * T;
     }
   }
-#pragma unroll
-  for (int q = 0; q < 3; ++q) gpos[3 * p + q] = gd[q] / h;
 }
+
+template <int W>
+__device__ __forceinline__ void particle(const float* __restrict__ u, const float* __restrict__ v,
+                                         const float* __restrict__ w, float* __restrict__ gu,
+                                         float* __restrict__ gv, float* __restrict__ gw,
+                                         const Axis& ax, const Axis& ay, const Axis& az, int nx,
+                                         int ny, int nz, float rh, const float* cvel,
+                                         const float* caff, float* gpos3) {
+  const Tab<W> tx = tab_of<W>(ax, nx), ty = tab_of<W>(ay, ny), tz = tab_of<W>(az, nz);
+  float gd[3] = {0.0f, 0.0f, 0.0f};
+  scatter<0, W>(u, gu, ny, nz, tx, ty, tz, cvel[0], caff[0] * rh, caff[1] * rh, caff[2] * rh, gd);
+  scatter<1, W>(v, gv, ny + 1, nz, tx, ty, tz, cvel[1], caff[3] * rh, caff[4] * rh, caff[5] * rh,
+                gd);
+  scatter<2, W>(w, gw, ny, nz + 1, tx, ty, tz, cvel[2], caff[6] * rh, caff[7] * rh, caff[8] * rh,
+                gd);
+  gpos3[0] = gd[0] * rh, gpos3[1] = gd[1] * rh, gpos3[2] = gd[2] * rh;
+}
+
+__global__ void __launch_bounds__(THREADS)
+g2p_bwd_kernel(const float* __restrict__ u, const float* __restrict__ v,
+               const float* __restrict__ w, const float* __restrict__ pos,
+               const float* __restrict__ gvel, const float* __restrict__ gaff,
+               float* __restrict__ gu, float* __restrict__ gv, float* __restrict__ gw,
+               float* __restrict__ gpos, long long n, int nx, int ny, int nz, float h, float ox,
+               float oy, float oz, int vec) {
+  __shared__ __align__(16) float sm_pos[3 * THREADS];  // positions in, their cotangents out
+  __shared__ __align__(16) float sm_vel[3 * THREADS];
+  __shared__ __align__(16) float sm_aff[9 * THREADS];
+  const long long start = (long long)blockIdx.x * THREADS;
+  const int count = (int)(n - start < THREADS ? n - start : THREADS);
+  const int t = threadIdx.x;
+  stage_in(sm_pos, pos + 3 * start, 3 * count, vec & 1);
+  stage_in(sm_vel, gvel + 3 * start, 3 * count, vec & 2);
+  stage_in(sm_aff, gaff + 9 * start, 9 * count, vec & 4);
+  __syncthreads();
+  float x = 0.0f, y = 0.0f, z = 0.0f;
+  if (t < count) x = sm_pos[3 * t], y = sm_pos[3 * t + 1], z = sm_pos[3 * t + 2];
+  __syncthreads();
+  if (t < count) {
+    const Axis ax = axis_of(x, ox, h, nx), ay = axis_of(y, oy, h, ny), az = axis_of(z, oz, h, nz);
+    const float rh = 1.0f / h;
+    if (ax.triple || ay.triple || az.triple)
+      particle<3>(u, v, w, gu, gv, gw, ax, ay, az, nx, ny, nz, rh, sm_vel + 3 * t,
+                  sm_aff + 9 * t, sm_pos + 3 * t);
+    else
+      particle<2>(u, v, w, gu, gv, gw, ax, ay, az, nx, ny, nz, rh, sm_vel + 3 * t,
+                  sm_aff + 9 * t, sm_pos + 3 * t);
+  }
+  __syncthreads();
+  stage_out(gpos + 3 * start, sm_pos, 3 * count, vec & 8);
+}
+
+inline int aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 
 // u: (nx+1, ny, nz), v: (nx, ny+1, nz), w: (nx, ny, nz+1), pos: (n, 3),
 // gvel: (n, 3), gaff: (n, 3, 3) f32; gu, gv, gw: face cotangents, zeroed by
-// the caller and accumulated here; gpos: (n, 3) position cotangent.
+// the caller and accumulated here; gpos: (n, 3) position cotangent. Every
+// face array has fewer than 2^31 elements (the caller checks).
 extern "C" int lf_g2p_bwd(const float* u, const float* v, const float* w, const float* pos,
                           const float* gvel, const float* gaff, float* gu, float* gv,
                           float* gw, float* gpos, long long n, int nx, int ny, int nz,
                           float h, float ox, float oy, float oz, void* stream) {
   if (n == 0) return 0;
-  const int threads = 128;
-  const long long blocks = (n + threads - 1) / threads;
-  g2p_bwd_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      u, v, w, pos, gvel, gaff, gu, gv, gw, gpos, n, nx, ny, nz, h, ox, oy, oz);
+  const long long blocks = (n + THREADS - 1) / THREADS;
+  const int vec = aligned16(pos) | aligned16(gvel) << 1 | aligned16(gaff) << 2 |
+                  aligned16(gpos) << 3;
+  g2p_bwd_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      u, v, w, pos, gvel, gaff, gu, gv, gw, gpos, n, nx, ny, nz, h, ox, oy, oz, vec);
   return (int)cudaGetLastError();
 }

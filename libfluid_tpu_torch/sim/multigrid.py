@@ -14,7 +14,7 @@ here; on CPU tensors the cycle is composed of exactly those plain stages.
 from __future__ import annotations
 
 import ctypes
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -362,6 +362,17 @@ def _check_hierarchy(levels: Tuple[MGLevel, ...]) -> None:
         levels.fused_checked = True
 
 
+def bottom_route(cells: Sequence[int], l: int) -> str:
+    """How the bottom of the cycle, from level `l` of a hierarchy whose
+    levels hold `cells` cells, runs on CUDA tensors: "block" is the
+    one-block kernel "mg_coarse" on levels `l` and below; "sweeps" is the
+    last level alone, too large for one block, as ``_COARSE_ITERS``
+    "stencil" launches."""
+    if l == len(cells) - 1 and cells[l] > _COARSE_CELLS_MAX:
+        return "sweeps"
+    return "block"
+
+
 def _check_coarse(sub: Tuple[MGLevel, ...]) -> None:
     """Raise unless the one-block kernel takes these levels."""
     if len(sub) > _MAX_LEVELS:
@@ -369,7 +380,7 @@ def _check_coarse(sub: Tuple[MGLevel, ...]) -> None:
     cells = tuple(sub[0].fluid.shape)
     if sub[0].fluid.numel() > _COARSE_CELLS_MAX:
         raise ValueError(f"mg_coarse takes levels of at most {_COARSE_CELLS_MAX} cells, got {cells}: "
-                         "the hierarchy's last level is too large for one block")
+                         "too large for one block, and not the hierarchy's last level")
 
 
 def _level_args(level: MGLevel):
@@ -402,6 +413,8 @@ def _launch_up(level: MGLevel, x, ec, b) -> torch.Tensor:
 
 
 def _launch_coarse(levels: Tuple[MGLevel, ...], b: torch.Tensor, l: int) -> torch.Tensor:
+    if bottom_route([lev.fluid.numel() for lev in levels], l) == "sweeps":
+        return _smooth(levels[l], torch.zeros_like(b), b, _COARSE_ITERS)
     sub = levels[l:]
     _check_coarse(sub)
     sizes = [lev.fluid.numel() for lev in sub]
@@ -457,8 +470,9 @@ def prolong_smooth(level: MGLevel, x: torch.Tensor, ec: torch.Tensor,
 def coarse_cycle(levels: Tuple[MGLevel, ...], b: torch.Tensor, l: int) -> torch.Tensor:
     """``v_cycle(levels, b, l)`` of the JAX package for the small levels:
     the whole sub-cycle from level `l` down, the coarsest level's sweeps
-    included. CUDA: "mg_coarse", one launch of one block; CPU:
-    :func:`_coarse_torch`."""
+    included. CUDA: "mg_coarse", one launch of one block, or, for a last
+    level too large for one block, its sweeps as "stencil" launches
+    (:func:`bottom_route`); CPU: :func:`_coarse_torch`."""
     if not kernels.use_kernel(b, *(lev.fluid for lev in levels[l:])):
         return _coarse_torch(levels, b, l)
     _check_hierarchy(levels)
@@ -482,7 +496,9 @@ def v_cycle(levels: Tuple[MGLevel, ...], b: torch.Tensor, l: int = 0) -> torch.T
     :func:`restrict_residual`, :func:`coarse_cycle` and
     :func:`prolong_smooth`: on CUDA tensors these are the fused kernels of
     ``csrc/vcycle.cu`` and nothing runs between them but the allocation of
-    their outputs (3 launches per large level and 1 for the small levels);
+    their outputs (3 launches per large level and 1 for the small levels;
+    a last level above ``_COARSE_CELLS_MAX`` cells takes "stencil" launches
+    instead, :func:`bottom_route`);
     on CPU tensors, their plain versions. The bfloat16 cycle of "mg16" runs
     :func:`v_cycle_per_pass`.
     """

@@ -57,6 +57,9 @@ class Diagnostics(NamedTuple):
     particle_count: torch.Tensor
     substeps: torch.Tensor
     overflow_count: torch.Tensor  # particles past the slot capacity (merged exactly by P2G)
+    # particles deactivated this step: always 0 here (the JAX package's
+    # sharded exchange can lose particles; the dense path cannot)
+    particles_lost: torch.Tensor
     # slot-overflow particles beyond correction_overflow_capacity this
     # substep: they received no correction spring (every other stage still
     # handles them); nonzero means the cap is undersized for the scene
@@ -209,6 +212,7 @@ def substep(
         particle_count=state.active.sum(dtype=torch.int32),
         substeps=torch.tensor(1, dtype=torch.int32, device=dev),
         overflow_count=slot_grid.overflow.sum(dtype=torch.int32),
+        particles_lost=torch.zeros((), dtype=torch.int32, device=dev),
         correction_uncorrected=corr_uncorrected,
     )
     return state, diag
@@ -233,5 +237,5 @@ def step(
     if diag is None:
         zero = torch.zeros((), dtype=cfg.dtype, device=dev)
         izero = torch.zeros((), dtype=torch.int32, device=dev)
-        diag = Diagnostics(zero, zero, zero, izero, zero, zero, zero, izero, izero, izero, izero)
+        diag = Diagnostics(zero, zero, zero, izero, zero, zero, zero, izero, izero, izero, izero, izero)
     return state, diag._replace(substeps=torch.tensor(nsub, dtype=torch.int32, device=dev))

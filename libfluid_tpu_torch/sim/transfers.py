@@ -321,13 +321,23 @@ def g2p_from_table(
     return torch.stack(vals, dim=-1), torch.stack(rows_out, dim=-2)
 
 
-def _g2p_cuda(u, v, w, position, cfg: SimConfig):
+def _check_g2p(u, v, w, position, cfg: SimConfig) -> int:
+    """Raise unless the faces and positions are what kernels D and D' take;
+    returns the number of particles."""
     nx, ny, nz = cfg.grid_size
     n = position.shape[0]
+    if max((nx + 1) * ny * nz, nx * (ny + 1) * nz, nx * ny * (nz + 1)) >= 1 << 31:
+        raise ValueError(f"grid {cfg.grid_size}: the G2P kernels index a face array with 32 bits")
     kernels.check(u, torch.float32, (nx + 1, ny, nz), "u")
     kernels.check(v, torch.float32, (nx, ny + 1, nz), "v")
     kernels.check(w, torch.float32, (nx, ny, nz + 1), "w")
     kernels.check(position, torch.float32, (n, 3), "position")
+    return n
+
+
+def _g2p_cuda(u, v, w, position, cfg: SimConfig):
+    nx, ny, nz = cfg.grid_size
+    n = _check_g2p(u, v, w, position, cfg)
     vel = torch.empty((n, 3), dtype=torch.float32, device=position.device)
     aff = torch.empty((n, 3, 3), dtype=torch.float32, device=position.device)
     ox, oy, oz = (float(o) for o in cfg.grid_offset)
@@ -349,13 +359,9 @@ def g2p_bwd(u, v, w, position, gvel, gaff, cfg: SimConfig):
     matrix (N, 3, 3). The face cotangents are summed with atomics, so their
     last bits vary from run to run."""
     nx, ny, nz = cfg.grid_size
-    n = position.shape[0]
+    n = _check_g2p(u, v, w, position, cfg)
     gvel = gvel.contiguous()
     gaff = gaff.contiguous()
-    kernels.check(u, torch.float32, (nx + 1, ny, nz), "u")
-    kernels.check(v, torch.float32, (nx, ny + 1, nz), "v")
-    kernels.check(w, torch.float32, (nx, ny, nz + 1), "w")
-    kernels.check(position, torch.float32, (n, 3), "position")
     kernels.check(gvel, torch.float32, (n, 3), "velocity cotangent")
     kernels.check(gaff, torch.float32, (n, 3, 3), "affine cotangent")
     gu, gv, gw = (torch.zeros_like(a) for a in (u, v, w))

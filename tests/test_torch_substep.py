@@ -103,6 +103,44 @@ def test_substep_matches_jax(n, scheme):
     np.testing.assert_allclose(float(t_diag.max_divergence), float(j_diag.max_divergence), atol=1e-4)
 
 
+def test_thin_grid_substep_matches_jax():
+    """A 24 x 16 x 8 dam-break: the hierarchy of the default preconditioner
+    is one level (an axis of 8 cells ends the coarsening at once)."""
+    cfg = SimConfig(
+        grid_size=(24, 16, 8), cell_size=1.0, gravity=(0.0, -10.0, 0.0),
+        particle_capacity=1 << 12, scheme=TransferScheme.APIC,
+        enable_position_correction=False, has_obstacles=False,
+    )
+    assert cfg.solver.preconditioner == "mg"
+    state = seed_box(new_state(cfg, jax.random.PRNGKey(0)), cfg, (0.5, 0.5, 0.5), (10.0, 9.0, 5.0))
+    tcfg, tstate = _port(cfg, state)
+    j_state, j_diag = _jax_substep(cfg, 0.05)(state)
+    t_state, t_diag = t_sim.substep(tstate, tcfg, 0.05)
+    a, b = _compare(j_state, t_state, pos_atol=1e-4)
+    for key in ("velocity", "affine"):
+        scale = float(np.max(np.abs(a[key]))) + 1e-12
+        np.testing.assert_allclose(b[key], a[key], rtol=0, atol=1e-3 * scale)
+    assert int(t_diag.particle_count) == int(j_diag.particle_count) > 0
+    assert int(j_diag.pressure_iterations) > 0
+    assert abs(int(t_diag.pressure_iterations) - int(j_diag.pressure_iterations)) <= 1
+    assert float(t_diag.pressure_residual) < cfg.solver.tolerance
+
+
+def test_diagnostics_fields_equal_jax():
+    """The port's Diagnostics has the JAX package's fields in its order, and
+    a substep and an empty step fill every one of them."""
+    from libfluid_tpu.sim.step import Diagnostics
+    from libfluid_tpu_torch.sim.step import Diagnostics as TDiagnostics
+
+    assert TDiagnostics._fields == Diagnostics._fields
+    cfg, state = _dam_break(12)
+    tcfg, tstate = _port(cfg, state)
+    _, diag = t_sim.substep(tstate, tcfg, 0.05)
+    assert diag.particles_lost.dtype == torch.int32 and int(diag.particles_lost) == 0
+    _, empty = t_sim.step(tstate, tcfg, 0.0)
+    assert len(empty) == len(Diagnostics._fields) and int(empty.substeps) == 0
+
+
 def test_cfl_step_matches_jax():
     cfg, state = _dam_break(12)
     tcfg, tstate = _port(cfg, state)

@@ -133,14 +133,56 @@ def test_stage_composition_equals_per_pass(name, coarse_cells, monkeypatch):
 
 def test_coarse_kernel_refuses_a_large_last_level():
     """A thin slab stops coarsening at once; its one level is more than the
-    one-block kernel takes, and the check that guards the launch says so."""
+    one-block kernel takes. The check that guards that launch still says so,
+    and the route sends such a level to its sweeps instead."""
     shape = (72, 64, 8)
     tlevels = t_multigrid.build_levels(torch.from_numpy(_cell_types(shape)))
     assert len(tlevels) == 1 and t_multigrid.first_coarse_level(tlevels) == 0
     with pytest.raises(ValueError, match="too large for one block"):
         t_multigrid._check_coarse(tlevels)
+    assert t_multigrid.bottom_route([lv.fluid.numel() for lv in tlevels], 0) == "sweeps"
     _, small = _levels("cube25")
     t_multigrid._check_coarse(small[t_multigrid.first_coarse_level(small):])
+
+
+@pytest.mark.parametrize("shape,levels,route", [
+    ((128, 64, 8), 1, "sweeps"),  # 65,536 cells in one level
+    ((72, 64, 8), 1, "sweeps"),
+    ((40, 36, 8), 1, "block"),  # 11,520 cells: one block still takes them
+    ((16, 16, 16), 2, "block"),
+    ((25, 25, 25), 3, "block"),
+])
+def test_bottom_route(shape, levels, route):
+    """Which hierarchies end in the one-block kernel and which in sweeps of
+    their last level: decided from the levels' cell counts alone."""
+    tlevels = t_multigrid.build_levels(torch.from_numpy(_cell_types(shape)))
+    assert len(tlevels) == levels
+    cells = [lv.fluid.numel() for lv in tlevels]
+    assert t_multigrid.bottom_route(cells, t_multigrid.first_coarse_level(tlevels)) == route
+    # a large level that is not the last never takes the sweeps
+    assert t_multigrid.bottom_route([1 << 21, 1 << 18], 0) == "block"
+
+
+@pytest.mark.parametrize("shape", [(40, 36, 8), (24, 16, 8), (72, 64, 8)])
+def test_thin_grid_vcycle_matches_jax(shape, monkeypatch):
+    """A grid with an axis of 8 cells has one level: the cycle is that
+    level's sweeps from zero. The plain cycle against the JAX package's, and
+    the sweeps' path (what a last level too large for one block takes on the
+    card, here on CPU tensors through the stencil's plain version) against
+    the plain cycle."""
+    ct = _cell_types(shape)
+    levels = multigrid.build_levels(jnp.asarray(ct))
+    tlevels = t_multigrid.build_levels(torch.from_numpy(ct))
+    assert len(levels) == len(tlevels) == 1
+    b = _rhs(np.random.default_rng(12), levels[0])
+    want = np.asarray(multigrid.v_cycle(levels, jnp.asarray(b)))
+    tb = torch.from_numpy(b)
+    got = t_multigrid.v_cycle(tlevels, tb)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * float(np.max(np.abs(b))))
+    assert np.max(np.abs(want)) > 0
+    monkeypatch.setattr(t_multigrid, "_COARSE_CELLS_MAX", 1000)
+    assert t_multigrid.bottom_route([tb.numel()], 0) == "sweeps"
+    assert torch.equal(t_multigrid._launch_coarse(tlevels, tb, 0), got)
 
 
 def test_vcycle_from_a_lower_level():

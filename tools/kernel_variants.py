@@ -19,6 +19,7 @@ import os
 import subprocess
 import sys
 import tempfile
+from pathlib import Path
 
 import torch
 
@@ -27,7 +28,7 @@ sys.path.insert(0, os.getcwd())
 import chip_smoke as cs  # noqa: E402
 from libfluid_tpu_torch import _build, sim  # noqa: E402
 from libfluid_tpu_torch.mesher import surface  # noqa: E402
-from libfluid_tpu_torch.sim import kernels, slotsort  # noqa: E402
+from libfluid_tpu_torch.sim import kernels, slotsort, transfers  # noqa: E402
 
 # kernel B: the line of the tile, the line of the chunk, and the parts
 B_TILE = "constexpr int TX = 4, TY = 16, TZ = 16, THREADS = TY * TZ;"
@@ -55,10 +56,11 @@ F_PARTS = {
 }
 
 
-def build(source: str, swaps, tag: str, folder: str):
-    """The library of `source` with each (old, new) of `swaps` replaced in
-    its text, and what ptxas says of its registers and spills."""
-    text = (_build.CSRC / source).read_text()
+def build(source: str, swaps, tag: str, folder: str, csrc=_build.CSRC):
+    """The library of `source` (in the folder `csrc`) with each (old, new) of
+    `swaps` replaced in its text, and what ptxas says of its registers and
+    spills."""
+    text = (Path(csrc) / source).read_text()
     for old, new in swaps:
         if old not in text:
             raise RuntimeError(f"{source} has no {old!r}")
@@ -75,16 +77,20 @@ def build(source: str, swaps, tag: str, folder: str):
     return ctypes.CDLL(path + ".so"), "; ".join(said)
 
 
-def run(source, entry, kernel, variants, args, outs, want, folder) -> None:
+def run(source, entry, kernel, variants, args, outs, want, folder, csrc=_build.CSRC, zero=()) -> None:
+    """Build, check and time each variant; the tensors of `zero` are set to
+    0 before every launch (a kernel that accumulates into them)."""
     stream = torch.cuda.current_stream().cuda_stream
     for n, (what, swaps) in enumerate(variants):
-        lib, said = build(source, swaps, f"{entry}_{n}", folder)
+        lib, said = build(source, swaps, f"{entry}_{n}", folder, csrc)
         fn = getattr(lib, entry)
         fn.argtypes = _build.SIGNATURES[entry]
         fn.restype = ctypes.c_int
         cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
 
         def call():
+            for z in zero:
+                z.zero_()
             err = fn(*cargs, stream)
             if err != 0:
                 raise RuntimeError(f"{entry} ({what}): CUDA error {err}")
@@ -94,9 +100,63 @@ def run(source, entry, kernel, variants, args, outs, want, folder) -> None:
         call()
         torch.cuda.synchronize()
         same = all(torch.equal(o, w) for o, w in zip(outs, want))
+        worst = max((cs.max_err(o, w) for o, w in zip(outs, want) if o.numel()), default=0.0)
         ms = [cs.median_ms(call) for _ in range(2)]
         print(f"{entry} {what}: ms {ms[0]:.4f} {ms[1]:.4f}, device {cs.device_ms(call, kernel)}, "
-              f"the library's bits: {same}; {said}", flush=True)
+              f"the library's bits: {same} (max abs difference {worst:.3e}); {said}", flush=True)
+
+
+# kernels D and D' as they were before their redesign (one thread a particle
+# over 54 face samples, the weights inside the innermost loop): the parts of
+# the parent's sources, for ``--parent <tree>``
+D_OLD_PARTS = {
+    "as built": [],
+    "no face loads": [("const float sample = arr[((long long)ix * fy + iy) * fz + iz];",
+                       "const float sample = h;")],
+    "no arithmetic": [("val += n0 * n1 * n2 * sample;", "val += sample;"),
+                      ("g0 += s0 * n1 * n2 / h * sample;", "g0 += sample;"),
+                      ("g1 += n0 * s1 * n2 / h * sample;", "g1 += sample;"),
+                      ("g2 += n0 * n1 * s2 / h * sample;", "g2 += sample;")],
+    "no stores": [("vel[3 * p + a] = val;", "if (val != 12345.678f) continue;\n    vel[3 * p + a] = val;")],
+    "divisions as one multiplication": [
+        ("/ h * sample", "* rh * sample"),
+        ("const int dims[3] = {nx, ny, nz};", "const int dims[3] = {nx, ny, nz};\n  const float rh = 1.0f / h;")],
+}
+_NO_ATOMICS = ("if (gs != 0.0f) atomicAdd(garr + f, gs);", "if (gs == 12345.678f) atomicAdd(garr + f, gs);")
+_NO_GPOS = ("if (S == 0.0f) continue;", "if (S != 12345.678f) continue;")
+DB_OLD_PARTS = {
+    "as built": [],
+    "no atomics": [_NO_ATOMICS],
+    "no face loads": [("const float S = arr[f];", "const float S = h;")],
+    "no position-cotangent arithmetic": [_NO_GPOS],
+    "no atomics, no position-cotangent arithmetic": [_NO_ATOMICS, _NO_GPOS],
+    "no loads of the cotangents": [("gvel[3 * p + a]", "h"), ("gaff[9 * p + 3 * a] / h", "h / h"),
+                                   ("gaff[9 * p + 3 * a + 1] / h", "h / h"),
+                                   ("gaff[9 * p + 3 * a + 2] / h", "h / h")],
+}
+
+
+def g2p_variants(state, cfg, d_parts, db_parts, folder, csrc=_build.CSRC) -> None:
+    """Kernels D and D' of the sources in `csrc`, each part of `d_parts` and
+    `db_parts` switched off in turn, on the 128^3 state's faces and
+    particles; D' with the face cotangents zeroed before every launch (the
+    event medians include those three fills, the device's own time does
+    not)."""
+    grid, pos = state.grid, state.position.contiguous()
+    n = pos.shape[0]
+    nx, ny, nz = cfg.grid_size
+    tail = (n, nx, ny, nz, float(cfg.cell_size), *(float(o) for o in cfg.grid_offset))
+    want = transfers.g2p_pic(grid, pos, cfg)
+    outs = [torch.empty_like(t) for t in want]
+    run("g2p.cu", "lf_g2p", "g2p_kernel", list(d_parts.items()),
+        (grid.u, grid.v, grid.w, pos, *outs, *tail), outs, want, folder, csrc)
+    gen = torch.Generator(device=pos.device).manual_seed(1)
+    gvel = torch.randn((n, 3), generator=gen, device=pos.device)
+    gaff = torch.randn((n, 3, 3), generator=gen, device=pos.device)
+    want = transfers.g2p_bwd(grid.u, grid.v, grid.w, pos, gvel, gaff, cfg)
+    outs = [torch.zeros_like(t) for t in want]
+    run("g2p_bwd.cu", "lf_g2p_bwd", "g2p_bwd_kernel", list(db_parts.items()),
+        (grid.u, grid.v, grid.w, pos, gvel, gaff, *outs, *tail), outs, want, folder, csrc, zero=outs[:3])
 
 
 def binning_pieces(pos, act, mesher) -> None:
@@ -152,6 +212,11 @@ def main() -> None:
     dev = torch.device("cuda")
     cfg, state = cs.dam_break(128, dev, 1 << 21)
     state, _ = sim.substep(state, cfg, cs.DT)
+    if len(sys.argv) == 3 and sys.argv[1] == "--parent":
+        with tempfile.TemporaryDirectory() as folder:
+            g2p_variants(state, cfg, D_OLD_PARTS, DB_OLD_PARTS, folder,
+                         Path(sys.argv[2]) / "libfluid_tpu_torch" / "csrc")
+        return
     rs = slotsort.sort_rank_major(state, cfg)
     nx, ny, nz = cfg.grid_size
     data = slotsort.expand(rs.payT, rs.ins, rs.counts).reshape(16, cfg.max_neighbors_per_cell, nx, ny, nz)
