@@ -29,6 +29,12 @@ Phases, one line of output each (or a few):
    128^3) against the autograd of
    their plain versions, and kernel C's bfloat16 instance against the
    plain bfloat16 stencil on every level and mode;
+   kernels D and D' also on a 20 x 18 x 28 grid with a cell of 0.7
+   (particles in random and in cell order, on faces, outside the domain, a
+   count no block divides, none and one), and with the device's own time;
+   a 128 x 64 x 8 dam-break, whose one multigrid level is too large for
+   the one-block coarse kernel and takes its sweeps as stencil launches:
+   the V-cycle against the plain cycle, three substeps against the CPU run;
 4. a seeded 32^3 dam-break with position correction off, and a 32^3 scene
    with the default options (position correction, a solid block, a
    source), each run for 2 substeps on the card (kernels) and on the CPU
@@ -582,7 +588,8 @@ def kernel_phases(cfg, state):
         ms=median_ms(lambda: transfers.g2p_pic(grid, pos, cfg)),
         plain_ms=median_ms(plain),
     )
-    log(f"kernel g2p: {pos.shape[0]} particles within rtol/atol 1e-5, {out['g2p']}")
+    log(f"kernel g2p: {pos.shape[0]} particles within rtol/atol 1e-5, {out['g2p']}; the device's own "
+        f"time {device_ms(lambda: transfers.g2p_pic(grid, pos, cfg), 'g2p_kernel')} (torch.profiler)")
     del vk, ak, vp, ap
 
     sb = slotsort.sort_and_build(state, cfg)
@@ -718,8 +725,9 @@ def backward_kernel_phases(cfg, state) -> dict:
     )
     log(f"kernel g2p_bwd (D'): {n} particles, relative errors (u, v, w, position) "
         f"{[f'{r:.2e}' for r in rels]} (faces < 1e-4, position < 1e-5), plain = recompute + "
-        f"autograd, "
-        f"{out['g2p_bwd']}")
+        f"autograd, {out['g2p_bwd']}; the device's own time "
+        f"{device_ms(lambda: transfers.g2p_bwd(grid.u, grid.v, grid.w, pos, gv, ga, cfg), 'g2p_bwd_kernel')} "
+        f"(torch.profiler; the event median includes the wrapper's zero fill)")
     del got, want, gv, ga
     torch.cuda.empty_cache()
 
@@ -769,6 +777,50 @@ def parity_scene(device):
         [[28, 20, z] for z in range(10, 15)], (-50.0, 0.0, 0.0), coerce_velocity=True, device=device,
     )
     return cfg, state._replace(sources=src)
+
+
+def thin_grid(device) -> None:
+    """A 128 x 64 x 8 dam-break with the default preconditioner: an axis of
+    8 cells ends the coarsening at once, so the hierarchy is one level of
+    65,536 cells, more than the one-block coarse kernel takes; its sweeps
+    run as stencil launches. The V-cycle against the plain cycle, then three
+    substeps on the card and on the CPU (the block falls freely through the
+    first, which needs no CG iteration): healthy output, and the same CG
+    iterations (within 1)."""
+    cpu = torch.device("cpu")
+    its, levels = {}, None
+    for dev in (device, cpu):
+        cfg = SimConfig(grid_size=(128, 64, 8), cell_size=1.0, gravity=(0.0, -981.0, 0.0),
+                        particle_capacity=1 << 17, scheme=TransferScheme.APIC, has_obstacles=False)
+        state = sim.seed_box(sim.new_state(cfg, dev), cfg, (1.0, 1.0, 1.0), (63.0, 40.0, 6.0))
+        n0 = int(particle_count(state))
+        its[dev.type] = []
+        for i in range(3):
+            state, diag = sim.substep(state, cfg, DT / 4)
+            healthy(state, diag, cfg, n0, f"thin grid, {dev.type} substep {i}")
+            its[dev.type].append(int(diag.pressure_iterations))
+        if dev == device:
+            levels = multigrid.build_levels(state.grid.cell_type)
+    cells = [lv.fluid.numel() for lv in levels]
+    check(len(levels) == 1 and multigrid.bottom_route(cells, 0) == "sweeps",
+          f"thin grid: levels of {cells} cells do not take the sweeps")
+    gen = torch.Generator(device=device).manual_seed(3)
+    b = 20.0 * torch.randn(levels[0].fluid.shape, generator=gen, device=device) * levels[0].fluid
+    torch.cuda.synchronize()
+    before = dict(kernels.LAUNCHES)
+    got = multigrid.v_cycle(levels, b)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v != before[k]}
+    want = multigrid._coarse_torch(levels, b, 0)
+    err, tol = max_err(got, want), 1e-5 * float(b.abs().max())
+    check(err <= tol, f"thin grid: V-cycle differs from the plain cycle by {err} > {tol}")
+    check(launched == {"stencil": multigrid._COARSE_ITERS}, f"thin grid: a V-cycle launched {launched}")
+    log(f"thin grid {tuple(levels[0].fluid.shape)}, one level of {cells[0]} cells: V-cycle against plain max "
+        f"abs error {err:.3e} (<= 1e-5 max|b| = {tol:.3e}), {launched} launches a cycle, "
+        f"{wall_ms(lambda: multigrid.v_cycle(levels, b)):.4f} ms on the host clock; CG iterations of three "
+        f"substeps gpu {its[device.type]} cpu {its['cpu']}, {n0} particles, healthy")
+    check(max(its["cpu"]) > 0 and all(abs(g - c) <= 1 for g, c in zip(its[device.type], its["cpu"])),
+          f"thin grid: CG iterations gpu {its[device.type]} cpu {its['cpu']} differ by more than 1")
 
 
 def slice_parity(device) -> None:
@@ -1228,6 +1280,8 @@ def main() -> None:
     del state
     torch.cuda.empty_cache()
 
+    drive("thin-grid path (128 x 64 x 8)", lambda: thin_grid(device),
+          ("expand", "p2g", "stencil", "g2p", "correction"))
     slice_parity(device)
     scene_parity(device)
     grad_parity(device)

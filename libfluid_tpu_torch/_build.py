@@ -25,9 +25,10 @@ SOURCES = (
     "expand.cu", "p2g.cu", "p2g_bwd.cu", "stencil.cu", "vcycle.cu", "g2p.cu", "g2p_bwd.cu",
     "correction.cu", "surface.cu",
 )
+HEADERS = ("staging.cuh",)  # included by g2p.cu and g2p_bwd.cu
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-I", str(CSRC),
 )
 
 # flags of single sources: the fused V-cycle keeps the plain versions'
@@ -71,7 +72,7 @@ def _stale() -> bool:
     if not LIB_PATH.exists():
         return True
     built = LIB_PATH.stat().st_mtime
-    return any((CSRC / s).stat().st_mtime > built for s in SOURCES)
+    return any((CSRC / s).stat().st_mtime > built for s in SOURCES + HEADERS)
 
 
 def _run(cmds) -> None:

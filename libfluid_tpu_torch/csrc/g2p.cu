@@ -10,7 +10,7 @@
 // APIC gradient rows. The derivative factor uses the half-open support
 // d in [-1, 1) with sign -1 for d > 0.
 //
-// Bound: instruction issue, then the latency of the scattered face loads;
+// Bound: instruction throughput, then the latency of the scattered face loads;
 // the bytes (the faces once, 60 bytes a particle) are a twentieth of the
 // time. What the design does about it:
 //  - The weights are separable. Per axis a particle has two tables of hat
@@ -41,6 +41,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "staging.cuh"
+
 namespace {
 
 constexpr int THREADS = 128;
@@ -49,30 +51,6 @@ __device__ __forceinline__ float hat(float d) { return fmaxf(1.0f - fabsf(d), 0.
 
 __device__ __forceinline__ float dhat(float d) {
   return (d >= -1.0f && d < 1.0f) ? (d > 0.0f ? -1.0f : 1.0f) : 0.0f;
-}
-
-// `count` floats from `src` into shared memory, neighbouring threads on
-// neighbouring addresses
-__device__ __forceinline__ void stage_in(float* sm, const float* __restrict__ src, int count,
-                                         bool vec) {
-  if (vec && (count & 3) == 0) {
-    const float4* src4 = reinterpret_cast<const float4*>(src);
-    float4* sm4 = reinterpret_cast<float4*>(sm);
-    for (int i = threadIdx.x; i < count / 4; i += THREADS) sm4[i] = __ldg(src4 + i);
-  } else {
-    for (int i = threadIdx.x; i < count; i += THREADS) sm[i] = __ldg(src + i);
-  }
-}
-
-__device__ __forceinline__ void stage_out(float* __restrict__ dst, const float* sm, int count,
-                                          bool vec) {
-  if (vec && (count & 3) == 0) {
-    float4* dst4 = reinterpret_cast<float4*>(dst);
-    const float4* sm4 = reinterpret_cast<const float4*>(sm);
-    for (int i = threadIdx.x; i < count / 4; i += THREADS) dst4[i] = sm4[i];
-  } else {
-    for (int i = threadIdx.x; i < count; i += THREADS) dst[i] = sm[i];
-  }
 }
 
 // One axis of one particle: its clamped cell, the grid coordinate at the
@@ -189,7 +167,7 @@ g2p_kernel(const float* __restrict__ u, const float* __restrict__ v, const float
   const long long start = (long long)blockIdx.x * THREADS;
   const int count = (int)(n - start < THREADS ? n - start : THREADS);
   const int t = threadIdx.x;
-  stage_in(sm_vel, pos + 3 * start, 3 * count, vec & 1);
+  stage_in<THREADS>(sm_vel, pos + 3 * start, 3 * count, vec & 1);
   __syncthreads();
   float x = 0.0f, y = 0.0f, z = 0.0f;
   if (t < count) x = sm_vel[3 * t], y = sm_vel[3 * t + 1], z = sm_vel[3 * t + 2];
@@ -203,11 +181,9 @@ g2p_kernel(const float* __restrict__ u, const float* __restrict__ v, const float
       particle<2>(u, v, w, ax, ay, az, nx, ny, nz, rh, sm_vel + 3 * t, sm_aff + 9 * t);
   }
   __syncthreads();
-  stage_out(vel + 3 * start, sm_vel, 3 * count, vec & 2);
-  stage_out(aff + 9 * start, sm_aff, 9 * count, vec & 4);
+  stage_out<THREADS>(vel + 3 * start, sm_vel, 3 * count, vec & 2);
+  stage_out<THREADS>(aff + 9 * start, sm_aff, 9 * count, vec & 4);
 }
-
-inline int aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 

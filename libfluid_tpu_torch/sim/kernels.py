@@ -24,7 +24,11 @@ tile of lattice points, cells or nodes reaches into shared memory once (for
 cell nor the particles a bin) and tiles away from the fluid return at once.
 "p2g" takes up to ``P2G_MAX_SLOTS`` slots a cell, "correction" up to 32,
 "surface" a support of up to ``surface.MAX_SUPPORT_CELLS`` mesher cells;
-the wrappers raise above that.
+the wrappers raise above that. "g2p" and "g2p_bwd" run a thread a particle
+(any order of particles): per-axis weight tables, the 24 live face samples
+of the 54 in reach, positions and results through shared memory; "g2p_bwd"
+merges the face cotangents of a block's particles in a shared-memory box
+where the slot order lets it, and adds the rest with global atomics.
 
 Every wrapper dispatches on the device of its tensors: a CPU tensor takes
 the kernel's plain PyTorch version, a CUDA tensor launches the kernel (or

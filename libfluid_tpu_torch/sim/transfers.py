@@ -356,15 +356,19 @@ def _g2p_plain(u, v, w, position, cfg: SimConfig):
 def g2p_bwd(u, v, w, position, gvel, gaff, cfg: SimConfig):
     """Kernel D', the adjoint of kernel D on CUDA tensors: the cotangents of
     (u, v, w, position) from those of the velocity (N, 3) and the affine
-    matrix (N, 3, 3). The face cotangents are summed with atomics, so their
-    last bits vary from run to run."""
+    matrix (N, 3, 3). The face cotangents are summed with atomics (in a
+    block's shared-memory box first where the particles' order allows, then
+    in device memory), so their last bits vary from run to run."""
     nx, ny, nz = cfg.grid_size
     n = _check_g2p(u, v, w, position, cfg)
     gvel = gvel.contiguous()
     gaff = gaff.contiguous()
     kernels.check(gvel, torch.float32, (n, 3), "velocity cotangent")
     kernels.check(gaff, torch.float32, (n, 3, 3), "affine cotangent")
-    gu, gv, gw = (torch.zeros_like(a) for a in (u, v, w))
+    # one zero fill for the three face cotangents
+    sizes = [a.numel() for a in (u, v, w)]
+    flat = torch.zeros(sum(sizes), dtype=torch.float32, device=u.device)
+    gu, gv, gw = (g.view(a.shape) for g, a in zip(torch.split(flat, sizes), (u, v, w)))
     gpos = torch.empty_like(position)
     ox, oy, oz = (float(o) for o in cfg.grid_offset)
     kernels.launch(

@@ -39,6 +39,7 @@ from libfluid_tpu_torch.sim.state import set_solid as t_set_solid
 
 from test_torch_pressure import _scene
 from test_torch_substep import _state_arrays
+from test_torch_transfers import G2P_CASES, _g2p_model, g2p_case
 
 torch.set_num_threads(1)
 
@@ -208,6 +209,42 @@ def test_g2p_grad_matches_jax():
     grid = t_grids.MacGrid(*leaves[:3], None)
     got = torch.autograd.grad(t_transfers.g2p_pic(grid, leaves[3], tcfg), leaves, (_t(gv), _t(ga)))
     for g, w in zip(got, want):
+        _assert_rel(g.numpy(), w, 1e-5)
+
+
+@pytest.mark.parametrize("case", G2P_CASES)
+def test_g2p_bwd_kernel_model_matches_jax(case):
+    """Kernel D''s arithmetic (kernel D's tables with the subgradient factor,
+    windows of three where a distance lies on an end of the support, the
+    face cotangents summed in a block's box and written back at its end, or
+    straight into the face arrays where the box does not fit) against
+    ``jax.vjp`` of the
+    JAX package's g2p_pic, and the port's plain autograd against the same."""
+    cfg, uvw, pos = g2p_case(case)
+    rng = np.random.default_rng(18)
+    gv = rng.standard_normal((pos.shape[0], 3)).astype(np.float32)
+    ga = rng.standard_normal((pos.shape[0], 3, 3)).astype(np.float32)
+    grid = new_state(cfg, jax.random.PRNGKey(0)).grid
+
+    def f(u, v, w, p):
+        return transfers.g2p_pic(grid._replace(u=u, v=v, w=w), p, cfg)
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in uvw), jnp.asarray(pos))
+    want = vjp((jnp.asarray(gv), jnp.asarray(ga)))
+    _, got, counts = _g2p_model(uvw, pos, cfg, gv, ga)
+    for g, w in zip(got, want):
+        _assert_rel(g, w, 1e-5)
+    assert counts["triples"] > 0 if case.endswith("kinks") else counts["triples"] == 0
+    # in cell order most particles go through a box; shuffled, a block's
+    # range rarely fits and most add straight into the face arrays
+    n = pos.shape[0]
+    assert 0 < counts["boxed"] < n
+    assert counts["boxed"] > n // 2 if case.startswith("sorted") else counts["boxed"] < n // 2
+    tcfg = convert.config_from_fields(**vars(cfg))
+    leaves = [_t(a).requires_grad_() for a in uvw + [pos]]
+    tgrid = t_grids.MacGrid(*leaves[:3], None)
+    plain = torch.autograd.grad(t_transfers.g2p_pic(tgrid, leaves[3], tcfg), leaves, (_t(gv), _t(ga)))
+    for g, w in zip(plain, want):
         _assert_rel(g.numpy(), w, 1e-5)
 
 

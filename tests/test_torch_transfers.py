@@ -330,3 +330,227 @@ def test_g2p_pic_matches_jax():
     got_v, got_a = t_transfers.g2p_pic(tg, _t(pos), tcfg)
     np.testing.assert_allclose(got_v.numpy(), np.asarray(want_v), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(got_a.numpy(), np.asarray(want_a), rtol=1e-5, atol=1e-5)
+
+
+def _g2p_model(uvw, pos, cfg, gvel=None, gaff=None, block=16, box=9 * 6 * 9):
+    """Kernels D and D' (``csrc/g2p.cu``, ``csrc/g2p_bwd.cu``) in numpy,
+    float32 throughout, a particle at a time in the kernels' order: per axis
+    one table of hat, derivative and subgradient factors for the face array
+    staggered along it (offsets 0, 1 from the clamped cell) and one for the
+    other two arrays (the window of two live half-shifted offsets, or all
+    three where a distance rounds onto an end of the support; an entry
+    outside the array gets weight 0 and a clamped index), the sums factored
+    along z, then y, then x, and 1/h applied once. Returns (vel, aff), and
+    with cotangents also (gu, gv, gw, gpos). Kernel D' takes `block`
+    particles a block: those in the x plane of the block's first particle
+    add their face cotangents into the block's box (the faces around the
+    (y, z) range of their cells, three x layers of each array) if that has
+    at most `box` entries, and the box's nonzero entries are added to the
+    face arrays at the block's end; the others add straight into the face
+    arrays. Also returns counts: particles that took windows of three, and
+    that went through a box."""
+    f32 = np.float32
+    dims = cfg.grid_size
+    h = f32(cfg.cell_size)
+    rh = f32(1.0) / h
+    origin = [f32(o) for o in cfg.grid_offset]
+    backward = gvel is not None
+
+    def hat(d):
+        return max(f32(1.0) - abs(d), f32(0.0))
+
+    def sfac(d):
+        return f32(0.0) if not (d >= -1.0 and d < 1.0) else (f32(-1.0) if d > 0 else f32(1.0))
+
+    def dhat(d):
+        y = f32(1.0) - abs(d)
+        gate = f32(1.0) if y > 0 else (f32(0.5) if y == 0 else f32(0.0))
+        return -gate if d >= 0 else gate
+
+    def axis_of(x, q):
+        g = (f32(x) - origin[q]) / h
+        c = min(max(int(np.floor(g)), 0), dims[q] - 1)
+        gh = g - f32(0.5)
+        low = gh - f32(c) < 0
+        triple = low and c + 1 < dims[q] and gh - f32(c + 1) == f32(-1.0)
+        if backward and not low:
+            triple = c > 0 and gh - f32(c - 1) == f32(1.0)
+        return g, gh, c, low, triple
+
+    def tab_of(ax, q, w):
+        g, gh, c, low, _ = ax
+        rows = []
+        for o in range(2):
+            d = g - f32(c + o)
+            rows.append((hat(d), sfac(d), dhat(d), c + o))
+        first = c + (-1 if (w == 3 or low) else 0)
+        for o in range(w):
+            i = first + o
+            d = gh - f32(i)
+            inside = 0 <= i < dims[q]
+            zero = f32(0.0)
+            rows.append((hat(d) if inside else zero, sfac(d) if inside else zero,
+                         dhat(d) if inside else zero, min(max(i, 0), dims[q] - 1)))
+        return rows
+
+    n = pos.shape[0]
+    vel, aff = np.zeros((n, 3), f32), np.zeros((n, 3, 3), f32)
+    gfaces = [np.zeros_like(a) for a in uvw]
+    gpos = np.zeros((n, 3), f32)
+    counts = {"triples": 0, "boxed": 0}
+    for p in range(n):
+        axes = [axis_of(pos[p, q], q) for q in range(3)]
+        w = 3 if any(ax[4] for ax in axes) else 2
+        counts["triples"] += w == 3
+        if backward and p % block == 0:  # a new block: its box
+            mates = [[axis_of(pos[m, q], q)[2] for q in range(3)] for m in range(p, min(p + block, n))]
+            x0 = mates[0][0]
+            ys, zs = ([c[q] for c in mates if c[0] == x0] for q in (1, 2))
+            by0, bz0 = min(ys) - 1, min(zs) - 1
+            ey, ez = max(ys) - by0 + 2, max(zs) - bz0 + 2
+            boxes = [np.zeros((3, ey, ez), f32) for _ in range(3)] if 9 * ey * ez <= box else None
+        boxed = backward and boxes is not None and axes[0][2] == x0
+        counts["boxed"] += boxed
+        tx, ty, tz = (tab_of(axes[q], q, w) for q in range(3))
+        gd = [f32(0.0)] * 3
+        for a in range(3):
+            arr = uvw[a]
+            ri, rj, rk = (range(0, 2) if q == a else range(2, 2 + w) for q in range(3))
+            val = g0 = g1 = g2 = f32(0.0)
+            if backward:
+                cv, ca0, ca1, ca2 = gvel[p, a], gaff[p, a, 0] * rh, gaff[p, a, 1] * rh, gaff[p, a, 2] * rh
+            for i in ri:
+                c1 = c2 = c3 = f32(0.0)
+                if backward:
+                    pp, qq, rr = cv * tx[i][0] + ca0 * tx[i][1], ca1 * tx[i][0], ca2 * tx[i][0]
+                for j in rj:
+                    sn = ss = se = f32(0.0)
+                    if backward:
+                        tt, uu = ty[j][0] * pp + ty[j][1] * qq, ty[j][0] * rr
+                    for k in rk:
+                        at = (tx[i][3], ty[j][3], tz[k][3])
+                        sample = arr[at]
+                        sn += tz[k][0] * sample
+                        ss += tz[k][1] * sample
+                        se += tz[k][2] * sample
+                        if backward:
+                            gs = tz[k][0] * tt + tz[k][1] * uu
+                            if gs != 0 and boxed:
+                                boxes[a][at[0] - (x0 - 1), at[1] - by0, at[2] - bz0] += gs
+                            elif gs != 0:
+                                gfaces[a][at] += gs
+                    c1 += ty[j][0] * sn
+                    c2 += ty[j][1] * sn
+                    c3 += ty[j][0] * ss
+                    if backward:
+                        gd[0] += tx[i][2] * (ty[j][0] * (cv * sn + ca2 * ss) + ty[j][1] * (ca1 * sn))
+                        gd[1] += ty[j][2] * (pp * sn + rr * ss)
+                        gd[2] += se * tt
+                val += tx[i][0] * c1
+                g0 += tx[i][1] * c1
+                g1 += tx[i][0] * c2
+                g2 += tx[i][0] * c3
+            vel[p, a] = val
+            aff[p, a] = (g0 * rh, g1 * rh, g2 * rh)
+        gpos[p] = [g * rh for g in gd]
+        if backward and boxes is not None and (p + 1 == n or (p + 1) % block == 0):
+            for a in range(3):
+                for at in zip(*np.nonzero(boxes[a])):
+                    gfaces[a][x0 - 1 + at[0], by0 + at[1], bz0 + at[2]] += boxes[a][at]
+    return (vel, aff), (*gfaces, gpos), counts
+
+
+def g2p_case(case, n=240):
+    """Faces and particles of one case of the G2P kernel models' tests, from
+    numpy seeds: the configuration, the face arrays and the positions."""
+    order, where = case.split("-")
+    if where == "kinks":  # h = 1, offset 0: faces, cell centres and their neighbours are exact
+        cfg = SimConfig(grid_size=(6, 5, 7))
+    else:
+        cfg = SimConfig(grid_size=(6, 5, 7), cell_size=0.7, grid_offset=(0.3, -0.2, 0.1))
+    rng = np.random.default_rng(17)
+    dims, h, off = np.asarray(cfg.grid_size), cfg.cell_size, np.asarray(cfg.grid_offset)
+    g = grids.zeros(cfg)
+    uvw = [rng.standard_normal(a.shape).astype(np.float32) for a in (g.u, g.v, g.w)]
+    if where == "inside":
+        cells = rng.uniform(0.0, 1.0, (n, 3)) * dims
+    elif where == "outside":  # up to 0.4 cells beyond the domain on every side
+        cells = rng.uniform(-0.4, 1.0, (n, 3)) * (dims + 0.4)
+        cells[: n // 2] = rng.choice([-0.3, 0.2], (n // 2, 3)) + rng.integers(0, 2, (n // 2, 3)) * dims
+    else:  # on faces and cell centres, the domain's faces included
+        cells = rng.integers(0, dims + 1, (n, 3)) + rng.choice([0.0, 0.5, -0.5, 0.25], (n, 3))
+        # just below the centre of cell 0 the distance to the next face but
+        # one rounds to exactly -1: the hat is 0 there, the derivative factor 1
+        cells[:12, rng.integers(0, 3, 12)] = np.float32(0.5) - np.float32(2.0 ** -25)
+    pos = (off + cells * h).astype(np.float32)
+    key = np.floor(np.clip((pos - off) / h, 0, dims - 1)).astype(int)
+    pos = pos[np.lexsort((key[:, 2], key[:, 1], key[:, 0]))] if order == "sorted" else pos
+    return cfg, uvw, pos
+
+
+G2P_CASES = ["sorted-inside", "shuffled-inside", "sorted-outside", "shuffled-outside",
+             "sorted-kinks", "shuffled-kinks"]
+
+
+@pytest.mark.parametrize("case", G2P_CASES)
+def test_g2p_kernel_model_matches_jax(case):
+    """Kernel D's arithmetic (factor tables per axis, windows of two live
+    offsets, 1/h once) against the JAX package's g2p_pic, for particles in
+    cell order and shuffled, inside and outside the domain, and on the
+    hats' kinks, where some take the windows of three."""
+    cfg, uvw, pos = g2p_case(case)
+    g = grids.zeros(cfg)._replace(u=jnp.asarray(uvw[0]), v=jnp.asarray(uvw[1]), w=jnp.asarray(uvw[2]))
+    want_v, want_a = transfers.g2p_pic(g, jnp.asarray(pos), cfg)
+    (vel, aff), _, counts = _g2p_model(uvw, pos, cfg)
+    triples = counts["triples"]
+    np.testing.assert_allclose(vel, np.asarray(want_v), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(aff, np.asarray(want_a), rtol=1e-5, atol=1e-5)
+    assert np.abs(np.asarray(want_a)).max() > 0.1
+    # the port's plain version is held to the same
+    tcfg = convert.config_from_fields(**vars(cfg))
+    tg = t_grids.zeros(tcfg, "cpu")._replace(u=_t(uvw[0]), v=_t(uvw[1]), w=_t(uvw[2]))
+    got_v, got_a = t_transfers.g2p_pic(tg, _t(pos), tcfg)
+    np.testing.assert_allclose(got_v.numpy(), np.asarray(want_v), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got_a.numpy(), np.asarray(want_a), rtol=1e-5, atol=1e-5)
+    assert triples > 0 if case.endswith("kinks") else triples == 0
+
+
+@pytest.mark.parametrize("which", ["forward", "backward"])
+@pytest.mark.parametrize("case", ["u dtype", "v shape", "w strides", "position shape",
+                                  "position dtype", "position strides", "too many faces"])
+def test_g2p_kernel_wrappers_refuse(case, which):
+    """What the wrappers of kernels D and D' do not take raises before
+    anything is launched: another dtype, faces that do not fit the grid,
+    tensors that are not contiguous, a face array of 2^31 elements."""
+    cfg = convert.config_from_fields(**vars(SimConfig(grid_size=(3, 2, 2))))
+    u, v, w = (torch.zeros(s) for s in t_kernels.face_shapes(cfg))
+    pos = torch.zeros((5, 3))
+    args, error = {
+        "u dtype": ((u.double(), v, w, pos), TypeError),
+        "v shape": ((u, torch.zeros((3, 2, 2)), w, pos), ValueError),
+        "w strides": ((u, v, torch.zeros((3, 2, 6))[..., ::2], pos), ValueError),
+        "position shape": ((u, v, w, torch.zeros((5, 4))), ValueError),
+        "position dtype": ((u, v, w, pos.double()), TypeError),
+        "position strides": ((u, v, w, torch.zeros((5, 6))[:, ::2]), ValueError),
+        "too many faces": ((u, v, w, pos), ValueError),
+    }[case]
+    if case == "too many faces":
+        cfg = convert.config_from_fields(**vars(SimConfig(grid_size=(2048, 1024, 1024))))
+    with pytest.raises(error):
+        if which == "forward":
+            t_transfers._g2p_cuda(*args, cfg)
+        else:
+            t_transfers.g2p_bwd(*args, torch.zeros((5, 3)), torch.zeros((5, 3, 3)), cfg)
+
+
+@pytest.mark.parametrize("case", ["velocity cotangent shape", "affine cotangent dtype"])
+def test_g2p_bwd_wrapper_refuses_cotangents(case):
+    cfg = convert.config_from_fields(**vars(SimConfig(grid_size=(3, 2, 2))))
+    u, v, w = (torch.zeros(s) for s in t_kernels.face_shapes(cfg))
+    pos, gv, ga = torch.zeros((5, 3)), torch.zeros((5, 3)), torch.zeros((5, 3, 3))
+    if case == "velocity cotangent shape":
+        gv, error = torch.zeros((4, 3)), ValueError
+    else:
+        ga, error = ga.double(), TypeError
+    with pytest.raises(error):
+        t_transfers.g2p_bwd(u, v, w, pos, gv, ga, cfg)

@@ -1,4 +1,4 @@
-"""Two trees of the port on one card in one call: kernels B and F.
+"""Two trees of the port on one card in one call: kernels B, F, D and D'.
 
 Runs this file's measurement in a process of its own for each tree, in the
 order parent, change, change, parent (two calls may land on two cards, so
@@ -6,7 +6,11 @@ two versions compare only inside one call), and prints one line a turn: the
 event-median ms of kernel B (``kernels.p2g_faces``) and of kernel F with its
 binning (``surface.sample_surface``, ``surface.bin_particles``) at the 128^3
 main path's shapes, three medians each, and the host-clock ms of the
-``p2g_slots`` stage, of ``generate_mesh`` and of five substeps.
+``p2g_slots`` stage, of ``generate_mesh`` and of five substeps; then, on a
+line of its own, kernels D (``transfers.g2p_pic``) and D'
+(``transfers.g2p_bwd``): three event medians around the wrapper, the
+device's own time of the kernel (torch.profiler), and the host-clock ms of
+the ``g2p_pic`` stage (a call and a synchronize).
 
 Run from the repository root on a machine with an H100, with the parent
 commit unpacked beside it (``git archive <commit> libfluid_tpu_torch
@@ -65,6 +69,24 @@ def measure(tag: str) -> None:
 
     print(f"{tag}: B ms {fmt(b)} | F ms {fmt(f)} (binning {fmt(binning)}) | p2g_slots wall ms "
           f"{fmt(p2g_slots)} | mesh wall ms {fmt(mesh)} | substeps ms {fmt(substeps[1:])}", flush=True)
+
+    grid, pos = state.grid, state.position.contiguous()
+    gen = torch.Generator(device=pos.device).manual_seed(1)
+    gv = torch.randn((pos.shape[0], 3), generator=gen, device=pos.device)
+    ga = torch.randn((pos.shape[0], 3, 3), generator=gen, device=pos.device)
+
+    def forward():
+        return transfers.g2p_pic(grid, pos, cfg)
+
+    def backward():
+        return transfers.g2p_bwd(grid.u, grid.v, grid.w, pos, gv, ga, cfg)
+
+    d = [cs.median_ms(forward) for _ in range(3)]
+    db = [cs.median_ms(backward) for _ in range(3)]
+    stage = [cs.wall_ms(forward, 1) for _ in range(5)]
+    print(f"{tag}: D ms {fmt(d)} (device {cs.device_ms(forward, 'g2p_kernel')}) | D' ms {fmt(db)} "
+          f"(device {cs.device_ms(backward, 'g2p_bwd_kernel')}) | g2p_pic stage wall ms {fmt(stage)}",
+          flush=True)
 
 
 def main() -> None:

@@ -1,4 +1,4 @@
-"""Kernels B (``csrc/p2g.cu``) and F (``csrc/surface.cu``) in other shapes.
+"""Kernels B (``csrc/p2g.cu``), F (``csrc/surface.cu``), D and D' in other shapes.
 
 Builds each kernel again from its source with the tile shape and the chunk
 size replaced in the text, or with one part switched off (its loop bounds
@@ -9,9 +9,15 @@ computes everything must give the bits of the library's kernel, whatever
 its tile. Then the pieces of ``surface.bin_particles`` one by one, beside
 the two ways of making the bin starts that were not taken.
 
+Kernels D (``csrc/g2p.cu``) and D' (``csrc/g2p_bwd.cu``) come first, with
+other block sizes and one part switched off at a time; ``--g2p`` stops after
+them, and ``--parent <tree>`` does the same for the sources of another tree
+(the kernels as they were before their redesign, whose text the
+``*_OLD_PARTS`` tables match) and nothing else.
+
 Run from the repository root on a machine with an H100:
 
-    python3 tools/kernel_variants.py
+    python3 tools/kernel_variants.py [--g2p | --parent <tree>]
 """
 
 import ctypes
@@ -136,6 +142,57 @@ DB_OLD_PARTS = {
 }
 
 
+# kernels D and D' as they are: the block size, and the parts
+G_THREADS = "constexpr int THREADS = 128;"
+_ALL_THREE = ("if (ax.triple || ay.triple || az.triple)", "if (n > 0)")
+D_PARTS = {
+    "as built": [],
+    "64 threads a block": [(G_THREADS, "constexpr int THREADS = 64;")],
+    "256 threads a block": [(G_THREADS, "constexpr int THREADS = 256;")],
+    "windows of three for every particle (54 loads)": [_ALL_THREE],
+    "no face loads": [("const float sample = __ldg(row + tz.idx[k]);", "const float sample = (float)tz.idx[k];")],
+    "no multiply-adds a sample": [("sn += tz.n[k] * sample;", "sn += sample;"),
+                                  ("ss += tz.s[k] * sample;", "ss += sample;")],
+    "staging by 4-byte loads and stores": [
+        ("const int vec = aligned16(pos) | aligned16(vel) << 1 | aligned16(aff) << 2;", "const int vec = 0;")],
+    "each thread stores its own 12 words": [
+        ("  stage_out<THREADS>(vel + 3 * start, sm_vel, 3 * count, vec & 2);\n"
+         "  stage_out<THREADS>(aff + 9 * start, sm_aff, 9 * count, vec & 4);",
+         "  if (t < count) {\n"
+         "    for (int q = 0; q < 3; ++q) vel[3 * (start + t) + q] = sm_vel[3 * t + q];\n"
+         "    for (int q = 0; q < 9; ++q) aff[9 * (start + t) + q] = sm_aff[9 * t + q];\n  }")],
+    "no stores": [("  stage_out<THREADS>(vel + 3 * start, sm_vel, 3 * count, vec & 2);",
+                   "  if (n > 0) return;\n  stage_out<THREADS>(vel + 3 * start, sm_vel, 3 * count, vec & 2);")],
+}
+_ATOMIC = "if (gs != 0.0f) add_to<BOXED>(out + tz.idx[k], gs);"
+DB_SHAPE = ("constexpr int THREADS = 128;", "constexpr int ROUNDS = 2; ", "constexpr int BOX = 4096; ",
+            "constexpr int MIN_BLOCKS = 5; ")
+# threads a block, particles a thread, floats of the box, blocks an SM the registers are held to
+DB_SHAPES = [(128, 2, 4096, 5), (128, 2, 6144, 5), (128, 2, 5120, 5), (128, 2, 4608, 5), (128, 2, 3584, 5),
+             (128, 2, 3072, 5), (128, 2, 2048, 5), (128, 2, 4096, 4), (128, 2, 4096, 6), (64, 4, 4096, 8),
+             (128, 1, 2048, 5), (256, 1, 4096, 2), (128, 3, 6144, 5), (128, 4, 7168, 5), (256, 4, 14336, 2)]
+
+
+def _db_shape(threads, rounds, box, blocks):
+    return [(DB_SHAPE[0], f"constexpr int THREADS = {threads};"), (DB_SHAPE[1], f"constexpr int ROUNDS = {rounds}; "),
+            (DB_SHAPE[2], f"constexpr int BOX = {box}; "), (DB_SHAPE[3], f"constexpr int MIN_BLOCKS = {blocks}; ")]
+
+
+DB_PARTS = {
+    **{f"{t} threads, {r} particles a thread, box of {b} floats, registers for {m} blocks an SM":
+       _db_shape(t, r, b, m) for t, r, b, m in DB_SHAPES},
+    "no box: every particle adds straight into device memory": [
+        ("const bool boxed = 9 * plane <= BOX;", "const bool boxed = n < 0;")],
+    "the box never written back": [("  if (!boxed) return;", "  if (n > 0) return;")],
+    "windows of three for every particle": [
+        ("const bool three = ax.triple || ay.triple || az.triple;", "const bool three = n > 0;")],
+    "no atomics": [(_ATOMIC, "if (gs == 12345.678f) add_to<BOXED>(out + tz.idx[k], gs);")],
+    "no face loads": [("const float S = __ldg(row + tz.idx[k]);", "const float S = (float)tz.idx[k];")],
+    "staging by 4-byte loads and stores": [
+        ("const int vec = aligned16(pos) | aligned16(gpos) << 1;", "const int vec = 0;")],
+}
+
+
 def g2p_variants(state, cfg, d_parts, db_parts, folder, csrc=_build.CSRC) -> None:
     """Kernels D and D' of the sources in `csrc`, each part of `d_parts` and
     `db_parts` switched off in turn, on the 128^3 state's faces and
@@ -216,6 +273,10 @@ def main() -> None:
         with tempfile.TemporaryDirectory() as folder:
             g2p_variants(state, cfg, D_OLD_PARTS, DB_OLD_PARTS, folder,
                          Path(sys.argv[2]) / "libfluid_tpu_torch" / "csrc")
+        return
+    with tempfile.TemporaryDirectory() as folder:
+        g2p_variants(state, cfg, D_PARTS, DB_PARTS, folder)
+    if sys.argv[1:] == ["--g2p"]:
         return
     rs = slotsort.sort_rank_major(state, cfg)
     nx, ny, nz = cfg.grid_size
