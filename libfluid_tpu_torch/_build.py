@@ -23,9 +23,10 @@ BUILD_DIR = _PKG / "build"
 LIB_PATH = BUILD_DIR / "libfluid_tpu_kernels.so"
 SOURCES = (
     "expand.cu", "p2g.cu", "p2g_bwd.cu", "stencil.cu", "vcycle.cu", "g2p.cu", "g2p_bwd.cu",
-    "correction.cu", "surface.cu",
+    "correction.cu", "correction_bwd.cu", "surface.cu", "surface_bwd.cu",
 )
-HEADERS = ("staging.cuh",)  # included by g2p.cu and g2p_bwd.cu
+# staging.cuh: g2p.cu, g2p_bwd.cu, p2g_bwd.cu; jitter.cuh: correction.cu, correction_bwd.cu
+HEADERS = ("staging.cuh", "jitter.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-I", str(CSRC),
@@ -53,7 +54,10 @@ SIGNATURES = {
     "lf_g2p": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _F, _F, _F, _F, _P],
     "lf_g2p_bwd": [_P] * 10 + [_LL, _I, _I, _I, _F, _F, _F, _F, _P],
     "lf_correction": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P],
+    "lf_correction_bwd": [_P] * 5 + [_I, _I, _I, _I, _F, _I, _I, _I, _I, _P],
     "lf_surface": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P],
+    "lf_surface_bwd_nodes": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P],
+    "lf_surface_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P],
 }
 
 _lib = None

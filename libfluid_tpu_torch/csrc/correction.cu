@@ -54,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "jitter.cuh"
+
 namespace {
 
 constexpr int MAX_KC = 32;  // an occupancy mask is 32 bits
@@ -71,24 +73,6 @@ static_assert((TILE_CELLS & (TILE_CELLS - 1)) == 0 && TILE_CELLS >= 32 && TILE_C
 // a tile cell's index among the cells of the tile with its halo
 __device__ __forceinline__ int halo_of(int cl) {
   return ((cl / (TY * TZ) + 1) * HY + ((cl / TZ) % TY + 1)) * HZ + (cl % TZ + 1);
-}
-
-__device__ __forceinline__ uint32_t srl_mix(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
-
-// jitterhash.jitter_value: the int32 hash bits scaled by 2^-31
-__device__ __forceinline__ float jitter_value(uint32_t seed, int gx, int gy, int gz, int k,
-                                              int c) {
-  uint32_t t = (uint32_t)gx * 198491317u + (uint32_t)gy * 6542989u + (uint32_t)gz * 362437u +
-               (uint32_t)k * 87178291u + (uint32_t)c * 1299709u;
-  const uint32_t b = srl_mix(srl_mix(t ^ seed));
-  return (float)(int32_t)b * (1.0f / 2147483648.0f);
 }
 
 // 16-byte words between two cells' slot lists in shared memory: odd

@@ -16,21 +16,49 @@
 //   d x_q   = (gn * val + gd) * m * hat'(t_q) * prod_{q' != q} hat(t_q') / h
 //             - gn * m * H * A_aq.
 // hat' takes the JAX package's subgradients (slope -1 at t = 0, half the
-// slope at |t| = 1), so the result equals jax.vjp of the oracle.
+// slope at |t| = 1), so the result equals jax.vjp of the oracle. Empty slots
+// get 0. No atomics: each slot's 16 rows are written by one thread, so the
+// result is the same from run to run.
 //
-// One thread per slot; an empty slot (mask 0: most of the K*C slots) writes
-// zeros and returns. A face with some |t_q| > 1 adds nothing and is skipped
-// before its loads. No atomics: each thread writes only its own slot's 16
-// rows, so the result is the same from run to run.
+// Bound: bytes. The cotangent has the payload's size (1.6 GB at 128^3,
+// K = 12) and is written once, 0.48 ms of the 0.56; the rest is the mask row,
+// the 15 other rows of the occupied slots (some 6 % of all) and the six face
+// cotangents read once.
 //
-// Bound: the 16-row payload-sized write (1.6 GB at 128^3 / K = 12) and the
-// read of the occupied slots; the face cotangents (6 x 8.5 MB at 128^3) are
-// re-read by the ~8 slots of each cell around a face and stay in L2.
+// Design: two launches behind one entry point, as the bound has two parts.
+//   1. A zero fill of the whole cotangent with 16-byte stores (LF_BB_MEMSET
+//      builds it as cudaMemsetAsync instead, to compare).
+//   2. A pass over the occupied slots only: one block per tile of
+//      TX x TY x TZ = 4 x 4 x 32 cells, a thread a (slot, cell) pair with z
+//      fastest, so that a warp reads and writes one z row of one payload row
+//      (128 bytes) at a time. The block first reads its masks; a tile
+//      without a particle (most of a dam-break's domain) returns. Else it
+//      brings the (gn, gd) pairs of the faces its cells reach into shared
+//      memory, 26 KB for the three boxes, faces outside an array as zeros
+//      (so the bounds are resolved there and not per face), and each
+//      occupied slot computes, per axis, the hats, their derivatives and the
+//      levers x_face - x at the two aligned and three half-shifted offsets
+//      once (15 hats, not 162) and walks its 54 faces out of shared memory
+//      with no branch: a face farther than one cell has a hat of 0 and adds
+//      0. The face order (axis, then x, y, z offsets ascending) and every
+//      face's expressions are those of the one-thread-per-slot kernel this
+//      replaces, which skipped such faces.
+// The slots are not compacted: in the fluid a warp's 32 cells at one slot
+// number are mostly all occupied or all empty.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr int TX = 4, TY = 4, TZ = 32, THREADS = 256;
+constexpr int TILE_CELLS = TX * TY * TZ;
+// the boxes of faces a tile's cells reach, per face axis: cells + 1 along
+// the axis (offsets 0, 1), cells + 2 across it (offsets -1, 0, 1)
+constexpr int UY = TY + 2, UZ = TZ + 2, U_N = (TX + 1) * UY * UZ;
+constexpr int VY = TY + 1, VZ = TZ + 2, V_N = (TX + 2) * VY * VZ;
+constexpr int WY = TY + 2, WZ = TZ + 1, W_N = (TX + 2) * WY * WZ;
+constexpr int FILL_THREADS = 256, FILL_BLOCKS = 132 * 8;
 
 __device__ __forceinline__ float hat(float t) { return fmaxf(1.0f - fabsf(t), 0.0f); }
 
@@ -41,122 +69,192 @@ __device__ __forceinline__ float dhat(float t) {
   return t >= 0.0f ? -gate : gate;
 }
 
-__global__ void p2g_bwd_kernel(const float* __restrict__ data, const float* __restrict__ gnu,
-                               const float* __restrict__ gnv, const float* __restrict__ gnw,
-                               const float* __restrict__ gdu, const float* __restrict__ gdv,
-                               const float* __restrict__ gdw, float* __restrict__ out, int K,
-                               int nx, int ny, int nz, float h, float ox, float oy, float oz,
-                               int use_affine) {
-  const long long C = (long long)nx * ny * nz;
-  const long long col = (long long)K * C;  // stride between payload rows
-  const long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= col) return;
-  const float m = data[3 * col + s];
-  if (m == 0.0f) {
-    for (int r = 0; r < 16; ++r) out[r * col + s] = 0.0f;
-    return;
-  }
-  const long long cell = s % C;
-  const int c[3] = {(int)(cell / ((long long)ny * nz)), (int)((cell / nz) % ny),
-                    (int)(cell % nz)};
-  const int dims[3] = {nx, ny, nz};
-  const float o[3] = {ox, oy, oz};
-  float p[3], gp[3];
-#pragma unroll
-  for (int q = 0; q < 3; ++q) {
-    p[q] = data[q * col + s];
-    gp[q] = (p[q] - o[q]) / h;
-  }
-  const float* gns[3] = {gnu, gnv, gnw};
-  const float* gds[3] = {gdu, gdv, gdw};
+__global__ void __launch_bounds__(FILL_THREADS)
+fill_kernel(float4* __restrict__ out, long long count4) {
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (long long i = (long long)blockIdx.x * FILL_THREADS + threadIdx.x; i < count4;
+       i += (long long)FILL_BLOCKS * FILL_THREADS)
+    out[i] = zero;
+}
 
-  float d_m = 0.0f;
-  float d_t[3] = {0.0f, 0.0f, 0.0f};  // through the hats, in cell units
-  float d_x[3] = {0.0f, 0.0f, 0.0f};  // through val, in world units
-  float d_v[3] = {0.0f, 0.0f, 0.0f};
-  float d_a[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+// Per dimension q of a slot: hat, its derivative and the lever x_face - x at
+// the aligned offsets 0, 1 (kind 0: the face axis) and at the half-shifted
+// offsets -1, 0, 1 (kind 1: across it); entry [q][kind][i] is the face at box
+// coordinate (cell in the tile) + i.
+struct Tables {
+  float h[3][2][3], dh[3][2][3], lever[3][2][3];
+};
 
+struct Sums {
+  float m, t[3], x[3], v[3], a[9];
+};
+
+// the faces of axis A around one slot, out of the box of that axis
+template <int A>
+__device__ __forceinline__ void axis_faces(const Tables& tb, const float2* __restrict__ box, int by,
+                                           int bz, int ix, int iy, int iz, float m, float va,
+                                           const float (&arow)[3], bool use_affine, Sums& s) {
+  constexpr int N0 = A == 0 ? 2 : 3, N1 = A == 1 ? 2 : 3, N2 = A == 2 ? 2 : 3;
+  constexpr int K0 = A == 0 ? 0 : 1, K1 = A == 1 ? 0 : 1, K2 = A == 2 ? 0 : 1;
 #pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const int fy = ny + (a == 1), fz = nz + (a == 2);
-    const float va = data[(4 + a) * col + s];
-    float arow[3] = {0.0f, 0.0f, 0.0f};
-    if (use_affine) {
+  for (int i0 = 0; i0 < N0; ++i0) {
 #pragma unroll
-      for (int q = 0; q < 3; ++q) arow[q] = data[(7 + 3 * a + q) * col + s];
-    }
-    float shift[3];
+    for (int i1 = 0; i1 < N1; ++i1) {
 #pragma unroll
-    for (int q = 0; q < 3; ++q) shift[q] = q == a ? 0.0f : 0.5f;
-    for (int dx = (a == 0 ? 0 : -1); dx <= 1; ++dx) {
-      const int f0 = c[0] + dx;
-      if (f0 < 0 || f0 >= dims[0] + (a == 0)) continue;
-      const float t0 = (gp[0] - shift[0]) - (float)f0;
-      if (fabsf(t0) > 1.0f) continue;
-      for (int dy = (a == 1 ? 0 : -1); dy <= 1; ++dy) {
-        const int f1 = c[1] + dy;
-        if (f1 < 0 || f1 >= fy) continue;
-        const float t1 = (gp[1] - shift[1]) - (float)f1;
-        if (fabsf(t1) > 1.0f) continue;
-        for (int dz = (a == 2 ? 0 : -1); dz <= 1; ++dz) {
-          const int f2 = c[2] + dz;
-          if (f2 < 0 || f2 >= fz) continue;
-          const float t2 = (gp[2] - shift[2]) - (float)f2;
-          if (fabsf(t2) > 1.0f) continue;
-          const long long f = ((long long)f0 * fy + f1) * fz + f2;
-          const float gn = gns[a][f], gd = gds[a][f];
-          const float h0 = hat(t0), h1 = hat(t1), h2 = hat(t2);
-          const float H = h0 * h1 * h2;
-          const float fc[3] = {(float)f0, (float)f1, (float)f2};
-          float val = va;
-          float lever[3];
+      for (int i2 = 0; i2 < N2; ++i2) {
+        const float2 g = box[((ix + i0) * by + iy + i1) * bz + iz + i2];  // (gn, gd)
+        const float h0 = tb.h[0][K0][i0], h1 = tb.h[1][K1][i1], h2 = tb.h[2][K2][i2];
+        const float H = h0 * h1 * h2;
+        const float lever[3] = {tb.lever[0][K0][i0], tb.lever[1][K1][i1], tb.lever[2][K2][i2]};
+        float val = va;
+        if (use_affine) {
+#pragma unroll
+          for (int q = 0; q < 3; ++q) val += arow[q] * lever[q];
+        }
+        const float gw = g.x * val + g.y;  // cotangent of m * H
+        s.m += gw * H;
+        const float gwm = gw * m;
+        s.t[0] += gwm * tb.dh[0][K0][i0] * h1 * h2;
+        s.t[1] += gwm * h0 * tb.dh[1][K1][i1] * h2;
+        s.t[2] += gwm * h0 * h1 * tb.dh[2][K2][i2];
+        const float gnw = g.x * m * H;  // cotangent of val
+        s.v[A] += gnw;
+        if (use_affine) {
 #pragma unroll
           for (int q = 0; q < 3; ++q) {
-            lever[q] = ((fc[q] + shift[q]) * h + o[q]) - p[q];
-            if (use_affine) val += arow[q] * lever[q];
-          }
-          const float gw = gn * val + gd;  // cotangent of m * H
-          d_m += gw * H;
-          const float gwm = gw * m;
-          d_t[0] += gwm * dhat(t0) * h1 * h2;
-          d_t[1] += gwm * h0 * dhat(t1) * h2;
-          d_t[2] += gwm * h0 * h1 * dhat(t2);
-          const float gnw_ = gn * m * H;  // cotangent of val
-          d_v[a] += gnw_;
-          if (use_affine) {
-#pragma unroll
-            for (int q = 0; q < 3; ++q) {
-              d_a[3 * a + q] += gnw_ * lever[q];
-              d_x[q] -= gnw_ * arow[q];
-            }
+            s.a[3 * A + q] += gnw * lever[q];
+            s.x[q] -= gnw * arow[q];
           }
         }
       }
     }
   }
+}
+
+struct Cotangents {
+  const float *gn[3], *gd[3];
+};
+
+__global__ void __launch_bounds__(THREADS)
+p2g_bwd_kernel(const float* __restrict__ data, Cotangents cot, float* __restrict__ out, int K,
+               int nx, int ny, int nz, float h, float ox, float oy, float oz, int use_affine) {
+  __shared__ float2 box[U_N + V_N + W_N];  // (gn, gd) of the u, v, w faces in reach
+  const long long C = (long long)nx * ny * nz;
+  const long long col = (long long)K * C;  // stride between payload rows
+  const int t0x = blockIdx.z * TX, t0y = blockIdx.y * TY, t0z = blockIdx.x * TZ;
+  const float* mask = data + 3 * col;
+
+  // 1. the tile's masks: is there any particle?
+  int any = 0;
+  for (int t = threadIdx.x; t < K * TILE_CELLS; t += THREADS) {
+    const int cl = t % TILE_CELLS, k = t / TILE_CELLS;
+    const int i = t0x + cl / (TY * TZ), j = t0y + (cl / TZ) % TY, l = t0z + cl % TZ;
+    if (i < nx && j < ny && l < nz)
+      any |= mask[(long long)k * C + ((long long)i * ny + j) * nz + l] != 0.0f;
+  }
+  if (!__syncthreads_or(any)) return;  // the fill has written its zeros
+
+  // 2. the face cotangents in reach; a face outside its array counts 0
+  for (int t = threadIdx.x; t < U_N + V_N + W_N; t += THREADS) {
+    const int a = t < U_N ? 0 : (t < U_N + V_N ? 1 : 2);
+    const int e = t - (a == 0 ? 0 : (a == 1 ? U_N : U_N + V_N));
+    const int by = a == 0 ? UY : (a == 1 ? VY : WY), bz = a == 0 ? UZ : (a == 1 ? VZ : WZ);
+    // the box starts at the tile's first cell along the face axis and one
+    // cell before it across
+    const int f0 = t0x + e / (by * bz) - (a != 0), f1 = t0y + (e / bz) % by - (a != 1),
+              f2 = t0z + e % bz - (a != 2);
+    const int fx = nx + (a == 0), fy = ny + (a == 1), fz = nz + (a == 2);
+    float2 g = make_float2(0.f, 0.f);
+    if (f0 >= 0 && f0 < fx && f1 >= 0 && f1 < fy && f2 >= 0 && f2 < fz) {
+      const long long f = ((long long)f0 * fy + f1) * fz + f2;
+      g = make_float2(cot.gn[a][f], cot.gd[a][f]);
+    }
+    box[t] = g;
+  }
+  __syncthreads();
+
+  // 3. the occupied slots, a thread a (slot, cell) pair
+  const float o[3] = {ox, oy, oz};
+  for (int t = threadIdx.x; t < K * TILE_CELLS; t += THREADS) {
+    const int cl = t % TILE_CELLS, k = t / TILE_CELLS;
+    const int ic[3] = {cl / (TY * TZ), (cl / TZ) % TY, cl % TZ};
+    const int c[3] = {t0x + ic[0], t0y + ic[1], t0z + ic[2]};
+    if (c[0] >= nx || c[1] >= ny || c[2] >= nz) continue;
+    const long long s = (long long)k * C + ((long long)c[0] * ny + c[1]) * nz + c[2];
+    const float m = mask[s];
+    if (m == 0.0f) continue;
+
+    Tables tb;
+    float p[3];
 #pragma unroll
-  for (int q = 0; q < 3; ++q) out[q * col + s] = d_t[q] / h + d_x[q];
-  out[3 * col + s] = d_m;
+    for (int q = 0; q < 3; ++q) {
+      p[q] = data[q * col + s];
+      const float gp = (p[q] - o[q]) / h;
 #pragma unroll
-  for (int q = 0; q < 3; ++q) out[(4 + q) * col + s] = d_v[q];
+      for (int i = 0; i < 3; ++i) {
+        // aligned offsets 0, 1 (a third entry is never read)
+        const float fa = (float)(c[q] + i);
+        const float ta = gp - fa;
+        tb.h[q][0][i] = hat(ta);
+        tb.dh[q][0][i] = dhat(ta);
+        tb.lever[q][0][i] = (fa * h + o[q]) - p[q];
+        // half-shifted offsets -1, 0, 1
+        const float fs = (float)(c[q] + i - 1);
+        const float ts = (gp - 0.5f) - fs;
+        tb.h[q][1][i] = hat(ts);
+        tb.dh[q][1][i] = dhat(ts);
+        tb.lever[q][1][i] = ((fs + 0.5f) * h + o[q]) - p[q];
+      }
+    }
+
+    Sums sum = {};
+    const float2* boxes[3] = {box, box + U_N, box + U_N + V_N};
 #pragma unroll
-  for (int r = 0; r < 9; ++r) out[(7 + r) * col + s] = d_a[r];
+    for (int a = 0; a < 3; ++a) {
+      const float va = data[(4 + a) * col + s];
+      float arow[3] = {0.0f, 0.0f, 0.0f};
+      if (use_affine) {
+#pragma unroll
+        for (int q = 0; q < 3; ++q) arow[q] = data[(7 + 3 * a + q) * col + s];
+      }
+      if (a == 0) axis_faces<0>(tb, boxes[0], UY, UZ, ic[0], ic[1], ic[2], m, va, arow, use_affine, sum);
+      if (a == 1) axis_faces<1>(tb, boxes[1], VY, VZ, ic[0], ic[1], ic[2], m, va, arow, use_affine, sum);
+      if (a == 2) axis_faces<2>(tb, boxes[2], WY, WZ, ic[0], ic[1], ic[2], m, va, arow, use_affine, sum);
+    }
+#pragma unroll
+    for (int q = 0; q < 3; ++q) out[q * col + s] = sum.t[q] / h + sum.x[q];
+    out[3 * col + s] = sum.m;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) out[(4 + q) * col + s] = sum.v[q];
+#pragma unroll
+    for (int r = 0; r < 9; ++r) out[(7 + r) * col + s] = sum.a[r];
+  }
 }
 
 }  // namespace
 
 // data: (16, K, nx, ny, nz) f32 slot payload; gn*/gd*: cotangents of the
 // num/den face arrays u (nx+1, ny, nz), v (nx, ny+1, nz), w (nx, ny, nz+1);
-// out: (16, K, nx, ny, nz) cotangent of the payload.
+// out: (16, K, nx, ny, nz) cotangent of the payload, 16-byte aligned.
 extern "C" int lf_p2g_bwd(const float* data, const float* gnu, const float* gnv,
                           const float* gnw, const float* gdu, const float* gdv,
                           const float* gdw, float* out, int K, int nx, int ny, int nz, float h,
                           float ox, float oy, float oz, int use_affine, void* stream) {
   const long long total = (long long)K * nx * ny * nz;
   if (total == 0) return 0;
-  const int threads = 128;
-  const long long blocks = (total + threads - 1) / threads;
-  p2g_bwd_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      data, gnu, gnv, gnw, gdu, gdv, gdw, out, K, nx, ny, nz, h, ox, oy, oz, use_affine);
+  if ((uintptr_t)out & 15) return (int)cudaErrorMisalignedAddress;
+  cudaStream_t st = (cudaStream_t)stream;
+#ifdef LF_BB_MEMSET
+  cudaError_t err = cudaMemsetAsync(out, 0, (size_t)total * 16 * sizeof(float), st);
+  if (err != cudaSuccess) return (int)err;
+#else
+  fill_kernel<<<FILL_BLOCKS, FILL_THREADS, 0, st>>>(reinterpret_cast<float4*>(out), total * 4);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+#endif
+  const dim3 grid((nz + TZ - 1) / TZ, (ny + TY - 1) / TY, (nx + TX - 1) / TX);
+  const Cotangents cot{{gnu, gnv, gnw}, {gdu, gdv, gdw}};
+  p2g_bwd_kernel<<<grid, THREADS, 0, st>>>(data, cot, out, K, nx, ny, nz, h, ox, oy, oz,
+                                           use_affine);
   return (int)cudaGetLastError();
 }

@@ -52,6 +52,19 @@
 // start of the box and 12 B a row: 56 + 17 KB at cr = 4, three blocks an SM.
 // cr <= MAX_CR, where the box's starts still fit; the entry point refuses
 // more.
+//
+// The same pass with another last step is the node part of kernel F', the
+// vector-Jacobian product with respect to the particle positions
+// (libfluid_tpu/mesher/surface.py:_surface_bwd, jax.vjp of the scatter
+// oracle): for the cotangent g of the node values it writes, per node with
+// W > 0 and diff = X / W - x_n,
+//
+//   a_n = g_n diff / (sqrt(|diff|^2 + 1e-30) max(W, 1e-30)),   b_n = a_n . diff
+//
+// as one 16-byte word (zeros where W = 0), which csrc/surface_bwd.cu gathers
+// per particle. It sums W and X again (the same bits as the forward) rather
+// than have every forward keep 16 bytes a node for a gradient that may never
+// be asked for.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,10 +78,14 @@ constexpr int MAX_CR = 12;
 constexpr int MAX_ROWS = (TX + 2 * MAX_CR - 1) * (TY + 2 * MAX_CR - 1);
 constexpr int MAX_GROUPS = (MAX_ROWS + 31) / 32;
 
+// BWD: the node part of kernel F' (reads `cot`, writes `ab`), else kernel F
+// (writes `out`)
+template <bool BWD>
 __global__ void __launch_bounds__(THREADS)
 surface_kernel(const float* __restrict__ pos, const int* __restrict__ starts,
-               float* __restrict__ out, int mx, int my, int mz, int cr, float h, float ox,
-               float oy, float oz, float ext2, float radius) {
+               float* __restrict__ out, const float* __restrict__ cot, float4* __restrict__ ab,
+               int mx, int my, int mz, int cr, float h, float ox, float oy, float oz, float ext2,
+               float radius) {
   extern __shared__ float4 chunk[];  // CAP particles, then the arrays below
   __shared__ int group_len[MAX_GROUPS];
   const int n2 = 2 * cr;
@@ -83,7 +100,12 @@ surface_kernel(const float* __restrict__ pos, const int* __restrict__ starts,
   const int tz = threadIdx.x % TZ, ty = (threadIdx.x / TZ) % TY, tx = threadIdx.x / (TZ * TY);
   const int a = t0x + tx, b = t0y + ty, c = t0z + tz;  // the node; z fastest: stores coalesce
   const bool inside = a <= mx && b <= my && c <= mz;
-  float* node = out + ((long long)a * (my + 1) + b) * (mz + 1) + c;
+  const long long at = ((long long)a * (my + 1) + b) * (mz + 1) + c;
+  // a node no particle reaches: outside (+1), no part in the gradient
+  auto write_empty = [&]() {
+    if (!inside) return;
+    if (BWD) ab[at] = make_float4(0.f, 0.f, 0.f, 0.f); else out[at] = 1.0f;
+  };
 
   // 1. is any particle in reach? First the box's (x, y) rows over all z,
   // which lie together in the sorted particles: two loads a plane of rows
@@ -94,7 +116,7 @@ surface_kernel(const float* __restrict__ pos, const int* __restrict__ starts,
     if (bx < BX) any |= starts[(bx * BY + min(t0y + wy, BY)) * BZ] - starts[(bx * BY + t0y) * BZ];
   }
   if (!__syncthreads_or(any)) {
-    if (inside) *node = 1.0f;
+    write_empty();
     return;
   }
   // then the rows' own ends; bins past the padded grid (a tile that
@@ -114,7 +136,7 @@ surface_kernel(const float* __restrict__ pos, const int* __restrict__ starts,
     any |= n;
   }
   if (!__syncthreads_or(any)) {
-    if (inside) *node = 1.0f;
+    write_empty();
     return;
   }
 
@@ -189,13 +211,20 @@ surface_kernel(const float* __restrict__ pos, const int* __restrict__ starts,
   }
 
   if (!inside) return;
-  float value = 1.0f;
-  if (W > 0.0f) {
-    const float Wc = fmaxf(W, 1e-30f);
-    const float dx = X / Wc - nxp, dy = Y / Wc - nyp, dz = Z / Wc - nzp;
-    value = sqrtf(dx * dx + dy * dy + dz * dz + 1e-30f) - radius;
+  if (!(W > 0.0f)) {
+    write_empty();
+    return;
   }
-  *node = value;
+  const float Wc = fmaxf(W, 1e-30f);
+  const float dx = X / Wc - nxp, dy = Y / Wc - nyp, dz = Z / Wc - nzp;
+  const float norm = sqrtf(dx * dx + dy * dy + dz * dz + 1e-30f);
+  if (BWD) {
+    const float s = cot[at] / (norm * Wc);
+    const float ax = s * dx, ay = s * dy, az = s * dz;
+    ab[at] = make_float4(ax, ay, az, ax * dx + ay * dy + az * dz);
+  } else {
+    out[at] = norm - radius;
+  }
 }
 
 // a chunk of particles, and per row of the box its bins' places and three
@@ -205,6 +234,22 @@ size_t shared_bytes(int cr) {
   return CAP * sizeof(float4) + (wx * wy * (wz + 1 + 3) + 1) * sizeof(int);
 }
 
+template <bool BWD>
+int launch(const float* pos, const int* starts, float* out, const float* cot, float4* ab, int mx,
+           int my, int mz, int cr, float h, float ox, float oy, float oz, float ext2, float radius,
+           void* stream) {
+  if (cr < 1 || cr > MAX_CR) return (int)cudaErrorInvalidValue;
+  const size_t smem = shared_bytes(cr);
+  // above 48 KB a kernel has to ask for its dynamic shared memory
+  cudaError_t err = cudaFuncSetAttribute(surface_kernel<BWD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((mz + TZ) / TZ, (my + TY) / TY, (mx + TX) / TX);  // m + 1 nodes an axis
+  surface_kernel<BWD><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      pos, starts, out, cot, ab, mx, my, mz, cr, h, ox, oy, oz, ext2, radius);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // pos: (M, 3) f32 particles sorted by padded bin; starts: ((mx+2cr)(my+2cr)(mz+2cr) + 1)
@@ -212,14 +257,15 @@ size_t shared_bytes(int cr) {
 extern "C" int lf_surface(const float* pos, const int* starts, float* out, int mx, int my, int mz,
                           int cr, float h, float ox, float oy, float oz, float ext2,
                           float radius, void* stream) {
-  if (cr < 1 || cr > MAX_CR) return (int)cudaErrorInvalidValue;
-  const size_t smem = shared_bytes(cr);
-  // above 48 KB a kernel has to ask for its dynamic shared memory
-  cudaError_t err = cudaFuncSetAttribute(surface_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((mz + TZ) / TZ, (my + TY) / TY, (mx + TX) / TX);  // m + 1 nodes an axis
-  surface_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      pos, starts, out, mx, my, mz, cr, h, ox, oy, oz, ext2, radius);
-  return (int)cudaGetLastError();
+  return launch<false>(pos, starts, out, nullptr, nullptr, mx, my, mz, cr, h, ox, oy, oz, ext2,
+                       radius, stream);
+}
+
+// The node part of kernel F': cot (mx+1, my+1, mz+1) f32, the cotangent of the
+// node values; ab (mx+1, my+1, mz+1, 4) f32, 16-byte aligned: (a_n, b_n).
+extern "C" int lf_surface_bwd_nodes(const float* pos, const int* starts, const float* cot,
+                                    float* ab, int mx, int my, int mz, int cr, float h, float ox,
+                                    float oy, float oz, float ext2, void* stream) {
+  return launch<true>(pos, starts, nullptr, cot, reinterpret_cast<float4*>(ab), mx, my, mz, cr, h,
+                      ox, oy, oz, ext2, 0.0f, stream);
 }

@@ -13,9 +13,18 @@ chunk at a time; a tile with no particle in reach writes +1 and returns.
 No cap on the particles a cell holds; a support of up to
 ``MAX_SUPPORT_CELLS`` cells. On CPU tensors it is
 :func:`_sample_surface_torch`, the port of the JAX package's scatter
-oracle. The gradient with respect to the positions is the autograd
-of that oracle, recomputed in backward on either device (port of
-``surface._surface_bwd``; a backward kernel is not written yet).
+oracle.
+
+The gradient with respect to the positions (``surface._surface_bwd`` in the
+JAX package, ``jax.vjp`` of the oracle) is kernel F' on CUDA tensors, two
+launches over the forward's bins: F's node pass with another last step
+(``surface_bwd_nodes``, ``csrc/surface.cu``) writes four floats a node, and
+a thread a particle gathers them (``surface_bwd``, ``csrc/surface_bwd.cu``:
+a block per 8 x 8 x 8 tile of bins, the nodes in its reach in shared memory,
+all at once or a slab of x-planes at a time). No atomics. On CPU tensors it
+is the autograd of the plain version, recomputed in backward;
+:func:`_sample_surface_vjp_torch` is its closed form, the plain version of
+kernel F'.
 """
 
 from __future__ import annotations
@@ -57,16 +66,69 @@ class _SampleSurface(torch.autograd.Function):
         ctx.save_for_backward(position, active)
         if not kernels.use_kernel(position, active):
             return _sample_surface_torch(position, active, cfg, radius)
-        return _sample_surface_cuda(position, active, cfg, radius)
+        binned = _binned(position, active, cfg)
+        ctx.binned = binned  # kernel F' reads the same bins
+        return _sample_surface_cuda(binned, cfg, radius)
 
     @staticmethod
     def backward(ctx, g):
         cfg, radius = ctx.args
         position, active = ctx.saved_tensors
+        if kernels.use_kernel(position, active, g):
+            return sample_surface_bwd(ctx.binned, g, cfg), None, None, None
         with torch.enable_grad():
             p = position.detach().requires_grad_()
             (dp,) = torch.autograd.grad(_sample_surface_torch(p, active, cfg, radius), p, g)
         return dp, None, None, None
+
+
+def _node_offsets(cr: int, device) -> torch.Tensor:
+    """The (2 cr)^3 node offsets from a particle's cell, x slowest."""
+    span = range(-cr + 1, cr + 1)
+    return torch.tensor(
+        [(dx, dy, dz) for dx in span for dy in span for dz in span], dtype=torch.int32, device=device
+    )
+
+
+def _node_sums(position: torch.Tensor, active: torch.Tensor, cfg: MesherConfig):
+    """(W (nodes), X (nodes, 3)): each particle scatters (w, w*x) to the
+    (2 cr)^3 nodes around its cell."""
+    nx, ny, nz = cfg.grid_size
+    nodes = (nx + 1, ny + 1, nz + 1)
+    dev = position.device
+    dtype = position.dtype
+    dims = torch.tensor(nodes, dtype=torch.int32, device=dev)
+    h = cfg.cell_size
+    off = torch.tensor(cfg.grid_offset, dtype=dtype, device=dev)
+    ext2 = cfg.particle_extent * cfg.particle_extent
+
+    g = (position - off) / h
+    base = torch.floor(g).to(torch.int32)
+
+    n_flat = nodes[0] * nodes[1] * nodes[2]
+    w_acc = torch.zeros((n_flat,), dtype=dtype, device=dev)
+    wp_acc = torch.zeros((n_flat, 3), dtype=dtype, device=dev)
+
+    for d in _node_offsets(_support_cells(cfg), dev):
+        idx = base + d
+        inb = torch.all((idx >= 0) & (idx < dims), dim=-1) & active
+        node_pos = off + idx.to(dtype) * h
+        d2 = torch.sum((position - node_pos) ** 2, dim=-1) / ext2
+        kl = 1.0 - d2
+        w = torch.where((kl > 0.0) & inb, kl * kl * kl, torch.zeros_like(kl))
+        flat = (idx[..., 0] * nodes[1] + idx[..., 1]) * nodes[2] + idx[..., 2]
+        flat = torch.clamp(flat, 0, n_flat - 1).long()
+        w_acc.index_add_(0, flat, w)
+        wp_acc.index_add_(0, flat, w[:, None] * position)
+    return w_acc.reshape(nodes), wp_acc.reshape(nodes + (3,))
+
+
+def _node_positions(cfg: MesherConfig, dtype, device) -> torch.Tensor:
+    """(nodes, 3) world positions of the sampling grid's nodes."""
+    off = torch.tensor(cfg.grid_offset, dtype=dtype, device=device)
+    axes = [off[a] + torch.arange(cfg.grid_size[a] + 1, dtype=dtype, device=device) * cfg.cell_size
+            for a in range(3)]
+    return torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1)
 
 
 def _sample_surface_torch(
@@ -78,54 +140,81 @@ def _sample_surface_torch(
     """Plain version of kernel F (port of ``surface._sample_surface_jnp``):
     each particle scatters (w, w*x) to the (2 cr)^3 nodes around its cell."""
     r = cfg.particle_radius if particle_radius is None else particle_radius
+    w_acc, wp_acc = _node_sums(position, active, cfg)
+    avg_pos = wp_acc / torch.clamp(w_acc, min=1e-30)[..., None]
+    diff = avg_pos - _node_positions(cfg, position.dtype, position.device)
+    value = torch.sqrt(torch.sum(diff * diff, dim=-1) + 1e-30) - r
+    return torch.where(w_acc > 0.0, value, torch.ones_like(value))
+
+
+def _sample_surface_vjp_torch(
+    position: torch.Tensor,
+    active: torch.Tensor,
+    g: torch.Tensor,
+    cfg: MesherConfig,
+    particle_radius: Optional[float] = None,
+) -> torch.Tensor:
+    """Cotangent (N, 3) of the positions for the cotangent ``g`` of the node
+    values, in closed form: the plain version of kernel F', equal to
+    ``jax.vjp`` of ``surface._sample_surface_jnp``. (The radius shifts the
+    values only and has no part in it.)
+
+    Pass 1, per node with W > 0 (else 0): diff = X / W - x_n and
+
+        a_n = g_n diff / (sqrt(|diff|^2 + 1e-30) max(W, 1e-30)),  b_n = a_n . diff,
+
+    so that the cotangents of the node sums are d X_n = a_n and
+    d W_n = -a_n . avg_n = -(a_n . x_n + b_n). Pass 2, per particle over the
+    (2 cr)^3 nodes around its cell that lie in the grid, with d = x_p - x_n,
+    kl = 1 - |d|^2 / ext^2 and w = kl^3 where kl > 0:
+
+        d x_p = sum_n (a_n . d - b_n) 3 kl^2 (-2 d / ext^2) + a_n w.
+
+    a . x_p - a . avg is formed from d and diff, both of the support's size,
+    not from world coordinates. Inactive particles get 0."""
     nx, ny, nz = cfg.grid_size
     nodes = (nx + 1, ny + 1, nz + 1)
-    dev = position.device
-    dtype = position.dtype
+    dev, dtype = position.device, position.dtype
     dims = torch.tensor(nodes, dtype=torch.int32, device=dev)
     h = cfg.cell_size
     off = torch.tensor(cfg.grid_offset, dtype=dtype, device=dev)
     ext2 = cfg.particle_extent * cfg.particle_extent
-    cr = _support_cells(cfg)
 
-    g = (position - off) / h
-    base = torch.floor(g).to(torch.int32)
+    w_acc, wp_acc = _node_sums(position, active, cfg)
+    w_safe = torch.clamp(w_acc, min=1e-30)
+    diff = wp_acc / w_safe[..., None] - _node_positions(cfg, dtype, dev)
+    scale = g / (torch.sqrt(torch.sum(diff * diff, dim=-1) + 1e-30) * w_safe)
+    a = torch.where((w_acc > 0.0)[..., None], scale[..., None] * diff, torch.zeros_like(diff))
+    # (a positive float32 W is a sum of cubes of at least 2^-24: the clamp at
+    # 1e-30 never holds its cotangent back)
+    b = torch.sum(a * diff, dim=-1)
+    a = a.reshape(-1, 3)
+    b = b.reshape(-1)
 
+    base = torch.floor((position - off) / h).to(torch.int32)
     n_flat = nodes[0] * nodes[1] * nodes[2]
-    w_acc = torch.zeros((n_flat,), dtype=dtype, device=dev)
-    wp_acc = torch.zeros((n_flat, 3), dtype=dtype, device=dev)
-    span = range(-cr + 1, cr + 1)
-    offsets = torch.tensor(
-        [(dx, dy, dz) for dx in span for dy in span for dz in span], dtype=torch.int32, device=dev
-    )
-
-    for d in offsets:
+    out = torch.zeros_like(position)
+    for d in _node_offsets(_support_cells(cfg), dev):
         idx = base + d
         inb = torch.all((idx >= 0) & (idx < dims), dim=-1) & active
-        node_pos = off + idx.to(dtype) * h
-        d2 = torch.sum((position - node_pos) ** 2, dim=-1) / ext2
-        kl = 1.0 - d2
-        w = torch.where((kl > 0.0) & inb, kl * kl * kl, torch.zeros_like(kl))
+        dist = position - (off + idx.to(dtype) * h)
+        kl = 1.0 - torch.sum(dist**2, dim=-1) / ext2
+        live = (kl > 0.0) & inb
         flat = (idx[..., 0] * nodes[1] + idx[..., 1]) * nodes[2] + idx[..., 2]
         flat = torch.clamp(flat, 0, n_flat - 1).long()
-        w_acc.index_add_(0, flat, w)
-        wp_acc.index_add_(0, flat, w[:, None] * position)
-
-    w_acc = w_acc.reshape(nodes)
-    wp_acc = wp_acc.reshape(nodes + (3,))
-    avg_pos = wp_acc / torch.clamp(w_acc, min=1e-30)[..., None]
-    axes = [off[a] + torch.arange(nodes[a], dtype=dtype, device=dev) * h for a in range(3)]
-    node = torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1)
-    diff = avg_pos - node
-    value = torch.sqrt(torch.sum(diff * diff, dim=-1) + 1e-30) - r
-    return torch.where(w_acc > 0.0, value, torch.ones_like(value))
+        an = a[flat]
+        slope = (torch.sum(an * dist, dim=-1) - b[flat]) * (3.0 * kl * kl) * (-2.0 / ext2)
+        term = slope[:, None] * dist + an * (kl * kl * kl)[:, None]
+        out += torch.where(live[:, None], term, torch.zeros_like(term))
+    return out
 
 
 def bin_particles(position: torch.Tensor, active: torch.Tensor, cfg: MesherConfig):
     """CSR bins of the active particles by mesher cell, over the cell grid
     padded by cr cells on every side (the cells whose particles reach a
     node). Returns (positions sorted by bin (N, 3), bin starts (B + 1,)
-    int32); particles outside the padded grid sort past ``starts[B]``."""
+    int32, the sort's order (N,): sorted row i is particle ``order[i]``);
+    particles outside the padded grid sort past ``starts[B]``."""
     nx, ny, nz = cfg.grid_size
     cr = _support_cells(cfg)
     dev = position.device
@@ -143,29 +232,62 @@ def bin_particles(position: torch.Tensor, active: torch.Tensor, cfg: MesherConfi
     counts = torch.zeros((n_bins + 2,), dtype=torch.int32, device=dev)
     counts.index_add_(0, bins + 1, torch.ones_like(bins))
     starts = torch.cumsum(counts[: n_bins + 1], dim=0, dtype=torch.int32)
-    return position[order].contiguous(), starts
+    return position[order].contiguous(), starts, order
 
 
-def _sample_surface_cuda(
-    position: torch.Tensor, active: torch.Tensor, cfg: MesherConfig, radius: float
-) -> torch.Tensor:
-    """Kernel F on CUDA tensors. Replaces
-    ``libfluid_tpu/mesher/surface.py:_sample_surface_pallas`` (with its
-    8-slot mesher grid ``_build_mesh_slots``): no per-cell cap. Raises for
-    a support of more than ``MAX_SUPPORT_CELLS`` cells, never falls back."""
-    nx, ny, nz = cfg.grid_size
+def _binned(position: torch.Tensor, active: torch.Tensor, cfg: MesherConfig):
+    """:func:`bin_particles` for the kernels: raises for a support of more
+    than ``MAX_SUPPORT_CELLS`` cells or positions the kernels do not take."""
     cr = _support_cells(cfg)
     if cr > MAX_SUPPORT_CELLS:
         raise ValueError(
             f"surface kernel takes a support of up to {MAX_SUPPORT_CELLS} cells, got {cr} "
             f"(particle_extent {cfg.particle_extent} / cell_size {cfg.cell_size})"
         )
-    pos_s, starts = bin_particles(position, active, cfg)
-    kernels.check(pos_s, torch.float32, (position.shape[0], 3), "sorted positions")
-    out = torch.empty((nx + 1, ny + 1, nz + 1), dtype=torch.float32, device=position.device)
+    binned = bin_particles(position, active, cfg)
+    kernels.check(binned[0], torch.float32, (position.shape[0], 3), "sorted positions")
+    return binned
+
+
+def _sample_surface_cuda(binned, cfg: MesherConfig, radius: float) -> torch.Tensor:
+    """Kernel F on the bins of :func:`_binned` (CUDA tensors). Replaces
+    ``libfluid_tpu/mesher/surface.py:_sample_surface_pallas`` (with its
+    8-slot mesher grid ``_build_mesh_slots``): no per-cell cap. Never falls
+    back."""
+    nx, ny, nz = cfg.grid_size
+    pos_s, starts, _ = binned
+    out = torch.empty((nx + 1, ny + 1, nz + 1), dtype=torch.float32, device=pos_s.device)
     ox, oy, oz = (float(o) for o in cfg.grid_offset)
     kernels.launch(
-        "surface", "lf_surface", pos_s, starts, out, nx, ny, nz, cr,
+        "surface", "lf_surface", pos_s, starts, out, nx, ny, nz, _support_cells(cfg),
         float(cfg.cell_size), ox, oy, oz, float(cfg.particle_extent) ** 2, radius,
     )
+    return out
+
+
+def sample_surface_bwd(binned, g: torch.Tensor, cfg: MesherConfig) -> torch.Tensor:
+    """Kernel F' on the bins of :func:`_binned` (CUDA tensors): the cotangent
+    (N, 3) of the positions from the cotangent ``g`` (nx+1, ny+1, nz+1) of
+    the node values. Stands in for
+    ``libfluid_tpu/mesher/surface.py:_surface_bwd``. Two launches:
+    ``surface_bwd_nodes`` (kernel F's tile pass ending in (a_n, b_n), four
+    floats a node, see :func:`_sample_surface_vjp_torch`) and ``surface_bwd``
+    (a thread a binned particle gathers the nodes in its reach; the result
+    goes back through the sort's order; unbinned particles get 0). No
+    atomics: the same bits from run to run."""
+    nx, ny, nz = cfg.grid_size
+    pos_s, starts, order = binned
+    if not kernels.use_kernel(pos_s, starts, g):
+        raise ValueError(f"sample_surface_bwd takes CUDA tensors, got {pos_s.device}")
+    g = g.contiguous()
+    kernels.check(g, torch.float32, (nx + 1, ny + 1, nz + 1), "node cotangent")
+    cr = _support_cells(cfg)
+    ox, oy, oz = (float(o) for o in cfg.grid_offset)
+    geometry = (nx, ny, nz, cr, float(cfg.cell_size), ox, oy, oz, float(cfg.particle_extent) ** 2)
+    ab = torch.empty((nx + 1, ny + 1, nz + 1, 4), dtype=torch.float32, device=g.device)
+    kernels.launch("surface_bwd_nodes", "lf_surface_bwd_nodes", pos_s, starts, g, ab, *geometry)
+    d_sorted = torch.zeros_like(pos_s)
+    kernels.launch("surface_bwd", "lf_surface_bwd", pos_s, starts, ab, d_sorted, *geometry)
+    out = torch.empty_like(d_sorted)
+    out[order] = d_sorted
     return out

@@ -7,7 +7,9 @@ spring * dt * stiffness * re, clamped back into the domain (no skin).
 
 The first ``kc = min(correction_capacity, K)`` slots of each cell take the
 dense pass over the slot grid (kernel E, ``csrc/correction.cu``, on the
-card; :func:`_springs_torch` on the CPU). Exactly coincident pairs add a
+card; :func:`_springs_torch` on the CPU), and its gradient kernel E'
+(``csrc/correction_bwd.cu``; on the CPU the autograd of the plain version,
+whose closed form is :func:`_springs_vjp_torch`). Exactly coincident pairs add a
 deterministic hash jitter (:mod:`libfluid_tpu_torch.sim.jitterhash`) scaled
 by the slot's coincident count. Particles past the window (rank >= kc,
 slot overflow included) get a compacted per-particle pass against the
@@ -69,11 +71,69 @@ def _springs_torch(
     return springs + coincident[None] * jitter
 
 
+def _springs_vjp_torch(
+    res_pos: torch.Tensor, res_mask: torch.Tensor, g: torch.Tensor, re2: float, seed: int,
+    cfg: SimConfig, origin=_ZERO_ORIGIN,
+):
+    """Cotangents (d res_pos, d res_mask) of :func:`_springs_torch` for the
+    springs' cotangent ``g`` (3, KC, nx, ny, nz), in closed form: the plain
+    version of kernel E' (``csrc/correction_bwd.cu``), equal to ``jax.vjp``
+    of ``correction._springs_jnp``.
+
+    Every pair stands in both slots' sums (a neighbour outside the grid is
+    masked on both sides), so with r = x_i - x_j, G = g_i - g_j,
+    w(s) = max(1 - s/re2, 0)^3 / sqrt(s) and w' its slope,
+
+        d x_i = m_i sum_j m_j (w G + 2 w' (r . G) r)
+        d m_i = sum_j m_j (w r . G + [coincident] (jitter_i . g_i + jitter_j . g_j))
+
+    over the slots j of the 27 neighbour cells, the slot itself excluded: a
+    gather, as the forward is. The oracle's rules at the kinks: the cube has
+    slope 0 where 1 - s/re2 crosses 0, and a coincident pair (s < 1e-12)
+    passes nothing to the positions. The kernel writes 0 for empty slots;
+    this gives their mask the oracle's value."""
+    kc = res_pos.shape[1]
+    d_pos = torch.zeros_like(res_pos)
+    d_mask = torch.zeros_like(res_mask)
+    eye = torch.eye(kc, dtype=res_pos.dtype, device=res_pos.device).reshape(kc, kc, 1, 1, 1)
+    jitter = jitterhash.jitter_field(
+        seed, kc, tuple(res_pos.shape[2:]), origin, res_pos.dtype, res_pos.device
+    )
+    jg = torch.sum(jitter * g, dim=0)  # (KC, nx, ny, nz)
+
+    for d in slots_mod.NEIGHBOR_OFFSETS:
+        nbr_pos = slots_mod.shifted(res_pos, d, cfg)
+        nbr_mask = slots_mod.shifted(res_mask, d, cfg)
+        nbr_g = slots_mod.shifted(g, d, cfg)
+        nbr_jg = slots_mod.shifted(jg, d, cfg)
+        # pairwise (KC res, KC nbr, nx, ny, nz)
+        r = [res_pos[i][:, None] - nbr_pos[i][None, :] for i in range(3)]
+        dg = [g[i][:, None] - nbr_g[i][None, :] for i in range(3)]
+        sq = r[0] ** 2 + r[1] ** 2 + r[2] ** 2
+        r_dg = r[0] * dg[0] + r[1] * dg[1] + r[2] * dg[2]
+        m_nbr = nbr_mask[None, :].expand(kc, kc, *nbr_mask.shape[1:])
+        if d == (0, 0, 0):
+            m_nbr = m_nbr * (1.0 - eye)  # a slot is not its own neighbour
+        degenerate = sq < 1e-12
+        zero = torch.zeros_like(sq)
+        kern = torch.clamp(1.0 - sq / re2, min=0.0)
+        rs = torch.rsqrt(torch.clamp(sq, min=1e-12))
+        w = torch.where(degenerate, zero, kern**3 * rs) * m_nbr
+        # 2 w' = -k^2 / sqrt(s) * (6 / re2 + k / s)
+        w2 = torch.where(degenerate, zero, -kern * kern * rs * (6.0 / re2 + kern * rs * rs)) * m_nbr
+        d_pos += torch.stack([torch.sum(w * dg[i] + w2 * r_dg * r[i], dim=1) for i in range(3)])
+        both = jg[:, None] + nbr_jg[None, :]
+        d_mask += torch.sum(w * r_dg + torch.where(degenerate, m_nbr * both, zero), dim=1)
+    return d_pos * res_mask[None], d_mask
+
+
 class _Springs(torch.autograd.Function):
-    """Kernel E (CUDA) or :func:`_springs_torch` (CPU) forward; the backward
-    recomputes :func:`_springs_torch` and takes its vector-Jacobian product
-    on either device (port of ``correction._springs_bwd``; a backward kernel
-    is not written yet)."""
+    """Kernel E forward and kernel E' backward on CUDA tensors;
+    :func:`_springs_torch` and its autograd, recomputed in backward, on CPU
+    tensors (port of ``correction._springs_bwd``, which takes ``jax.vjp`` of
+    the jnp oracle). An empty slot's mask cotangent is 0 from E' and the
+    oracle's value from the autograd; ``slotsort``'s expand writes back the
+    valid slots only, so it is dropped with the slot either way."""
 
     @staticmethod
     def forward(ctx, res_pos, res_mask, seed, origin, re2, cfg):
@@ -87,6 +147,11 @@ class _Springs(torch.autograd.Function):
     def backward(ctx, g):
         seed, origin, re2, cfg = ctx.args
         res_pos, res_mask = ctx.saved_tensors
+        if kernels.use_kernel(res_pos, res_mask, g):
+            dp, dm = kernels.correction_springs_bwd(
+                res_pos, res_mask, g, re2, seed, origin, need_mask=ctx.needs_input_grad[1]
+            )
+            return dp, dm, None, None, None, None
         with torch.enable_grad():
             p = res_pos.detach().requires_grad_()
             m = res_mask.detach().requires_grad_()
@@ -96,7 +161,8 @@ class _Springs(torch.autograd.Function):
 
 
 def _springs(res_pos, res_mask, seed: int, origin, re2: float, cfg: SimConfig) -> torch.Tensor:
-    """Kernel E on CUDA tensors, :func:`_springs_torch` on CPU tensors."""
+    """Kernels E and E' on CUDA tensors, :func:`_springs_torch` and its
+    autograd on CPU tensors."""
     return _Springs.apply(res_pos, res_mask, seed, origin, re2, cfg)
 
 

@@ -1,8 +1,8 @@
 """Dispatch to the hand-written CUDA kernels, and the wrappers of the P2G
 and correction kernels.
 
-Thirteen kernels carry the substep, its gradient and the mesher (sources in
-``libfluid_tpu_torch/csrc``):
+Sixteen kernels carry the substep, the mesher and the gradients of both
+(sources in ``libfluid_tpu_torch/csrc``):
 
     "expand"      slotsort.expand         slot-grid expand     (csrc/expand.cu)
     "p2g"         kernels.p2g_faces       P2G face sums        (csrc/p2g.cu)
@@ -16,15 +16,25 @@ Thirteen kernels carry the substep, its gradient and the mesher (sources in
     "g2p"         transfers.g2p_pic       G2P                  (csrc/g2p.cu)
     "g2p_bwd"     transfers.g2p_bwd       adjoint of G2P       (csrc/g2p_bwd.cu)
     "correction"  correction._springs     correction springs   (csrc/correction.cu)
+    "correction_bwd"  kernels.correction_springs_bwd  their VJP  (csrc/correction_bwd.cu)
     "surface"     surface.sample_surface  mesher node pass     (csrc/surface.cu)
+    "surface_bwd_nodes"  surface.sample_surface_bwd  its VJP, node part  (csrc/surface.cu)
+    "surface_bwd"        surface.sample_surface_bwd  particle part  (csrc/surface_bwd.cu)
 
 "p2g", "correction" and "surface" are tile kernels: a block brings what its
 tile of lattice points, cells or nodes reaches into shared memory once (for
 "p2g" and "surface" in chunks, so shared memory caps neither the slots a
 cell nor the particles a bin) and tiles away from the fluid return at once.
-"p2g" takes up to ``P2G_MAX_SLOTS`` slots a cell, "correction" up to 32,
-"surface" a support of up to ``surface.MAX_SUPPORT_CELLS`` mesher cells;
-the wrappers raise above that. "g2p" and "g2p_bwd" run a thread a particle
+Their backward kernels are gathers on tiles too, without atomics:
+"p2g_bwd" fills the cotangent with zeros and then visits the occupied slots
+of each tile of cells with the tile's face cotangents in shared memory;
+"correction_bwd" is "correction"'s tile with the springs' cotangent staged
+beside the positions; "surface_bwd_nodes" is "surface"'s pass with another
+last step (four floats a node), which "surface_bwd" gathers a thread a
+particle, a block a tile of bins, the nodes in reach in shared memory.
+"p2g" takes up to ``P2G_MAX_SLOTS`` slots a cell, "correction" and
+"correction_bwd" up to 32, "surface" and its backward a support of up to
+``surface.MAX_SUPPORT_CELLS`` mesher cells; the wrappers raise above that. "g2p" and "g2p_bwd" run a thread a particle
 (any order of particles): per-axis weight tables, the 24 live face samples
 of the 54 in reach, positions and results through shared memory; "g2p_bwd"
 merges the face cotangents of a block's particles in a shared-memory box
@@ -49,7 +59,7 @@ from libfluid_tpu_torch.config import SimConfig, TransferScheme
 LAUNCHES = {
     "expand": 0, "p2g": 0, "p2g_bwd": 0, "stencil": 0, "stencil16": 0, "mg_pre": 0,
     "mg_restrict": 0, "mg_up": 0, "mg_coarse": 0, "g2p": 0, "g2p_bwd": 0, "correction": 0,
-    "surface": 0,
+    "correction_bwd": 0, "surface": 0, "surface_bwd_nodes": 0, "surface_bwd": 0,
 }
 
 
@@ -85,6 +95,7 @@ def launch(name: str, entry: str, *args) -> None:
     """Call C entry point `entry` on the current stream; tensors are passed
     as device pointers. Raises on a CUDA error, else counts the launch."""
     fn = getattr(_build.load(), entry)
+    # None is a null pointer: an output the caller does not ask for
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     err = fn(*cargs, torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -128,8 +139,10 @@ def p2g_faces_bwd(data: torch.Tensor, gnum, gden, cfg: SimConfig) -> torch.Tenso
     the slot payload (16, K, nx, ny, nz) from those of the six face arrays
     (rows: position 0-2, mask 3, velocity 4-6, affine 7-15). Empty slots
     get 0; the plain version's autograd gives their mask row a value, which
-    expand's backward drops with the slot. Gather form, no atomics: the same
-    bits from run to run."""
+    expand's backward drops with the slot. Two launches behind one entry
+    point: a zero fill of the cotangent, then a block per tile of cells that
+    visits the tile's occupied slots with the face cotangents in its reach in
+    shared memory. Gather form, no atomics: the same bits from run to run."""
     nx, ny, nz = cfg.grid_size
     k = data.shape[1]
     check(data, torch.float32, (16, k, nx, ny, nz), "slot payload")
@@ -228,3 +241,40 @@ def correction_springs(
         float(re2), int(seed), ox, oy, oz,
     )
     return out
+
+
+def correction_springs_bwd(
+    res_pos: torch.Tensor, res_mask: torch.Tensor, g: torch.Tensor, re2: float, seed: int,
+    origin=(0, 0, 0), need_mask: bool = True,
+):
+    """Kernel E', the vector-Jacobian product of :func:`correction_springs`
+    on CUDA tensors: the cotangents of ``res_pos`` (3, KC, nx, ny, nz) and,
+    with `need_mask`, of ``res_mask`` (KC, nx, ny, nz), else None, from the
+    springs' cotangent ``g`` (3, KC, nx, ny, nz). Empty slots get 0 in both:
+    the plain version gives an empty slot's mask a value, which expand's
+    backward drops with the slot (it writes back the valid slots only).
+
+    Stands in for ``libfluid_tpu/sim/correction.py:_springs_bwd`` (``jax.vjp``
+    of the jnp oracle around ``_correction_kernel``). CUDA:
+    ``csrc/correction_bwd.cu``, kernel E's tile with ``g`` staged beside the
+    positions, a gather over the symmetric pair set, no atomics; KC <= 32.
+    """
+    if not use_kernel(res_pos, res_mask, g):
+        raise ValueError(f"correction_springs_bwd takes CUDA tensors, got {res_pos.device}")
+    kc, nx, ny, nz = res_mask.shape
+    if not 1 <= kc <= 32:
+        raise ValueError(f"correction kernel takes 1 to 32 slots a cell, got {kc}")
+    res_pos = res_pos.contiguous()
+    res_mask = res_mask.contiguous()
+    g = g.contiguous()
+    check(res_pos, torch.float32, (3, kc, nx, ny, nz), "res_pos")
+    check(res_mask, torch.float32, (kc, nx, ny, nz), "res_mask")
+    check(g, torch.float32, (3, kc, nx, ny, nz), "springs cotangent")
+    d_pos = torch.empty_like(res_pos)
+    d_mask = torch.empty_like(res_mask) if need_mask else None
+    ox, oy, oz = (int(o) for o in origin)
+    launch(
+        "correction_bwd", "lf_correction_bwd", res_pos, res_mask, g, d_pos, d_mask, kc, nx, ny,
+        nz, float(re2), int(seed), ox, oy, oz,
+    )
+    return d_pos, d_mask

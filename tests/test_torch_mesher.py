@@ -67,7 +67,7 @@ def _csr_gather(pos, active, cfg):
     CSR bins: each node sums the (2 cr)^3 bins b = n - cr ... n + cr - 1 of
     the padded grid (:func:`_tile_gather` models how the kernel's tiles walk
     them)."""
-    pos_s, starts = (t.numpy() for t in t_surface.bin_particles(
+    pos_s, starts, _ = (t.numpy() for t in t_surface.bin_particles(
         torch.from_numpy(pos), torch.from_numpy(active), cfg))
     cr = t_surface._support_cells(cfg)
     nx, ny, nz = cfg.grid_size
@@ -114,7 +114,7 @@ def _tile_gather(pos, active, cfg, tile, cap):
     particle, each row clipped to the bins its z reaches and to the chunk.
     Returns the SDF and the most chunks a tile took."""
     f32 = np.float32
-    pos_s, starts = (t.numpy() for t in t_surface.bin_particles(
+    pos_s, starts, _ = (t.numpy() for t in t_surface.bin_particles(
         torch.from_numpy(pos), torch.from_numpy(active), cfg))
     cr = t_surface._support_cells(cfg)
     n2 = 2 * cr
@@ -237,7 +237,7 @@ def test_surface_kernel_wrapper_refuses(case):
         _, tcfg = _cfgs(**KERNEL_CFG)
         args, error = (torch.from_numpy(pos).double(), torch.from_numpy(active), tcfg, 0.5), TypeError
     with pytest.raises(error):
-        t_surface._sample_surface_cuda(*args)
+        t_surface._binned(*args[:3])
 
 
 def _sphere_sdf(cfg, center, radius):

@@ -310,6 +310,132 @@ def test_p2g_kernel_wrapper_refuses(case):
         t_kernels._p2g_faces_cuda(bad, cfg)
 
 
+def _p2g_bwd_model(data, gnum, gden, cfg, tile):
+    """Kernel B''s second launch (``csrc/p2g_bwd.cu``) in numpy, float32
+    throughout, on zeros as its first launch leaves them: a block per tile of
+    cells; a tile without a particle skipped; the (gn, gd) pairs of the
+    faces the tile's cells reach in one box per face axis (cells + 1 along
+    the axis, cells + 2 across it), faces outside an array as zeros; per
+    occupied slot and dimension the hat, its derivative with the JAX
+    package's subgradients and the lever x_face - x at the aligned offsets
+    0, 1 and the half-shifted offsets -1, 0, 1; then the 54 faces out of the
+    box, axis, x, y, z offsets ascending, none skipped."""
+    f32 = np.float32
+    nx, ny, nz = cfg.grid_size
+    k_slots = data.shape[1]
+    h = f32(cfg.cell_size)
+    o = [f32(v) for v in cfg.grid_offset]
+    affine = cfg.scheme == TransferScheme.APIC
+    face_dims = [(nx + 1, ny, nz), (nx, ny + 1, nz), (nx, ny, nz + 1)]
+    out = np.zeros_like(data)
+    half, one, zero = f32(0.5), f32(1.0), f32(0.0)
+
+    def hat(t):
+        return max(one - abs(t), zero)
+
+    def dhat(t):
+        y = one - abs(t)
+        gate = one if y > 0 else (half if y == 0 else zero)
+        return -gate if t >= 0 else gate
+
+    for t0 in np.ndindex(*(-(-n // t) for n, t in zip((nx, ny, nz), tile))):
+        t0 = [a * b for a, b in zip(t0, tile)]
+        cells = [c for c in np.ndindex(*tile)
+                 if all(t0[q] + c[q] < (nx, ny, nz)[q] for q in range(3))]
+        if not any(data[(3, slice(None)) + tuple(t0[q] + c[q] for q in range(3))].any() for c in cells):
+            continue
+        boxes = []
+        for a in range(3):
+            dims = [tile[q] + (1 if q == a else 2) for q in range(3)]
+            box = np.zeros(dims + [2], f32)
+            for e in np.ndindex(*dims):
+                f = tuple(t0[q] + e[q] - (0 if q == a else 1) for q in range(3))
+                if all(0 <= f[q] < face_dims[a][q] for q in range(3)):
+                    box[e] = (gnum[a][f], gden[a][f])
+            boxes.append(box)
+        for k in range(k_slots):
+            for ic in cells:
+                c = tuple(t0[q] + ic[q] for q in range(3))
+                s = data[(slice(None), k) + c]
+                m = s[3]
+                if m == 0:
+                    continue
+                p = s[0:3]
+                tb = np.zeros((3, 3, 2, 3), f32)  # (hat, dhat, lever)[q][kind][i]
+                for q in range(3):
+                    gp = (p[q] - o[q]) / h
+                    for i in range(3):
+                        fa, fs = f32(c[q] + i), f32(c[q] + i - 1)
+                        ta, ts = gp - fa, (gp - half) - fs
+                        tb[0, q, 0, i], tb[1, q, 0, i] = hat(ta), dhat(ta)
+                        tb[2, q, 0, i] = (fa * h + o[q]) - p[q]
+                        tb[0, q, 1, i], tb[1, q, 1, i] = hat(ts), dhat(ts)
+                        tb[2, q, 1, i] = ((fs + half) * h + o[q]) - p[q]
+                d_m, d_t, d_x = zero, [zero] * 3, [zero] * 3
+                d_v, d_a = [zero] * 3, [zero] * 9
+                for a in range(3):
+                    va = s[4 + a]
+                    arow = s[7 + 3 * a: 10 + 3 * a] if affine else np.zeros(3, f32)
+                    kind = [0 if q == a else 1 for q in range(3)]
+                    for i in np.ndindex(*(2 if q == a else 3 for q in range(3))):
+                        gn, gd = boxes[a][tuple(ic[q] + i[q] for q in range(3))]
+                        hq = [tb[0, q, kind[q], i[q]] for q in range(3)]
+                        dq = [tb[1, q, kind[q], i[q]] for q in range(3)]
+                        lever = [tb[2, q, kind[q], i[q]] for q in range(3)]
+                        big_h = hq[0] * hq[1] * hq[2]
+                        val = va
+                        if affine:
+                            for q in range(3):
+                                val = val + arow[q] * lever[q]
+                        gw = gn * val + gd
+                        d_m = d_m + gw * big_h
+                        gwm = gw * m
+                        d_t[0] = d_t[0] + gwm * dq[0] * hq[1] * hq[2]
+                        d_t[1] = d_t[1] + gwm * hq[0] * dq[1] * hq[2]
+                        d_t[2] = d_t[2] + gwm * hq[0] * hq[1] * dq[2]
+                        gnw = gn * m * big_h
+                        d_v[a] = d_v[a] + gnw
+                        if affine:
+                            for q in range(3):
+                                d_a[3 * a + q] = d_a[3 * a + q] + gnw * lever[q]
+                                d_x[q] = d_x[q] - gnw * arow[q]
+                res = [d_t[q] / h + d_x[q] for q in range(3)] + [d_m] + d_v + d_a
+                out[(slice(None), k) + c] = res
+    return out
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_p2g_bwd_kernel_model_matches_jax(scheme):
+    """The tile-and-table arithmetic of kernel B' against ``jax.vjp`` of
+    ``transfers._p2g_slots_jnp`` on a grid no tile divides: slots that are
+    not prefix-dense, a third of the grid empty, slot-0 particles exactly on
+    cell corners (t = 0 at the aligned faces, |t| = 1 at their neighbours:
+    the hat's kinks). Occupied slots within 1e-5 of the largest component
+    (as the kernel is held to its plain autograd on the card), empty slots 0,
+    and the same bits whatever the tile's shape."""
+    cfg = SimConfig(
+        grid_size=(7, 5, 6), cell_size=0.7, grid_offset=(0.3, -0.2, 0.1),
+        scheme=scheme, max_neighbors_per_cell=5,
+    )
+    rng = np.random.default_rng(23)
+    data = _random_payload(cfg, rng)
+    nx, ny, nz = cfg.grid_size
+    faces = [(nx + 1, ny, nz), (nx, ny + 1, nz), (nx, ny, nz + 1)]
+    gnum = [rng.standard_normal(sh).astype(np.float32) for sh in faces]
+    gden = [rng.standard_normal(sh).astype(np.float32) for sh in faces]
+    _, vjp = jax.vjp(lambda d: transfers._p2g_slots_jnp(d, cfg), jnp.asarray(data))
+    (want,) = vjp((tuple(jnp.asarray(g) for g in gnum), tuple(jnp.asarray(g) for g in gden)))
+    want = np.asarray(want)
+    got = _p2g_bwd_model(data, gnum, gden, cfg, (2, 2, 4))
+    occ = data[3] != 0
+    assert not got[:, ~occ].any()
+    err = np.max(np.abs(got - want)[:, occ]) / np.max(np.abs(want[:, occ]))
+    assert err < 1e-5, err
+    if scheme == TransferScheme.PIC:
+        assert not got[7:].any()
+    np.testing.assert_array_equal(got, _p2g_bwd_model(data, gnum, gden, cfg, (3, 4, 3)))
+
+
 def test_g2p_pic_matches_jax():
     """Kernel D's plain version against JAX's g2p_pic on random faces, with
     particles inside, on faces, and just outside the domain (clamped cell)."""

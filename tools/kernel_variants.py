@@ -297,7 +297,7 @@ def main() -> None:
 
         pos, act, mesher = state.position, state.active, cs.MESH_128
         want = surface.sample_surface(pos, act, mesher)
-        pos_s, starts = surface.bin_particles(pos, act, mesher)
+        pos_s, starts, _ = surface.bin_particles(pos, act, mesher)
         out = torch.empty_like(want)
         mx, my, mz = mesher.grid_size
         ox, oy, oz = (float(o) for o in mesher.grid_offset)
