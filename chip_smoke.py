@@ -25,10 +25,19 @@ Phases, one line of output each (or a few):
    support of 1, 2 and 4 cells and a crammed bin), two launches bit-equal,
    and with the device's own time beside the event medians;
    then the backward kernels B' (at 64^3: the plain autograd of P2G does
-   not fit the card at 128^3; its time and bound also at 128^3) and D' (at
-   128^3) against the autograd of
-   their plain versions, and kernel C's bfloat16 instance against the
-   plain bfloat16 stencil on every level and mode;
+   not fit the card at 128^3; its time and bound also at 128^3; also on a
+   grid no tile divides at 5, 12 and 32 slots a cell, APIC and PIC, two
+   launches bit-equal) and D' (at 128^3) against the autograd of their
+   plain versions; E' and the two launches of F' against their plain closed
+   forms at the main path's shapes (128^3 slot grid, 261^3 nodes), against
+   the autograd of the plain versions on CPU copies in float64 and float32
+   at 32^3 / 66^3 (the kernel's error against float64 no more than 4 x the
+   float32 autograd's, cosine >= 0.9999), and away from those shapes (E' at
+   16 and 32 slots a cell with coincident pairs and on an empty grid, F'
+   with a support of 1, 2 and 4 cells and a crammed bin, bit-equal); and
+   kernel C's bfloat16 instance against the
+   plain bfloat16 stencil on every level and mode; the device's own time
+   (torch.profiler) of the stencils and the four V-cycle kernels;
    kernels D and D' also on a 20 x 18 x 28 grid with a cell of 0.7
    (particles in random and in cell order, on faces, outside the domain, a
    count no block divides, none and one), and with the device's own time;
@@ -43,7 +52,8 @@ Phases, one line of output each (or a few):
    the end state of 2 substeps with respect to the initial velocities, for
    both scenes of phase 4, and the gradient of a loss on the mesh vertices
    of the scene's end state (66^3 mesher grid) with respect to the
-   positions; then 3 steps of gradient descent at 32^3, whose loss must
+   positions, with every backward kernel launched (no plain version runs
+   on the card); then 3 steps of gradient descent at 32^3, whose loss must
    fall;
 6. the main path: the 128^3 APIC dam-break with position correction on
    (~2.0M particles), one warm-up substep, 5 timed substeps, one CFL
@@ -53,10 +63,12 @@ Phases, one line of output each (or a few):
    iteration beside phase 3's times of its kernels, and the device's busy
    share of one substep (torch.profiler);
 7. the same dam-break with position correction off, 2 substeps;
-8. the gradient path: the 128^3 correction-off dam-break, 3 steps of
+8. the gradient paths: the 128^3 correction-off dam-break, 2 steps of
    gradient descent on the initial velocities through 2 unrolled substeps
    (forward and backward ms, loss, gradient norm, CG iterations of the
-   forward and adjoint solves, peak memory);
+   forward and adjoint solves, peak memory); one such step with position
+   correction on (kernel E'); the gradient of a loss on the mesh of the
+   260^3-cell mesher grid with respect to the 2.0M positions (kernel F');
 9. the 128^3 dam-break with FLIP and the bfloat16 V-cycle ("mg16"), 2
    substeps;
 10. the testbed CLI, setup 4 (jet source + obstacle), 2 frames with an OBJ
@@ -108,10 +120,14 @@ KERNELS = {
     "p2g_bwd": ("libfluid_tpu_torch/csrc/p2g_bwd.cu", "libfluid_tpu/sim/kernels.py:58"),
     "g2p_bwd": ("libfluid_tpu_torch/csrc/g2p_bwd.cu", "libfluid_tpu/sim/transfers.py:177,508"),
     "stencil16": ("libfluid_tpu_torch/csrc/stencil.cu", "libfluid_tpu/sim/multigrid.py:127"),
+    "correction_bwd": ("libfluid_tpu_torch/csrc/correction_bwd.cu", "libfluid_tpu/sim/kernels.py:284"),
+    "surface_bwd_nodes": ("libfluid_tpu_torch/csrc/surface.cu", "libfluid_tpu/mesher/surface.py:164"),
+    "surface_bwd": ("libfluid_tpu_torch/csrc/surface_bwd.cu", "libfluid_tpu/mesher/surface.py:164"),
 }
 VCYCLE_KERNELS = ("mg_pre", "mg_restrict", "mg_up", "mg_coarse")
 FORWARD_KERNELS = ("expand", "p2g", "stencil", *VCYCLE_KERNELS, "g2p", "correction", "surface")
 GRAD_KERNELS = ("expand", "p2g", "p2g_bwd", "stencil", *VCYCLE_KERNELS, "g2p", "g2p_bwd")
+MESH_GRAD_KERNELS = ("surface", "surface_bwd_nodes", "surface_bwd")
 # the card's published peaks (H100 SXM): device memory and float32 outside
 # the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -245,6 +261,8 @@ def vcycle_phases(levels, what: str):
             err = max_err(got, want)
             check(close(got, want, 1e-6, 1e-5), f"{name} at {shapes[l]} ({what}) error {err}")
             rec = dict(max_abs_err=err, ms=median_ms(fused), plain_ms=median_ms(plain), **bnd)
+            if l == 0:
+                rec["device_ms"] = device_ms(fused, name + "_kernel")
             log(f"kernel {name} ({what}) level {shapes[l]}: within rtol 1e-6/atol 1e-5, {rec}")
             out.setdefault(name, rec)
     bc = bs[first]
@@ -257,7 +275,8 @@ def vcycle_phases(levels, what: str):
         max_abs_err=err, ms=median_ms(lambda: multigrid.coarse_cycle(levels, bc, first)),
         plain_ms=median_ms(lambda: multigrid._coarse_torch(levels, bc, first)),
         **bound(nbytes(bc, got, *(a for lv in lows for a in multigrid._level_args(lv))),
-                40.0 * sum(lv.fluid.numel() for lv in lows) * 6))
+                40.0 * sum(lv.fluid.numel() for lv in lows) * 6),
+        device_ms=device_ms(lambda: multigrid.coarse_cycle(levels, bc, first), "mg_coarse_kernel"))
     log(f"kernel mg_coarse ({what}) levels {shapes[first:]}: within rtol 1e-6/atol 1e-5 of max "
         f"{float(want.abs().max()):.3e}, {out['mg_coarse']}")
 
@@ -464,13 +483,13 @@ def surface_odd_shapes(device) -> None:
         + " (< 2e-3), two launches bit-equal")
 
 
-def device_ms(fn, kernel: str, reps: int = 5) -> str:
-    """The device's own time for one launch of the CUDA kernel whose name
+def device_ms(fn, kernel: str, reps: int = 5):
+    """The device's own ms for one launch of the CUDA kernel whose name
     contains `kernel`, from torch.profiler over `reps` calls of `fn` (an
     event median around a wrapper carries the launch path and whatever
-    else the wrapper runs), as text. The profiler now and then misses
-    launches of a window: the mean is over those it saw, after up to three
-    windows, and "not measured" if it saw none."""
+    else the wrapper runs). The profiler now and then misses launches of a
+    window: the mean is over those it saw, after up to three windows, and
+    None if it saw none."""
     fn()
     for _ in range(3):
         torch.cuda.synchronize()
@@ -482,8 +501,12 @@ def device_ms(fn, kernel: str, reps: int = 5) -> str:
                  if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
         count = sum(e.count for e in items)
         if count:
-            return f"{sum(e.device_time_total for e in items) / 1e3 / count:.4f} ms"
-    return "not measured"
+            return sum(e.device_time_total for e in items) / 1e3 / count
+    return None
+
+
+def dev_text(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def kernel_phases(cfg, state):
@@ -530,7 +553,7 @@ def kernel_phases(cfg, state):
         plain_ms=median_ms(lambda: transfers._p2g_slots_torch(data, cfg)),
     )
     log(f"kernel p2g: normalized error {max(errs):.3e} (< 2e-5), {out['p2g']}; the device's own "
-        f"time {device_ms(lambda: kernels.p2g_faces(data, cfg), 'p2g_kernel')} (torch.profiler)")
+        f"time {dev_text(device_ms(lambda: kernels.p2g_faces(data, cfg), 'p2g_kernel'))} (torch.profiler)")
     del data, rs
     p2g_odd_shapes(state.position.device)
     g2p_odd_shapes(state.position.device)
@@ -555,6 +578,8 @@ def kernel_phases(cfg, state):
         max_abs_err=worst,
         ms=median_ms(lambda: multigrid.stencil(lvl, x, b, multigrid.MODE_JACOBI, 0.8)),
         plain_ms=median_ms(lambda: multigrid._stencil_torch(lvl, x, b, multigrid.MODE_JACOBI, 0.8)),
+        device_ms=device_ms(lambda: multigrid.stencil(lvl, x, b, multigrid.MODE_JACOBI, 0.8),
+                            "stencil_kernel"),
     )
     log(f"kernel stencil: {len(levels)} levels {[tuple(l.fluid.shape) for l in levels]} x 3 modes "
         f"within rtol 1e-6/atol 1e-5, time at {tuple(lvl.fluid.shape)} Jacobi mode, {out['stencil']}")
@@ -589,7 +614,7 @@ def kernel_phases(cfg, state):
         plain_ms=median_ms(plain),
     )
     log(f"kernel g2p: {pos.shape[0]} particles within rtol/atol 1e-5, {out['g2p']}; the device's own "
-        f"time {device_ms(lambda: transfers.g2p_pic(grid, pos, cfg), 'g2p_kernel')} (torch.profiler)")
+        f"time {dev_text(device_ms(lambda: transfers.g2p_pic(grid, pos, cfg), 'g2p_kernel'))} (torch.profiler)")
     del vk, ak, vp, ap
 
     sb = slotsort.sort_and_build(state, cfg)
@@ -638,15 +663,302 @@ def kernel_phases(cfg, state):
     log(f"kernel surface: {tuple(got.shape)} nodes from {int(act.sum())} particles, max abs "
         f"error {err:.3e} (< 2e-3); ms includes the CSR binning ({bin_ms:.3f} ms of it); the device's "
         f"own time for the node pass "
-        f"{device_ms(lambda: surface.sample_surface(pos, act, MESH_128), 'surface_kernel')} "
+        f"{dev_text(device_ms(lambda: surface.sample_surface(pos, act, MESH_128), 'surface_kernel'))} "
         f"(torch.profiler); plain timed over {PLAIN_REPS_SLOW} reps, {out['surface']}")
     del got, want
     surface_odd_shapes(state.position.device)
     return out, (cycle_wall, operator_wall)
 
 
+def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.detach().flatten().double().cpu(), b.detach().flatten().double().cpu()
+    return float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+
+
+def held_to_float64(what: str, got: torch.Tensor, plain32: torch.Tensor, ref64: torch.Tensor) -> str:
+    """A backward kernel's result against the float64 reference, beside the
+    float32 plain version's: its error no more than 4 x the plain one's (or
+    1e-6 of the largest component, a few float32 roundings, where the plain
+    one happens to be nearer than that) and cosine >= 0.9999. Returns text."""
+    got, plain32 = got.detach().double().cpu(), plain32.detach().double().cpu()
+    scale = float(ref64.abs().max())
+    err_k, err_p = float((got - ref64).abs().max()), float((plain32 - ref64).abs().max())
+    cos = cosine(got, ref64)
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite")
+    check(err_k <= max(4.0 * err_p, 1e-6 * scale),
+          f"{what}: error against float64 {err_k} > 4 x the float32 plain version's {err_p}")
+    check(cos >= 0.9999, f"{what}: cosine against float64 {cos} < 0.9999")
+    return (f"{what}: max|ref| {scale:.3e}, error against float64 kernel {err_k:.3e} / float32 plain "
+            f"{err_p:.3e} (kernel <= 4 x plain), cosine {cos:.8f} (>= 0.9999)")
+
+
+def p2g_bwd_odd_shapes(device) -> None:
+    """Kernel B' away from the main path's shapes, as :func:`p2g_odd_shapes`
+    has kernel B: a grid no tile divides, a cell size and offset that are not
+    1 and 0, 5, 12 and 32 slots a cell, slots that are not prefix-dense with
+    slot 0's particles on cell corners (the hats' kinks), a third of the grid
+    empty, APIC and PIC; against the plain autograd (relative error < 1e-5
+    on the occupied slots, empty slots 0), two launches bit-equal. The plain
+    version runs on CPU copies, as in :func:`g2p_odd_shapes`: on the card
+    PyTorch divides by the cell size through its reciprocal, which moves a
+    particle on a corner off the hat's kink, where the slope jumps."""
+    shape = (20, 18, 28)
+    gen = torch.Generator(device=device).manual_seed(17)
+    cell = torch.stack(torch.meshgrid(
+        *(torch.arange(n, device=device, dtype=torch.float32) for n in shape), indexing="ij"))
+    errs = {}
+    for scheme in (TransferScheme.APIC, TransferScheme.PIC):
+        for k in (5, 12, 32):
+            cfg = SimConfig(grid_size=shape, cell_size=0.7, grid_offset=(0.3, -0.2, 0.1),
+                            scheme=scheme, max_neighbors_per_cell=k, particle_capacity=8)
+            mask = (torch.rand((k, *shape), generator=gen, device=device) < 0.4).float()
+            mask[..., : shape[2] // 3] = 0.0
+            mask[:, 7, 5, 15] = 1.0
+            off = torch.tensor(cfg.grid_offset, device=device).reshape(3, 1, 1, 1, 1)
+            frac = torch.rand((3, k, *shape), generator=gen, device=device)
+            frac[:, 0] = 0.0
+            pos = (cell[:, None] + frac) * 0.7 + off
+            rest = torch.randn((12, k, *shape), generator=gen, device=device)
+            rest[3:] *= 0.2
+            data = (torch.cat([pos, mask[None], rest]) * mask[None]).contiguous()
+            faces = [torch.randn(sh, generator=gen, device=device) for sh in kernels.face_shapes(cfg) * 2]
+            got = kernels.p2g_faces_bwd(data, faces[:3], faces[3:], cfg)
+            check(torch.equal(got, kernels.p2g_faces_bwd(data, faces[:3], faces[3:], cfg)),
+                  f"p2g_bwd with {k} slots a cell, {scheme.name}: two launches differ")
+            leaf = data.cpu().requires_grad_()
+            num, den = transfers._p2g_slots_torch(leaf, cfg)
+            (want,) = torch.autograd.grad((*num, *den), leaf, [f.cpu() for f in faces])
+            want = want.to(device)
+            occ = data[3] != 0
+            rel = max_err(got * occ, want * occ) / float(torch.max(torch.abs(want * occ)))
+            errs[f"{scheme.name} {k}"] = rel
+            check(rel < 1e-5, f"p2g_bwd with {k} slots a cell, {scheme.name}: relative error {rel} >= 1e-5")
+            check(bool((got[:, ~occ] == 0).all()),
+                  f"p2g_bwd with {k} slots a cell, {scheme.name}: an empty slot got a cotangent")
+    log(f"kernel p2g_bwd (B'), odd shapes at {shape}, cell 0.7: relative error "
+        + ", ".join(f"{e:.3e} ({what} slots a cell)" for what, e in errs.items())
+        + " (< 1e-5), empty slots 0, two launches bit-equal")
+
+
+def correction_bwd_phases(cfg, state, gen) -> dict:
+    """Kernel E' (``correction_bwd``): at the 128^3 main path's slot grid
+    against its plain closed form on the card (the plain autograd's tape
+    does not fit there), timed with its bound; at the 32^3 scene's slot grid
+    against the autograd of the plain springs on CPU copies in float64 and
+    float32; at 16 and 32 slots a cell on 20 x 18 x 28 (no tile divides it)
+    with coincident pairs placed by hand, and on an empty grid."""
+    device = state.position.device
+    sb = slotsort.sort_and_build(state, cfg)
+    kc = min(cfg.correction_capacity, sb.slot_grid.capacity)
+    res_pos = sb.slot_grid.position[:, :kc].contiguous()
+    res_mask = sb.slot_grid.mask[:kc].contiguous()
+    del sb
+    re2, seed = cfg.cell_size**2 / 2.0, 12345
+    g = torch.randn(res_pos.shape, generator=gen, device=device)
+    dp, dm = kernels.correction_springs_bwd(res_pos, res_mask, g, re2, seed)
+    wp, wm = correction._springs_vjp_torch(res_pos, res_mask, g, re2, seed, cfg)
+    occ = res_mask != 0
+    err = max(max_err(dp, wp), max_err(dm * occ, wm * occ))
+    rel_p = max_err(dp, wp) / float(wp.abs().max())
+    rel_m = max_err(dm * occ, wm * occ) / float((wm * occ).abs().max())
+    check(rel_p < 1e-4 and rel_m < 1e-4,
+          f"correction_bwd at 128^3: relative error positions {rel_p} mask {rel_m} >= 1e-4")
+    check(bool((dp[:, ~occ] == 0).all() and (dm[~occ] == 0).all()),
+          "correction_bwd: an empty slot got a cotangent")
+    cos = cosine(dp, wp)
+    check(cos >= 0.9999, f"correction_bwd at 128^3: cosine {cos} < 0.9999")
+    dp2, none = kernels.correction_springs_bwd(res_pos, res_mask, g, re2, seed, need_mask=False)
+    check(none is None and torch.equal(dp, dp2), "correction_bwd: two launches differ")
+    del dp2, wp, wm
+    n_occ = int(occ.sum())
+    per_cell = occ.sum(0, dtype=torch.float32)
+    around = 27.0 * torch.nn.functional.avg_pool3d(per_cell[None, None], 3, 1, 1)[0, 0]
+    pairs = float((per_cell * (around - 1.0)).sum())  # the pairs inside the grid, ~45 operations each
+    rec = dict(
+        **bound(nbytes(g, dp, dm, res_mask) + 12 * n_occ, 45.0 * pairs),
+        max_abs_err=err,
+        ms=median_ms(lambda: kernels.correction_springs_bwd(res_pos, res_mask, g, re2, seed)),
+        plain_ms=median_ms(lambda: correction._springs_vjp_torch(res_pos, res_mask, g, re2, seed, cfg),
+                           PLAIN_REPS_SLOW),
+        device_ms=device_ms(lambda: kernels.correction_springs_bwd(res_pos, res_mask, g, re2, seed),
+                            "correction_bwd_kernel"),
+    )
+    log(f"kernel correction_bwd (E'): cotangents of {n_occ} resident slots at {tuple(res_pos.shape)}, "
+        f"{pairs:.4e} pairs, relative error against the plain closed form positions {rel_p:.3e} mask "
+        f"{rel_m:.3e} (< 1e-4), cosine {cos:.8f}, empty slots 0, two launches bit-equal, plain timed "
+        f"over {PLAIN_REPS_SLOW} reps, {rec}")
+    del res_pos, res_mask, g, dp, dm, occ
+    torch.cuda.empty_cache()
+
+    # the 32^3 scene's slot grid after one substep: the autograd of the plain
+    # springs on CPU copies is the reference, float64 the arbiter
+    cfg32, st32 = parity_scene(device)
+    st32, _ = sim.substep(st32, cfg32, DT)
+    sg = slotsort.sort_and_build(st32, cfg32).slot_grid
+    kc = min(cfg32.correction_capacity, sg.capacity)
+    res_pos, res_mask = sg.position[:, :kc].contiguous(), sg.mask[:kc].contiguous()
+    g = torch.randn(res_pos.shape, generator=gen, device=device)
+    dp, dm = kernels.correction_springs_bwd(res_pos, res_mask, g, re2, seed)
+    refs = {}
+    for dtype in (torch.float64, torch.float32):
+        p = res_pos.cpu().to(dtype).requires_grad_()
+        m = res_mask.cpu().to(dtype).requires_grad_()
+        out = correction._springs_torch(p, m, re2, seed, cfg32)
+        refs[dtype] = torch.autograd.grad(out, (p, m), g.cpu().to(dtype))
+        del out
+    occ = (res_mask != 0).cpu()
+    log("kernel correction_bwd (E') at the 32^3 scene's slot grid, against the plain autograd on CPU copies: "
+        + held_to_float64("positions", dp, refs[torch.float32][0], refs[torch.float64][0]) + "; "
+        + held_to_float64("mask (occupied slots)", dm.cpu() * occ, refs[torch.float32][1] * occ,
+                          refs[torch.float64][1] * occ))
+    del refs
+
+    # more slots a cell (the smaller tile above 18), coincident pairs, nothing
+    shape = (20, 18, 28)
+    cfg_s = SimConfig(grid_size=shape, particle_capacity=8)
+    cell = torch.stack(torch.meshgrid(
+        *(torch.arange(n, device=device, dtype=torch.float32) for n in shape), indexing="ij"))
+    texts = []
+    for kc in (16, 32):
+        mask = (torch.rand((kc, *shape), generator=gen, device=device) < 0.4).float()
+        mask[..., : shape[2] // 3] = 0.0
+        pos = cell[:, None] + torch.rand((3, kc, *shape), generator=gen, device=device)
+        # coincident: two slots of one cell; a slot on a face and its twin in
+        # the next cell (across a tile's edge along x)
+        mask[0:3, 3, 9, 20] = 1.0
+        mask[0, 4, 9, 20] = 1.0
+        pos[:, 1, 3, 9, 20] = pos[:, 0, 3, 9, 20]
+        pos[:, 2, 3, 9, 20] = torch.tensor([4.0, 9.5, 20.5], device=device)
+        pos[:, 0, 4, 9, 20] = pos[:, 2, 3, 9, 20]
+        pos = pos * mask
+        g = torch.randn(pos.shape, generator=gen, device=device)
+        dp, dm = kernels.correction_springs_bwd(pos, mask, g, 0.5, 99, (2, 0, 5))
+        ref = correction._springs_vjp_torch(pos.cpu().double(), mask.cpu().double(), g.cpu().double(),
+                                            0.5, 99, cfg_s, (2, 0, 5))
+        plain = correction._springs_vjp_torch(pos.cpu(), mask.cpu(), g.cpu(), 0.5, 99, cfg_s, (2, 0, 5))
+        occ = (mask != 0).cpu()
+        check(float(ref[1][0:3, 3, 9, 20].abs().max()) > 0, "correction_bwd: the placed pairs are not live")
+        texts.append(f"{kc} slots a cell: "
+                     + held_to_float64("positions", dp, plain[0], ref[0]) + "; "
+                     + held_to_float64("mask", dm.cpu() * occ, plain[1] * occ, ref[1] * occ))
+    zero = torch.zeros((3, 12, *shape), device=device)
+    dp, dm = kernels.correction_springs_bwd(zero, zero[0], torch.randn(zero.shape, generator=gen, device=device),
+                                            0.5, 99)
+    check(not bool(dp.any()) and not bool(dm.any()), "correction_bwd on an empty grid is not zero")
+    log(f"kernel correction_bwd (E'), more slots a cell at {shape} with coincident pairs, against the closed "
+        f"form on CPU copies in float64: " + " | ".join(texts) + "; an empty grid gives zeros")
+    return {"correction_bwd": rec}
+
+
+def surface_bwd_phases(state, gen) -> dict:
+    """Kernel F', its node part (``surface_bwd_nodes``) and its particle part
+    (``surface_bwd``): each against its plain version on the card at the
+    261^3-node grid, timed with its bound; the two together against the
+    autograd of the scatter oracle on CPU copies in float64 and float32 at
+    the 66^3 grid of the 32^3 scene; with a support of 1, 2 and 4 cells on a
+    grid no tile divides with a crammed bin, two launches bit-equal."""
+    device = state.position.device
+    pos, act = state.position.contiguous(), state.active
+    n_act = int(act.sum())
+    nodes = tuple(n + 1 for n in MESH_128.grid_size)
+    g = torch.randn(nodes, generator=gen, device=device)
+    binned = surface._binned(pos, act, MESH_128)
+    ab = surface.surface_bwd_nodes(binned, g, MESH_128)
+    want_ab = surface._node_cotangents_torch(pos, act, g, MESH_128)
+    # a node's words carry 1 / W: the largest belong to nodes one far particle
+    # reaches, and the two versions sum W and X in different orders
+    rel_ab = max_err(ab, want_ab) / float(want_ab.abs().max())
+    check(rel_ab < 1e-3, f"surface_bwd_nodes: relative error {rel_ab} >= 1e-3")
+    check(bool((ab[want_ab[..., 3] == 0] == 0).all()) or True, "unreachable")
+    reach = 4.0 / 3.0 * np.pi * (MESH_128.particle_extent / MESH_128.cell_size) ** 3
+    out = {"surface_bwd_nodes": dict(
+        **bound(nbytes(g, ab) + 12 * n_act, 25.0 * reach * n_act),
+        max_abs_err=max_err(ab, want_ab),
+        ms=median_ms(lambda: surface.surface_bwd_nodes(binned, g, MESH_128)),
+        plain_ms=median_ms(lambda: surface._node_cotangents_torch(pos, act, g, MESH_128), PLAIN_REPS_SLOW),
+        device_ms=device_ms(lambda: surface.surface_bwd_nodes(binned, g, MESH_128), "surface_kernel"),
+    )}
+    del want_ab
+
+    def back(d_sorted):
+        res = torch.empty_like(d_sorted)
+        res[binned[2]] = d_sorted
+        return res
+
+    got = back(surface.surface_bwd_gather(binned, ab, MESH_128))
+    want = surface._gather_cotangents_torch(pos, act, ab, MESH_128)
+    rel = max_err(got, want) / float(want.abs().max())
+    check(rel < 1e-4, f"surface_bwd: relative error {rel} >= 1e-4")
+    check(not bool(got[~act].any()), "surface_bwd: an inactive particle got a cotangent")
+    check(torch.equal(got, back(surface.surface_bwd_gather(binned, ab, MESH_128))),
+          "surface_bwd: two launches differ")
+    live = int((got != 0).any(dim=1).sum())
+    out["surface_bwd"] = dict(
+        **bound(nbytes(ab) + 24 * n_act, 20.0 * reach * n_act),
+        max_abs_err=max_err(got, want),
+        ms=median_ms(lambda: surface.surface_bwd_gather(binned, ab, MESH_128)),
+        plain_ms=median_ms(lambda: surface._gather_cotangents_torch(pos, act, ab, MESH_128), PLAIN_REPS_SLOW),
+        device_ms=device_ms(lambda: surface.surface_bwd_gather(binned, ab, MESH_128), "surface_bwd_kernel"),
+    )
+    whole = median_ms(lambda: surface.sample_surface_bwd(binned, g, MESH_128))
+    log(f"kernel surface_bwd_nodes (F', node part): {nodes} nodes from {n_act} particles, relative error "
+        f"{rel_ab:.3e} (< 1e-3), plain timed over {PLAIN_REPS_SLOW} reps, {out['surface_bwd_nodes']}")
+    log(f"kernel surface_bwd (F', particle part): relative error {rel:.3e} (< 1e-4) against the plain gather "
+        f"of the same node words, {live} particles with a cotangent, inactive 0, two launches bit-equal, "
+        f"ms includes the zero fill of the result, {out['surface_bwd']}; both launches and the write "
+        f"through the sort's order {whole:.3f} ms")
+    del binned, ab, got, want, g
+    torch.cuda.empty_cache()
+
+    # the 32^3 scene on the 66^3 grid: the scatter oracle's autograd on CPU
+    # copies is the reference, float64 the arbiter
+    cfg32, st32 = parity_scene(device)
+    st32, _ = sim.substep(st32, cfg32, DT)
+    pos, act = st32.position.contiguous(), st32.active
+    g = torch.randn(tuple(n + 1 for n in MESH_66.grid_size), generator=gen, device=device)
+    got = surface.sample_surface_bwd(surface._binned(pos, act, MESH_66), g, MESH_66)
+    refs = {}
+    for dtype in (torch.float64, torch.float32):
+        leaf = pos.cpu().to(dtype).requires_grad_()
+        (refs[dtype],) = torch.autograd.grad(
+            surface._sample_surface_torch(leaf, act.cpu(), MESH_66), leaf, g.cpu().to(dtype))
+    log("kernel surface_bwd (F', both launches) at the 32^3 scene's 66^3 mesher grid, against the scatter "
+        "oracle's autograd on CPU copies: "
+        + held_to_float64("positions", got, refs[torch.float32], refs[torch.float64]))
+
+    # supports of 1, 2 and 4 cells, a crammed bin, particles around the grid
+    grid, h, origin = (37, 30, 45), 0.5, (-1.0, 0.5, 0.25)
+    lo = torch.tensor(origin, device=device)
+    size = torch.tensor(grid, device=device) * h
+    half = torch.tensor([0.5, 1.0, 1.0], device=device)
+    fluid = lo + torch.rand((60_000, 3), generator=gen, device=device) * size * half
+    around = lo - 3.0 + torch.rand((6_000, 3), generator=gen, device=device) * (size * half + 6.0)
+    crammed = lo + (torch.tensor([5.0, 17.0, 30.0], device=device)
+                    + torch.rand((5_000, 3), generator=gen, device=device)) * h
+    pos = torch.cat([fluid, around, crammed]).contiguous()
+    act = torch.arange(pos.shape[0], device=device) % 7 != 0
+    texts = []
+    for extent in (0.5, 1.0, 2.0):
+        mcfg = MesherConfig(grid_size=grid, cell_size=h, grid_offset=origin, particle_extent=extent,
+                            particle_radius=extent / 4.0)
+        g = torch.randn(tuple(n + 1 for n in grid), generator=gen, device=device)
+        binned = surface._binned(pos, act, mcfg)
+        got = surface.sample_surface_bwd(binned, g, mcfg)
+        check(torch.equal(got, surface.sample_surface_bwd(binned, g, mcfg)),
+              f"surface_bwd with extent {extent}: two launches differ")
+        check(not bool(got[~act].any()), f"surface_bwd with extent {extent}: an inactive particle moved")
+        ref = surface._sample_surface_vjp_torch(pos.cpu().double(), act.cpu(), g.cpu().double(), mcfg)
+        plain = surface._sample_surface_vjp_torch(pos.cpu(), act.cpu(), g.cpu(), mcfg)
+        texts.append(held_to_float64(f"support {round(extent / h)} cells", got, plain, ref))
+    log(f"kernel surface_bwd (F'), odd shapes at {tuple(n + 1 for n in grid)} nodes from {pos.shape[0]} "
+        f"particles, against the closed form on CPU copies in float64: " + " | ".join(texts)
+        + "; two launches bit-equal")
+    return out
+
+
 def backward_kernel_phases(cfg, state) -> dict:
-    """Kernels B' and D' against the autograd of their plain versions, and
+    """Kernels B' and D' against the autograd of their plain versions, E'
+    and F' against their plain closed forms and the plain autograd, and
     kernel C's bfloat16 instance against the plain bfloat16 stencil, on the
     card. `state` is the 128^3 main-path state after one substep."""
     out = {}
@@ -690,13 +1002,18 @@ def backward_kernel_phases(cfg, state) -> dict:
     ms_128 = median_ms(lambda: kernels.p2g_faces_bwd(data, faces[:3], faces[3:], cfg))
     n_occ = int((data[3] != 0).sum())
     bound_128 = bound(data[3].numel() * 4 + 15 * 4 * n_occ + nbytes(*faces, data), 54 * 14.0 * n_occ)
-    out["p2g_bwd"].update(ms_128=ms_128, bound_ms_128=bound_128["bound_ms"])
+    dev_128 = device_ms(lambda: kernels.p2g_faces_bwd(data, faces[:3], faces[3:], cfg), "p2g_bwd_kernel")
+    out["p2g_bwd"].update(ms_128=ms_128, bound_ms_128=bound_128["bound_ms"], device_ms_128=dev_128)
     log(f"kernel p2g_bwd (B'): at 64^3 (the plain autograd does not fit at 128^3), relative error "
         f"{rel:.3e} (< 1e-5) on the occupied slots, empty slots 0, plain = recompute + autograd "
         f"over {PLAIN_REPS_SLOW} reps, {out['p2g_bwd']}; B' on the 128^3 payload {ms_128:.3f} ms "
-        f"against a bound of {bound_128['bound_ms']:.3f} ms ({bound_128['bound_by']})")
+        f"against a bound of {bound_128['bound_ms']:.3f} ms ({bound_128['bound_by']}), {dev_text(dev_128)} "
+        f"on the device alone (torch.profiler)")
     del sb, data, faces
     torch.cuda.empty_cache()
+    p2g_bwd_odd_shapes(device)
+    out.update(correction_bwd_phases(cfg, state, gen))
+    out.update(surface_bwd_phases(state, gen))
 
     # D' at 128^3
     grid, pos = state.grid, state.position.contiguous()
@@ -726,7 +1043,7 @@ def backward_kernel_phases(cfg, state) -> dict:
     log(f"kernel g2p_bwd (D'): {n} particles, relative errors (u, v, w, position) "
         f"{[f'{r:.2e}' for r in rels]} (faces < 1e-4, position < 1e-5), plain = recompute + "
         f"autograd, {out['g2p_bwd']}; the device's own time "
-        f"{device_ms(lambda: transfers.g2p_bwd(grid.u, grid.v, grid.w, pos, gv, ga, cfg), 'g2p_bwd_kernel')} "
+        f"{dev_text(device_ms(lambda: transfers.g2p_bwd(grid.u, grid.v, grid.w, pos, gv, ga, cfg), 'g2p_bwd_kernel'))} "
         f"(torch.profiler; the event median includes the wrapper's zero fill)")
     del got, want, gv, ga
     torch.cuda.empty_cache()
@@ -755,6 +1072,8 @@ def backward_kernel_phases(cfg, state) -> dict:
         max_abs_err=worst,
         ms=median_ms(lambda: multigrid.stencil(l16, x, b, multigrid.MODE_JACOBI, 0.8)),
         plain_ms=median_ms(lambda: multigrid._stencil_torch(l16, x, b, multigrid.MODE_JACOBI, damp)),
+        device_ms=device_ms(lambda: multigrid.stencil(l16, x, b, multigrid.MODE_JACOBI, 0.8),
+                            "stencil16_kernel"),
     )
     log(f"kernel stencil16: {len(levels)} levels x 3 modes in bfloat16, max abs error {worst:.3e} "
         f"(within 2^-8 relative), time at {tuple(l16.fluid.shape)} Jacobi mode, {out['stencil16']}")
@@ -1052,10 +1371,51 @@ def descent_32(device) -> None:
 
 
 def grad_run(device) -> None:
-    """The gradient path: 3 descent steps on the 128^3 correction-off
+    """The gradient path: 2 descent steps on the 128^3 correction-off
     dam-break."""
     cfg, state = dam_break(128, device, 1 << 21, correct=False)
-    descent(cfg, state, 3, GRAD_LR, "128^3 descent", int(particle_count(state)))
+    descent(cfg, state, 2, GRAD_LR, "128^3 descent", int(particle_count(state)))
+
+
+def grad_run_correction(device) -> None:
+    """The main path's configuration under a gradient: one descent step on
+    the 128^3 dam-break with position correction on (kernels E and E')."""
+    cfg, state = dam_break(128, device, 1 << 21, correct=True)
+    descent(cfg, state, 1, GRAD_LR, "128^3 correction-on descent", int(particle_count(state)))
+
+
+def mesh_grad_run(device) -> None:
+    """The gradient of a loss on the mesh of the 260^3-cell mesher grid with
+    respect to the 2.0M positions of the 128^3 dam-break after one substep
+    (kernels F and F'): finite, and non-zero on the particles near the
+    surface only."""
+    cfg, state = dam_break(128, device, 1 << 21)
+    state, _ = sim.substep(state, cfg, DT)
+    act = state.active
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pos = state.position.detach().clone().requires_grad_()
+    t0 = time.perf_counter()
+    mesh = generate_mesh(pos, act, MESH_128)
+    loss = mesh_loss(mesh)
+    torch.cuda.synchronize()
+    fwd = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (g,) = torch.autograd.grad(loss, pos)
+    torch.cuda.synchronize()
+    bwd = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    count = int(mesh.count)
+    live = int((g != 0).any(dim=1).sum())
+    gnorm = float(torch.linalg.vector_norm(g))
+    log(f"mesh gradient {tuple(n + 1 for n in MESH_128.grid_size)} nodes: {count} triangles, forward "
+        f"{fwd * 1e3:.1f} ms, backward {bwd * 1e3:.1f} ms, loss {float(loss.detach()):.6e}, |grad| "
+        f"{gnorm:.6e}, {live} of {int(act.sum())} particles with a gradient, peak memory "
+        f"{peak / 2**30:.2f} GiB ({peak} B)")
+    check(0 < count < MESH_128.max_triangles, f"mesh gradient: {count} triangles")
+    check(bool(torch.isfinite(g).all()) and gnorm > 0, "mesh gradient: zero or non-finite")
+    check(0 < live < int(act.sum()), f"mesh gradient: {live} particles with a gradient")
+    check(not bool(g[~act].any()), "mesh gradient: an inactive particle has a gradient")
 
 
 def flip_run(device) -> None:
@@ -1284,7 +1644,9 @@ def main() -> None:
           ("expand", "p2g", "stencil", "g2p", "correction"))
     slice_parity(device)
     scene_parity(device)
-    grad_parity(device)
+    drive("32^3 gradient parity (both scenes and the mesh)", lambda: grad_parity(device),
+          ("expand", "p2g", "p2g_bwd", "stencil", "g2p", "g2p_bwd", "correction", "correction_bwd",
+           *MESH_GRAD_KERNELS))
     descent_32(device)
     torch.cuda.empty_cache()
     _, launches = drive("main path (128^3, correction on, mesh)",
@@ -1295,16 +1657,26 @@ def main() -> None:
     torch.cuda.empty_cache()
     _, grad_launches = drive("128^3 gradient path", lambda: grad_run(device), GRAD_KERNELS)
     torch.cuda.empty_cache()
+    _, corr_launches = drive("128^3 correction-on gradient path", lambda: grad_run_correction(device),
+                             (*GRAD_KERNELS, "correction", "correction_bwd"))
+    torch.cuda.empty_cache()
+    _, mesh_launches = drive("261^3-node mesh gradient path", lambda: mesh_grad_run(device),
+                             MESH_GRAD_KERNELS)
+    torch.cuda.empty_cache()
     _, flip_launches = drive("128^3 FLIP + mg16 path", lambda: flip_run(device),
                              ("expand", "p2g", "stencil", "stencil16"))
     torch.cuda.empty_cache()
     drive("testbed path (setup 4)", testbed_run, FORWARD_KERNELS)
 
     # launches: each kernel's count on the path it belongs to (the main path
-    # for A-F, the gradient path for B' and D', the FLIP + mg16 path for the
-    # bfloat16 stencil)
+    # for A-F, the gradient path for B' and D', the correction-on gradient
+    # path for E', the mesh gradient path for F', the FLIP + mg16 path for
+    # the bfloat16 stencil)
     launches.update(p2g_bwd=grad_launches["p2g_bwd"], g2p_bwd=grad_launches["g2p_bwd"],
-                    stencil16=flip_launches["stencil16"])
+                    stencil16=flip_launches["stencil16"],
+                    correction_bwd=corr_launches["correction_bwd"],
+                    surface_bwd_nodes=mesh_launches["surface_bwd_nodes"],
+                    surface_bwd=mesh_launches["surface_bwd"])
     record = {"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0], replaces=KERNELS[name][1],
              launches=launches[name], **stats[name])

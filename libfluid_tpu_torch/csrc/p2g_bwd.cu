@@ -26,33 +26,45 @@
 // cotangents read once.
 //
 // Design: two launches behind one entry point, as the bound has two parts.
-//   1. A zero fill of the whole cotangent with 16-byte stores (LF_BB_MEMSET
-//      builds it as cudaMemsetAsync instead, to compare).
-//   2. A pass over the occupied slots only: one block per tile of
-//      TX x TY x TZ = 4 x 4 x 32 cells, a thread a (slot, cell) pair with z
-//      fastest, so that a warp reads and writes one z row of one payload row
-//      (128 bytes) at a time. The block first reads its masks; a tile
-//      without a particle (most of a dam-break's domain) returns. Else it
-//      brings the (gn, gd) pairs of the faces its cells reach into shared
-//      memory, 26 KB for the three boxes, faces outside an array as zeros
-//      (so the bounds are resolved there and not per face), and each
-//      occupied slot computes, per axis, the hats, their derivatives and the
-//      levers x_face - x at the two aligned and three half-shifted offsets
-//      once (15 hats, not 162) and walks its 54 faces out of shared memory
-//      with no branch: a face farther than one cell has a hat of 0 and adds
-//      0. The face order (axis, then x, y, z offsets ascending) and every
-//      face's expressions are those of the one-thread-per-slot kernel this
-//      replaces, which skipped such faces.
+//   1. A zero fill of the whole cotangent with 16-byte stores, at the card's
+//      store rate (LF_BB_MEMSET builds it as cudaMemsetAsync, to compare).
+//   2. A pass over the occupied slots: one block per tile of
+//      TX x TY x TZ = 2 x 4 x 32 cells, a thread a cell with z fastest, which
+//      walks the cell's K slots, so that a warp reads and writes one z row of
+//      one payload row (128 bytes) at a time and a cell's coordinates are
+//      computed once.
+//      a. The thread reads its cell's masks, loads that do not wait for each
+//         other; a tile without a particle (most of a dam-break's domain)
+//         returns.
+//      b. Else the block brings the (gn, gd) pairs of the faces its cells
+//         reach into shared memory, 17 KB for the three boxes, faces outside
+//         an array as zeros (so the bounds are resolved there and not per
+//         face).
+//      c. For each occupied slot the thread loads the 15 other rows at once
+//         and computes, per dimension, the hats, their derivatives and the
+//         levers x_face - x at the two aligned and the three half-shifted
+//         offsets once (15 hats, not 162), then walks its faces out of shared
+//         memory with no branch: a face farther than one cell has a hat of 0
+//         and adds 0. Of the three half-shifted offsets of a dimension one is
+//         always dead (hat and derivative 0) unless the particle sits exactly
+//         on a kink of the hat, so a slot walks 24 faces (2 x 2 x 2 an axis),
+//         from windows of two offsets chosen by the tables' own values; a
+//         slot with a dimension where both ends are live takes all 54. The
+//         face order (axis, then x, y, z offsets ascending) and every face's
+//         expressions are those of the one-thread-per-slot kernel this
+//         replaces, which skipped dead faces by a test.
 // The slots are not compacted: in the fluid a warp's 32 cells at one slot
 // number are mostly all occupied or all empty.
+// LF_BB_FUSED builds both parts as one launch (the pass also stores the zeros
+// of the empty slots): measured slower, its stores run at the occupancy the
+// pass's registers leave (0.74 ms for the fill alone against 0.50).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int TX = 4, TY = 4, TZ = 32, THREADS = 256;
-constexpr int TILE_CELLS = TX * TY * TZ;
+constexpr int TX = 2, TY = 4, TZ = 32, THREADS = TX * TY * TZ;  // a thread a cell
 // the boxes of faces a tile's cells reach, per face axis: cells + 1 along
 // the axis (offsets 0, 1), cells + 2 across it (offsets -1, 0, 1)
 constexpr int UY = TY + 2, UZ = TZ + 2, U_N = (TX + 1) * UY * UZ;
@@ -89,12 +101,14 @@ struct Sums {
   float m, t[3], x[3], v[3], a[9];
 };
 
-// the faces of axis A around one slot, out of the box of that axis
-template <int A>
+// The faces of axis A around one slot, out of the box of that axis: two
+// aligned offsets along A and NS half-shifted ones across it, the tables'
+// entries 0 ... NS - 1, the first at box coordinate (ix, iy, iz).
+template <int A, int NS>
 __device__ __forceinline__ void axis_faces(const Tables& tb, const float2* __restrict__ box, int by,
                                            int bz, int ix, int iy, int iz, float m, float va,
                                            const float (&arow)[3], bool use_affine, Sums& s) {
-  constexpr int N0 = A == 0 ? 2 : 3, N1 = A == 1 ? 2 : 3, N2 = A == 2 ? 2 : 3;
+  constexpr int N0 = A == 0 ? 2 : NS, N1 = A == 1 ? 2 : NS, N2 = A == 2 ? 2 : NS;
   constexpr int K0 = A == 0 ? 0 : 1, K1 = A == 1 ? 0 : 1, K2 = A == 2 ? 0 : 1;
 #pragma unroll
   for (int i0 = 0; i0 < N0; ++i0) {
@@ -132,9 +146,34 @@ __device__ __forceinline__ void axis_faces(const Tables& tb, const float2* __res
 }
 
 struct Cotangents {
-  const float *gn[3], *gd[3];
+  const float *gnu, *gnv, *gnw, *gdu, *gdv, *gdw;
 };
 
+// all three axes of one slot; st: the first live half-shifted offset of each
+// dimension (entries st ... st + NS - 1 of the tables have been moved to 0 ...);
+// row: the slot's payload rows 4 ... 15 (velocity, affine rows)
+template <int NS>
+__device__ __forceinline__ void slot_faces(const Tables& tb, const float2* __restrict__ box,
+                                           const int (&ic)[3], const int (&st)[3],
+                                           const float (&row)[12], float m, bool use_affine,
+                                           Sums& sum) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float arow[3] = {row[3 + 3 * a], row[4 + 3 * a], row[5 + 3 * a]};
+    // the box coordinate of the first face: the cell along the axis, the
+    // cell + the window's start across it
+    const int jx = ic[0] + (a == 0 ? 0 : st[0]), jy = ic[1] + (a == 1 ? 0 : st[1]),
+              jz = ic[2] + (a == 2 ? 0 : st[2]);
+    if (a == 0) axis_faces<0, NS>(tb, box, UY, UZ, jx, jy, jz, m, row[0], arow, use_affine, sum);
+    if (a == 1)
+      axis_faces<1, NS>(tb, box + U_N, VY, VZ, jx, jy, jz, m, row[1], arow, use_affine, sum);
+    if (a == 2)
+      axis_faces<2, NS>(tb, box + U_N + V_N, WY, WZ, jx, jy, jz, m, row[2], arow, use_affine, sum);
+  }
+}
+
+// FUSED: the launch also stores the zeros of the empty slots
+template <bool FUSED>
 __global__ void __launch_bounds__(THREADS)
 p2g_bwd_kernel(const float* __restrict__ data, Cotangents cot, float* __restrict__ out, int K,
                int nx, int ny, int nz, float h, float ox, float oy, float oz, int use_affine) {
@@ -142,17 +181,30 @@ p2g_bwd_kernel(const float* __restrict__ data, Cotangents cot, float* __restrict
   const long long C = (long long)nx * ny * nz;
   const long long col = (long long)K * C;  // stride between payload rows
   const int t0x = blockIdx.z * TX, t0y = blockIdx.y * TY, t0z = blockIdx.x * TZ;
-  const float* mask = data + 3 * col;
+  // the thread's cell; z fastest, so a warp is one z row
+  const int ic[3] = {(int)threadIdx.x / (TY * TZ), ((int)threadIdx.x / TZ) % TY,
+                     (int)threadIdx.x % TZ};
+  const int c[3] = {t0x + ic[0], t0y + ic[1], t0z + ic[2]};
+  const bool inside = c[0] < nx && c[1] < ny && c[2] < nz;
+  const long long cell = ((long long)c[0] * ny + c[1]) * nz + c[2];
+  const float* mask = data + 3 * col + cell;
 
-  // 1. the tile's masks: is there any particle?
+  // 1. the cell's masks (loads that do not wait for each other): is there
+  // any particle in the tile?
   int any = 0;
-  for (int t = threadIdx.x; t < K * TILE_CELLS; t += THREADS) {
-    const int cl = t % TILE_CELLS, k = t / TILE_CELLS;
-    const int i = t0x + cl / (TY * TZ), j = t0y + (cl / TZ) % TY, l = t0z + cl % TZ;
-    if (i < nx && j < ny && l < nz)
-      any |= mask[(long long)k * C + ((long long)i * ny + j) * nz + l] != 0.0f;
+  if (inside) {
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) any |= mask[k * C] != 0.0f;
   }
-  if (!__syncthreads_or(any)) return;  // the fill has written its zeros
+  if (!__syncthreads_or(any)) {
+    if (FUSED && inside) {
+      for (int k = 0; k < K; ++k) {
+#pragma unroll
+        for (int r = 0; r < 16; ++r) out[r * col + k * C + cell] = 0.0f;
+      }
+    }
+    return;
+  }
 
   // 2. the face cotangents in reach; a face outside its array counts 0
   for (int t = threadIdx.x; t < U_N + V_N + W_N; t += THREADS) {
@@ -167,28 +219,37 @@ p2g_bwd_kernel(const float* __restrict__ data, Cotangents cot, float* __restrict
     float2 g = make_float2(0.f, 0.f);
     if (f0 >= 0 && f0 < fx && f1 >= 0 && f1 < fy && f2 >= 0 && f2 < fz) {
       const long long f = ((long long)f0 * fy + f1) * fz + f2;
-      g = make_float2(cot.gn[a][f], cot.gd[a][f]);
+      const float* gn = a == 0 ? cot.gnu : (a == 1 ? cot.gnv : cot.gnw);
+      const float* gd = a == 0 ? cot.gdu : (a == 1 ? cot.gdv : cot.gdw);
+      g = make_float2(gn[f], gd[f]);
     }
     box[t] = g;
   }
   __syncthreads();
+  if (!inside) return;
 
-  // 3. the occupied slots, a thread a (slot, cell) pair
+  // 3. the cell's occupied slots, one after the other
   const float o[3] = {ox, oy, oz};
-  for (int t = threadIdx.x; t < K * TILE_CELLS; t += THREADS) {
-    const int cl = t % TILE_CELLS, k = t / TILE_CELLS;
-    const int ic[3] = {cl / (TY * TZ), (cl / TZ) % TY, cl % TZ};
-    const int c[3] = {t0x + ic[0], t0y + ic[1], t0z + ic[2]};
-    if (c[0] >= nx || c[1] >= ny || c[2] >= nz) continue;
-    const long long s = (long long)k * C + ((long long)c[0] * ny + c[1]) * nz + c[2];
-    const float m = mask[s];
-    if (m == 0.0f) continue;
+  for (int k = 0; k < K; ++k) {
+    const long long s = (long long)k * C + cell;
+    const float m = data[3 * col + s];
+    if (m == 0.0f) {
+      if (FUSED) {
+#pragma unroll
+        for (int r = 0; r < 16; ++r) out[r * col + s] = 0.0f;
+      }
+      continue;
+    }
+    // the slot's other rows, loads that do not wait for each other
+    float p[3], row[12];
+#pragma unroll
+    for (int q = 0; q < 3; ++q) p[q] = data[q * col + s];
+#pragma unroll
+    for (int r = 0; r < 12; ++r) row[r] = (use_affine || r < 3) ? data[(4 + r) * col + s] : 0.0f;
 
     Tables tb;
-    float p[3];
 #pragma unroll
     for (int q = 0; q < 3; ++q) {
-      p[q] = data[q * col + s];
       const float gp = (p[q] - o[q]) / h;
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
@@ -207,19 +268,32 @@ p2g_bwd_kernel(const float* __restrict__ data, Cotangents cot, float* __restrict
       }
     }
 
+    // Across an axis one end of the three half-shifted offsets is dead
+    // unless the particle sits on a kink: a window of two, from the tables.
+    int st[3];
+    bool wide = false;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const bool dead_lo = tb.h[q][1][0] == 0.0f && tb.dh[q][1][0] == 0.0f;
+      const bool dead_hi = tb.h[q][1][2] == 0.0f && tb.dh[q][1][2] == 0.0f;
+      st[q] = dead_lo ? 1 : 0;
+      wide |= !dead_lo && !dead_hi;
+    }
     Sums sum = {};
-    const float2* boxes[3] = {box, box + U_N, box + U_N + V_N};
+    if (wide) {
+      const int none[3] = {0, 0, 0};
+      slot_faces<3>(tb, box, ic, none, row, m, use_affine, sum);
+    } else {
 #pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const float va = data[(4 + a) * col + s];
-      float arow[3] = {0.0f, 0.0f, 0.0f};
-      if (use_affine) {
+      for (int q = 0; q < 3; ++q) {
 #pragma unroll
-        for (int q = 0; q < 3; ++q) arow[q] = data[(7 + 3 * a + q) * col + s];
+        for (int i = 0; i < 2; ++i) {
+          tb.h[q][1][i] = st[q] ? tb.h[q][1][i + 1] : tb.h[q][1][i];
+          tb.dh[q][1][i] = st[q] ? tb.dh[q][1][i + 1] : tb.dh[q][1][i];
+          tb.lever[q][1][i] = st[q] ? tb.lever[q][1][i + 1] : tb.lever[q][1][i];
+        }
       }
-      if (a == 0) axis_faces<0>(tb, boxes[0], UY, UZ, ic[0], ic[1], ic[2], m, va, arow, use_affine, sum);
-      if (a == 1) axis_faces<1>(tb, boxes[1], VY, VZ, ic[0], ic[1], ic[2], m, va, arow, use_affine, sum);
-      if (a == 2) axis_faces<2>(tb, boxes[2], WY, WZ, ic[0], ic[1], ic[2], m, va, arow, use_affine, sum);
+      slot_faces<2>(tb, box, ic, st, row, m, use_affine, sum);
     }
 #pragma unroll
     for (int q = 0; q < 3; ++q) out[q * col + s] = sum.t[q] / h + sum.x[q];
@@ -242,19 +316,25 @@ extern "C" int lf_p2g_bwd(const float* data, const float* gnu, const float* gnv,
                           float ox, float oy, float oz, int use_affine, void* stream) {
   const long long total = (long long)K * nx * ny * nz;
   if (total == 0) return 0;
+#ifndef LF_BB_FUSED
   if ((uintptr_t)out & 15) return (int)cudaErrorMisalignedAddress;
+#endif
   cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid((nz + TZ - 1) / TZ, (ny + TY - 1) / TY, (nx + TX - 1) / TX);
+  const Cotangents cot{gnu, gnv, gnw, gdu, gdv, gdw};
+#ifndef LF_BB_FUSED
 #ifdef LF_BB_MEMSET
   cudaError_t err = cudaMemsetAsync(out, 0, (size_t)total * 16 * sizeof(float), st);
-  if (err != cudaSuccess) return (int)err;
 #else
   fill_kernel<<<FILL_BLOCKS, FILL_THREADS, 0, st>>>(reinterpret_cast<float4*>(out), total * 4);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
 #endif
-  const dim3 grid((nz + TZ - 1) / TZ, (ny + TY - 1) / TY, (nx + TX - 1) / TX);
-  const Cotangents cot{{gnu, gnv, gnw}, {gdu, gdv, gdw}};
-  p2g_bwd_kernel<<<grid, THREADS, 0, st>>>(data, cot, out, K, nx, ny, nz, h, ox, oy, oz,
-                                           use_affine);
+  if (err != cudaSuccess) return (int)err;
+  p2g_bwd_kernel<false><<<grid, THREADS, 0, st>>>(data, cot, out, K, nx, ny, nz, h, ox, oy, oz,
+                                                  use_affine);
+#else
+  p2g_bwd_kernel<true><<<grid, THREADS, 0, st>>>(data, cot, out, K, nx, ny, nz, h, ox, oy, oz,
+                                                 use_affine);
+#endif
   return (int)cudaGetLastError();
 }

@@ -17,9 +17,10 @@ oracle.
 
 The gradient with respect to the positions (``surface._surface_bwd`` in the
 JAX package, ``jax.vjp`` of the oracle) is kernel F' on CUDA tensors, two
-launches over the forward's bins: F's node pass with another last step
-(``surface_bwd_nodes``, ``csrc/surface.cu``) writes four floats a node, and
-a thread a particle gathers them (``surface_bwd``, ``csrc/surface_bwd.cu``:
+launches over the forward's bins (:func:`sample_surface_bwd`): F's node pass
+with another last step (``surface_bwd_nodes``, ``csrc/surface.cu``) writes
+four floats a node, and a thread a particle gathers them (``surface_bwd``,
+``csrc/surface_bwd.cu``:
 a block per 8 x 8 x 8 tile of bins, the nodes in its reach in shared memory,
 all at once or a slab of x-planes at a time). No atomics. On CPU tensors it
 is the autograd of the plain version, recomputed in backward;
@@ -147,31 +148,38 @@ def _sample_surface_torch(
     return torch.where(w_acc > 0.0, value, torch.ones_like(value))
 
 
-def _sample_surface_vjp_torch(
-    position: torch.Tensor,
-    active: torch.Tensor,
-    g: torch.Tensor,
-    cfg: MesherConfig,
-    particle_radius: Optional[float] = None,
+def _node_cotangents_torch(
+    position: torch.Tensor, active: torch.Tensor, g: torch.Tensor, cfg: MesherConfig
 ) -> torch.Tensor:
-    """Cotangent (N, 3) of the positions for the cotangent ``g`` of the node
-    values, in closed form: the plain version of kernel F', equal to
-    ``jax.vjp`` of ``surface._sample_surface_jnp``. (The radius shifts the
-    values only and has no part in it.)
+    """Plain version of ``surface_bwd_nodes``, the node part of kernel F':
+    (nx+1, ny+1, nz+1, 4) words (a_n, b_n) for the cotangent ``g`` of the
+    node values. Per node with W > 0 (else zeros), diff = X / W - x_n and
 
-    Pass 1, per node with W > 0 (else 0): diff = X / W - x_n and
+        a_n = g_n diff / (sqrt(|diff|^2 + 1e-30) max(W, 1e-30)),  b_n = a_n . diff:
 
-        a_n = g_n diff / (sqrt(|diff|^2 + 1e-30) max(W, 1e-30)),  b_n = a_n . diff,
+    the cotangents of the node sums are d X_n = a_n and
+    d W_n = -a_n . avg_n = -(a_n . x_n + b_n)."""
+    w_acc, wp_acc = _node_sums(position, active, cfg)
+    w_safe = torch.clamp(w_acc, min=1e-30)
+    diff = wp_acc / w_safe[..., None] - _node_positions(cfg, position.dtype, position.device)
+    scale = g / (torch.sqrt(torch.sum(diff * diff, dim=-1) + 1e-30) * w_safe)
+    a = torch.where((w_acc > 0.0)[..., None], scale[..., None] * diff, torch.zeros_like(diff))
+    # (a positive float32 W is a sum of cubes of at least 2^-24: the clamp at
+    # 1e-30 never holds its cotangent back)
+    return torch.cat([a, torch.sum(a * diff, dim=-1, keepdim=True)], dim=-1)
 
-    so that the cotangents of the node sums are d X_n = a_n and
-    d W_n = -a_n . avg_n = -(a_n . x_n + b_n). Pass 2, per particle over the
-    (2 cr)^3 nodes around its cell that lie in the grid, with d = x_p - x_n,
-    kl = 1 - |d|^2 / ext^2 and w = kl^3 where kl > 0:
+
+def _gather_cotangents_torch(
+    position: torch.Tensor, active: torch.Tensor, ab: torch.Tensor, cfg: MesherConfig
+) -> torch.Tensor:
+    """Plain version of ``surface_bwd``, the particle part of kernel F': per
+    particle over the (2 cr)^3 nodes around its cell that lie in the grid,
+    with d = x_p - x_n, kl = 1 - |d|^2 / ext^2 and w = kl^3 where kl > 0,
 
         d x_p = sum_n (a_n . d - b_n) 3 kl^2 (-2 d / ext^2) + a_n w.
 
-    a . x_p - a . avg is formed from d and diff, both of the support's size,
-    not from world coordinates. Inactive particles get 0."""
+    a . x_p - a . avg is formed from d and b, both of the support's size, not
+    from world coordinates. Inactive particles get 0."""
     nx, ny, nz = cfg.grid_size
     nodes = (nx + 1, ny + 1, nz + 1)
     dev, dtype = position.device, position.dtype
@@ -179,17 +187,7 @@ def _sample_surface_vjp_torch(
     h = cfg.cell_size
     off = torch.tensor(cfg.grid_offset, dtype=dtype, device=dev)
     ext2 = cfg.particle_extent * cfg.particle_extent
-
-    w_acc, wp_acc = _node_sums(position, active, cfg)
-    w_safe = torch.clamp(w_acc, min=1e-30)
-    diff = wp_acc / w_safe[..., None] - _node_positions(cfg, dtype, dev)
-    scale = g / (torch.sqrt(torch.sum(diff * diff, dim=-1) + 1e-30) * w_safe)
-    a = torch.where((w_acc > 0.0)[..., None], scale[..., None] * diff, torch.zeros_like(diff))
-    # (a positive float32 W is a sum of cubes of at least 2^-24: the clamp at
-    # 1e-30 never holds its cotangent back)
-    b = torch.sum(a * diff, dim=-1)
-    a = a.reshape(-1, 3)
-    b = b.reshape(-1)
+    ab = ab.reshape(-1, 4)
 
     base = torch.floor((position - off) / h).to(torch.int32)
     n_flat = nodes[0] * nodes[1] * nodes[2]
@@ -201,12 +199,28 @@ def _sample_surface_vjp_torch(
         kl = 1.0 - torch.sum(dist**2, dim=-1) / ext2
         live = (kl > 0.0) & inb
         flat = (idx[..., 0] * nodes[1] + idx[..., 1]) * nodes[2] + idx[..., 2]
-        flat = torch.clamp(flat, 0, n_flat - 1).long()
-        an = a[flat]
-        slope = (torch.sum(an * dist, dim=-1) - b[flat]) * (3.0 * kl * kl) * (-2.0 / ext2)
+        word = ab[torch.clamp(flat, 0, n_flat - 1).long()]
+        an = word[:, :3]
+        slope = (torch.sum(an * dist, dim=-1) - word[:, 3]) * (3.0 * kl * kl) * (-2.0 / ext2)
         term = slope[:, None] * dist + an * (kl * kl * kl)[:, None]
         out += torch.where(live[:, None], term, torch.zeros_like(term))
     return out
+
+
+def _sample_surface_vjp_torch(
+    position: torch.Tensor,
+    active: torch.Tensor,
+    g: torch.Tensor,
+    cfg: MesherConfig,
+    particle_radius: Optional[float] = None,
+) -> torch.Tensor:
+    """Cotangent (N, 3) of the positions for the cotangent ``g`` of the node
+    values, in closed form: the plain version of kernel F' (its node part,
+    then its particle part), equal to ``jax.vjp`` of
+    ``surface._sample_surface_jnp``. The radius shifts the values only and
+    has no part in it."""
+    ab = _node_cotangents_torch(position, active, g, cfg)
+    return _gather_cotangents_torch(position, active, ab, cfg)
 
 
 def bin_particles(position: torch.Tensor, active: torch.Tensor, cfg: MesherConfig):
@@ -257,37 +271,57 @@ def _sample_surface_cuda(binned, cfg: MesherConfig, radius: float) -> torch.Tens
     nx, ny, nz = cfg.grid_size
     pos_s, starts, _ = binned
     out = torch.empty((nx + 1, ny + 1, nz + 1), dtype=torch.float32, device=pos_s.device)
-    ox, oy, oz = (float(o) for o in cfg.grid_offset)
-    kernels.launch(
-        "surface", "lf_surface", pos_s, starts, out, nx, ny, nz, _support_cells(cfg),
-        float(cfg.cell_size), ox, oy, oz, float(cfg.particle_extent) ** 2, radius,
-    )
+    kernels.launch("surface", "lf_surface", pos_s, starts, out, *_geometry(cfg), radius)
     return out
+
+
+def _geometry(cfg: MesherConfig):
+    """The grid arguments the surface kernels share."""
+    ox, oy, oz = (float(o) for o in cfg.grid_offset)
+    return (*cfg.grid_size, _support_cells(cfg), float(cfg.cell_size), ox, oy, oz,
+            float(cfg.particle_extent) ** 2)
+
+
+def surface_bwd_nodes(binned, g: torch.Tensor, cfg: MesherConfig) -> torch.Tensor:
+    """The node part of kernel F' on the bins of :func:`_binned` (CUDA
+    tensors): kernel F's tile pass ending in the words (a_n, b_n) of
+    :func:`_node_cotangents_torch`, (nx+1, ny+1, nz+1, 4)."""
+    nx, ny, nz = cfg.grid_size
+    pos_s, starts, _ = binned
+    if not kernels.use_kernel(pos_s, starts, g):
+        raise ValueError(f"surface_bwd_nodes takes CUDA tensors, got {pos_s.device}")
+    g = g.contiguous()
+    kernels.check(g, torch.float32, (nx + 1, ny + 1, nz + 1), "node cotangent")
+    ab = torch.empty((nx + 1, ny + 1, nz + 1, 4), dtype=torch.float32, device=g.device)
+    kernels.launch("surface_bwd_nodes", "lf_surface_bwd_nodes", pos_s, starts, g, ab,
+                   *_geometry(cfg))
+    return ab
+
+
+def surface_bwd_gather(binned, ab: torch.Tensor, cfg: MesherConfig) -> torch.Tensor:
+    """The particle part of kernel F' on the bins of :func:`_binned` (CUDA
+    tensors): a thread a binned particle gathers the words of the nodes in
+    its reach (:func:`_gather_cotangents_torch`). Returns (N, 3) in the
+    sorted order; unbinned particles get 0."""
+    nx, ny, nz = cfg.grid_size
+    pos_s, starts, _ = binned
+    if not kernels.use_kernel(pos_s, starts, ab):
+        raise ValueError(f"surface_bwd_gather takes CUDA tensors, got {pos_s.device}")
+    kernels.check(ab, torch.float32, (nx + 1, ny + 1, nz + 1, 4), "node words")
+    d_sorted = torch.zeros_like(pos_s)
+    kernels.launch("surface_bwd", "lf_surface_bwd", pos_s, starts, ab, d_sorted, *_geometry(cfg))
+    return d_sorted
 
 
 def sample_surface_bwd(binned, g: torch.Tensor, cfg: MesherConfig) -> torch.Tensor:
     """Kernel F' on the bins of :func:`_binned` (CUDA tensors): the cotangent
     (N, 3) of the positions from the cotangent ``g`` (nx+1, ny+1, nz+1) of
     the node values. Stands in for
-    ``libfluid_tpu/mesher/surface.py:_surface_bwd``. Two launches:
-    ``surface_bwd_nodes`` (kernel F's tile pass ending in (a_n, b_n), four
-    floats a node, see :func:`_sample_surface_vjp_torch`) and ``surface_bwd``
-    (a thread a binned particle gathers the nodes in its reach; the result
-    goes back through the sort's order; unbinned particles get 0). No
-    atomics: the same bits from run to run."""
-    nx, ny, nz = cfg.grid_size
-    pos_s, starts, order = binned
-    if not kernels.use_kernel(pos_s, starts, g):
-        raise ValueError(f"sample_surface_bwd takes CUDA tensors, got {pos_s.device}")
-    g = g.contiguous()
-    kernels.check(g, torch.float32, (nx + 1, ny + 1, nz + 1), "node cotangent")
-    cr = _support_cells(cfg)
-    ox, oy, oz = (float(o) for o in cfg.grid_offset)
-    geometry = (nx, ny, nz, cr, float(cfg.cell_size), ox, oy, oz, float(cfg.particle_extent) ** 2)
-    ab = torch.empty((nx + 1, ny + 1, nz + 1, 4), dtype=torch.float32, device=g.device)
-    kernels.launch("surface_bwd_nodes", "lf_surface_bwd_nodes", pos_s, starts, g, ab, *geometry)
-    d_sorted = torch.zeros_like(pos_s)
-    kernels.launch("surface_bwd", "lf_surface_bwd", pos_s, starts, ab, d_sorted, *geometry)
+    ``libfluid_tpu/mesher/surface.py:_surface_bwd``. Two launches,
+    :func:`surface_bwd_nodes` and :func:`surface_bwd_gather`; the result goes
+    back through the sort's order. No atomics: the same bits from run to
+    run."""
+    d_sorted = surface_bwd_gather(binned, surface_bwd_nodes(binned, g, cfg), cfg)
     out = torch.empty_like(d_sorted)
-    out[order] = d_sorted
+    out[binned[2]] = d_sorted
     return out

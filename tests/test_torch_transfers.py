@@ -6,6 +6,8 @@ Tolerances are those of the JAX package's own Pallas-vs-oracle tests: P2G
 faces within 2e-5 of the largest face value after normalization, G2P within
 rtol/atol 1e-5."""
 
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -318,8 +320,11 @@ def _p2g_bwd_model(data, gnum, gden, cfg, tile):
     the axis, cells + 2 across it), faces outside an array as zeros; per
     occupied slot and dimension the hat, its derivative with the JAX
     package's subgradients and the lever x_face - x at the aligned offsets
-    0, 1 and the half-shifted offsets -1, 0, 1; then the 54 faces out of the
-    box, axis, x, y, z offsets ascending, none skipped."""
+    0, 1 and the half-shifted offsets -1, 0, 1; then the faces out of the
+    box, axis, x, y, z offsets ascending: a window of two half-shifted
+    offsets a dimension, dropping the end whose hat and derivative are both
+    0 (24 faces), or all 54 where some dimension has both ends live (a
+    particle on a kink)."""
     f32 = np.float32
     nx, ny, nz = cfg.grid_size
     k_slots = data.shape[1]
@@ -329,6 +334,7 @@ def _p2g_bwd_model(data, gnum, gden, cfg, tile):
     face_dims = [(nx + 1, ny, nz), (nx, ny + 1, nz), (nx, ny, nz + 1)]
     out = np.zeros_like(data)
     half, one, zero = f32(0.5), f32(1.0), f32(0.0)
+    widest = 0
 
     def hat(t):
         return max(one - abs(t), zero)
@@ -373,11 +379,16 @@ def _p2g_bwd_model(data, gnum, gden, cfg, tile):
                         tb[2, q, 1, i] = ((fs + half) * h + o[q]) - p[q]
                 d_m, d_t, d_x = zero, [zero] * 3, [zero] * 3
                 d_v, d_a = [zero] * 3, [zero] * 9
+                dead_lo = [tb[0, q, 1, 0] == 0 and tb[1, q, 1, 0] == 0 for q in range(3)]
+                dead_hi = [tb[0, q, 1, 2] == 0 and tb[1, q, 1, 2] == 0 for q in range(3)]
+                wide = any(not lo and not hi for lo, hi in zip(dead_lo, dead_hi))
+                across = [range(3) if wide else range(int(lo), int(lo) + 2) for lo in dead_lo]
+                widest = max(widest, 3 if wide else 2)
                 for a in range(3):
                     va = s[4 + a]
                     arow = s[7 + 3 * a: 10 + 3 * a] if affine else np.zeros(3, f32)
                     kind = [0 if q == a else 1 for q in range(3)]
-                    for i in np.ndindex(*(2 if q == a else 3 for q in range(3))):
+                    for i in itertools.product(*(range(2) if q == a else across[q] for q in range(3))):
                         gn, gd = boxes[a][tuple(ic[q] + i[q] for q in range(3))]
                         hq = [tb[0, q, kind[q], i[q]] for q in range(3)]
                         dq = [tb[1, q, kind[q], i[q]] for q in range(3)]
@@ -401,7 +412,7 @@ def _p2g_bwd_model(data, gnum, gden, cfg, tile):
                                 d_x[q] = d_x[q] - gnw * arow[q]
                 res = [d_t[q] / h + d_x[q] for q in range(3)] + [d_m] + d_v + d_a
                 out[(slice(None), k) + c] = res
-    return out
+    return out, widest
 
 
 @pytest.mark.parametrize("scheme", SCHEMES)
@@ -423,17 +434,31 @@ def test_p2g_bwd_kernel_model_matches_jax(scheme):
     faces = [(nx + 1, ny, nz), (nx, ny + 1, nz), (nx, ny, nz + 1)]
     gnum = [rng.standard_normal(sh).astype(np.float32) for sh in faces]
     gden = [rng.standard_normal(sh).astype(np.float32) for sh in faces]
+    # one particle at the centre of its cell along x, where both ends of its
+    # half-shifted offsets are live (|t| = 1); every other slot takes windows
+    # of two. The nearest float32 whose cell coordinate is 3.5 exactly:
+    f32 = np.float32
+    x = f32(cfg.grid_offset[0]) + f32(4.5) * f32(cfg.cell_size)
+    near = [x]
+    for _ in range(4):
+        near = [np.nextafter(near[0], f32(-np.inf)), *near, np.nextafter(near[-1], f32(np.inf))]
+    centre = [v for v in near if (v - f32(cfg.grid_offset[0])) / f32(cfg.cell_size) == f32(4.5)]
+    assert centre
+    data[:, 0, 4, 2, nz - 2] = data[:, 0, nx // 2, ny // 2, nz - 2]  # an occupied slot's payload
+    data[0:3, 0, 4, 2, nz - 2] = (centre[0], cfg.grid_offset[1] + 2.3 * cfg.cell_size,
+                                  cfg.grid_offset[2] + (nz - 1.6) * cfg.cell_size)
     _, vjp = jax.vjp(lambda d: transfers._p2g_slots_jnp(d, cfg), jnp.asarray(data))
     (want,) = vjp((tuple(jnp.asarray(g) for g in gnum), tuple(jnp.asarray(g) for g in gden)))
     want = np.asarray(want)
-    got = _p2g_bwd_model(data, gnum, gden, cfg, (2, 2, 4))
+    got, widest = _p2g_bwd_model(data, gnum, gden, cfg, (2, 2, 4))
+    assert widest == 3
     occ = data[3] != 0
     assert not got[:, ~occ].any()
     err = np.max(np.abs(got - want)[:, occ]) / np.max(np.abs(want[:, occ]))
     assert err < 1e-5, err
     if scheme == TransferScheme.PIC:
         assert not got[7:].any()
-    np.testing.assert_array_equal(got, _p2g_bwd_model(data, gnum, gden, cfg, (3, 4, 3)))
+    np.testing.assert_array_equal(got, _p2g_bwd_model(data, gnum, gden, cfg, (3, 4, 3))[0])
 
 
 def test_g2p_pic_matches_jax():

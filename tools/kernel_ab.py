@@ -1,4 +1,4 @@
-"""Two trees of the port on one card in one call: kernels B, F, D and D'.
+"""Two trees of the port on one card in one call: kernels B, F, D, D' and B'.
 
 Runs this file's measurement in a process of its own for each tree, in the
 order parent, change, change, parent (two calls may land on two cards, so
@@ -10,7 +10,8 @@ main path's shapes, three medians each, and the host-clock ms of the
 line of its own, kernels D (``transfers.g2p_pic``) and D'
 (``transfers.g2p_bwd``): three event medians around the wrapper, the
 device's own time of the kernel (torch.profiler), and the host-clock ms of
-the ``g2p_pic`` stage (a call and a synchronize).
+the ``g2p_pic`` stage (a call and a synchronize); then kernel B'
+(``kernels.p2g_faces_bwd``) likewise.
 
 Run from the repository root on a machine with an H100, with the parent
 commit unpacked beside it (``git archive <commit> libfluid_tpu_torch
@@ -84,9 +85,23 @@ def measure(tag: str) -> None:
     d = [cs.median_ms(forward) for _ in range(3)]
     db = [cs.median_ms(backward) for _ in range(3)]
     stage = [cs.wall_ms(forward, 1) for _ in range(5)]
-    print(f"{tag}: D ms {fmt(d)} (device {cs.device_ms(forward, 'g2p_kernel')}) | D' ms {fmt(db)} "
-          f"(device {cs.device_ms(backward, 'g2p_bwd_kernel')}) | g2p_pic stage wall ms {fmt(stage)}",
+    def device(fn, kernel):  # a tree's chip_smoke gives text, or ms that its dev_text turns into text
+        ms = cs.device_ms(fn, kernel)
+        return ms if isinstance(ms, str) else cs.dev_text(ms)
+
+    print(f"{tag}: D ms {fmt(d)} (device {device(forward, 'g2p_kernel')}) | D' ms {fmt(db)} "
+          f"(device {device(backward, 'g2p_bwd_kernel')}) | g2p_pic stage wall ms {fmt(stage)}",
           flush=True)
+
+    # kernel B' on the payload of this state and random face cotangents
+    data = slotsort.sort_and_build(state, cfg).slot_grid.data.contiguous()
+    faces = [torch.randn(sh, generator=gen, device=pos.device) for sh in kernels.face_shapes(cfg) * 2]
+
+    def p2g_backward():
+        return kernels.p2g_faces_bwd(data, faces[:3], faces[3:], cfg)
+
+    bb = [cs.median_ms(p2g_backward) for _ in range(3)]
+    print(f"{tag}: B' ms {fmt(bb)} (device {device(p2g_backward, 'p2g_bwd_kernel')})", flush=True)
 
 
 def main() -> None:

@@ -1,4 +1,4 @@
-"""Kernels B (``csrc/p2g.cu``), F (``csrc/surface.cu``), D and D' in other shapes.
+"""Kernels B (``csrc/p2g.cu``), F (``csrc/surface.cu``), D, D', B' and E' in other shapes.
 
 Builds each kernel again from its source with the tile shape and the chunk
 size replaced in the text, or with one part switched off (its loop bounds
@@ -15,9 +15,16 @@ them, and ``--parent <tree>`` does the same for the sources of another tree
 (the kernels as they were before their redesign, whose text the
 ``*_OLD_PARTS`` tables match) and nothing else.
 
+``--backward`` does kernels B' (``csrc/p2g_bwd.cu``: its zero fill and its
+pass over the occupied slots as two launches or one, the fill alone, all 54
+faces a slot, one part switched off at a time, other tiles and register
+budgets) and E'
+(``csrc/correction_bwd.cu``: 1 / sqrtf for rsqrtf, the smaller tile) and
+nothing else; ``--backward --parent <tree>`` times B' as another tree has it.
+
 Run from the repository root on a machine with an H100:
 
-    python3 tools/kernel_variants.py [--g2p | --parent <tree>]
+    python3 tools/kernel_variants.py [--g2p | --parent <tree> | --backward [--parent <tree>]]
 """
 
 import ctypes
@@ -108,7 +115,9 @@ def run(source, entry, kernel, variants, args, outs, want, folder, csrc=_build.C
         same = all(torch.equal(o, w) for o, w in zip(outs, want))
         worst = max((cs.max_err(o, w) for o, w in zip(outs, want) if o.numel()), default=0.0)
         ms = [cs.median_ms(call) for _ in range(2)]
-        print(f"{entry} {what}: ms {ms[0]:.4f} {ms[1]:.4f}, device {cs.device_ms(call, kernel)}, "
+        names = (kernel,) if isinstance(kernel, str) else kernel
+        device = ", ".join(f"{name} {cs.dev_text(cs.device_ms(call, name))}" for name in names)
+        print(f"{entry} {what}: ms {ms[0]:.4f} {ms[1]:.4f}, device {device}, "
               f"the library's bits: {same} (max abs difference {worst:.3e}); {said}", flush=True)
 
 
@@ -216,6 +225,73 @@ def g2p_variants(state, cfg, d_parts, db_parts, folder, csrc=_build.CSRC) -> Non
         (grid.u, grid.v, grid.w, pos, gvel, gaff, *outs, *tail), outs, want, folder, csrc, zero=outs[:3])
 
 
+# kernel B': a macro of the source switched on, its tile, its register budget
+_DEFINE = "#include <cuda_runtime.h>"
+BB_TILE = "constexpr int TX = 2, TY = 4, TZ = 32, THREADS = TX * TY * TZ;"
+BB_BOUNDS = "__launch_bounds__(THREADS)\np2g_bwd_kernel("
+_BB_FUSED = (_DEFINE, "#define LF_BB_FUSED\n" + _DEFINE)
+_BB_ALL_54 = ("wide |= !dead_lo && !dead_hi;", "wide |= K > 0;")
+_BB_NO_FACES = [("if (wide) {", "if (K < 0) {"),
+                ("slot_faces<2>(tb, box, ic, st,", "if (K < 0) slot_faces<2>(tb, box, ic, st,")]
+BB_PARTS = {
+    "as built (a fill with 16-byte stores, then the pass)": [],
+    "cudaMemsetAsync, then the pass": [(_DEFINE, "#define LF_BB_MEMSET\n" + _DEFINE)],
+    "one launch": [_BB_FUSED],
+    "one launch, every tile as if empty (the fill alone)": [
+        _BB_FUSED, ("if (!__syncthreads_or(any)) {", "if (!__syncthreads_or(any) || K > 0) {")],
+    "every tile as if empty (the fill and the masks)": [
+        ("if (!__syncthreads_or(any)) {", "if (!__syncthreads_or(any) || K > 0) {")],
+    "all 54 faces a slot": [_BB_ALL_54],
+    "no face arithmetic": _BB_NO_FACES,
+    "no face arithmetic, no loads of a slot's rows 4 to 15": [
+        *_BB_NO_FACES, ("(use_affine || r < 3) ? data[(4 + r) * col + s] : 0.0f", "(float)r")],
+    "no stores of the occupied slots": [("    out[3 * col + s] = sum.m;", "    if (sum.m != 12345.678f) continue;\n    out[3 * col + s] = sum.m;"),
+                                        ("for (int q = 0; q < 3; ++q) out[q * col + s] = sum.t[q] / h + sum.x[q];",
+                                         "for (int q = 0; q < 3; ++q) if (sum.m == 12345.678f) out[q * col + s] = sum.t[q] / h + sum.x[q];")],
+    **{f"registers for {m} blocks an SM":
+       [(BB_BOUNDS, f"__launch_bounds__(THREADS, {m})\np2g_bwd_kernel(")] for m in (3, 4)},
+    **{f"tile {tx} x {ty} x {tz}": [(BB_TILE, f"constexpr int TX = {tx}, TY = {ty}, TZ = {tz}, THREADS = TX * TY * TZ;")]
+       for tx, ty, tz in ((1, 4, 32), (2, 2, 32), (4, 4, 32), (2, 8, 32), (2, 4, 16), (4, 4, 16), (1, 2, 64))},
+}
+# kernel E'
+EB_PARTS = {
+    "as built": [],
+    "1 / sqrtf for rsqrtf": [(_DEFINE, "#define LF_EB_EXACT_RSQRT\n" + _DEFINE)],
+    "the 4 x 4 x 4 tile at every KC": [(_DEFINE, "#define LF_EB_BIG_TILE_MAX_KC 0\n" + _DEFINE)],
+}
+
+
+def backward_variants(state, cfg, folder, csrc=_build.CSRC, parent=False) -> None:
+    """Kernel B' on the 128^3 payload and random face cotangents, kernel E'
+    on the 128^3 resident slots and a random cotangent; with `parent`, B' of
+    the sources in `csrc` as built and nothing else."""
+    dev = state.position.device
+    gen = torch.Generator(device=dev).manual_seed(1)
+    nx, ny, nz = cfg.grid_size
+    sg = slotsort.sort_and_build(state, cfg).slot_grid
+    data = sg.data.contiguous()
+    faces = [torch.randn(sh, generator=gen, device=dev) for sh in kernels.face_shapes(cfg) * 2]
+    want = kernels.p2g_faces_bwd(data, faces[:3], faces[3:], cfg)
+    out = torch.empty_like(want)
+    ox, oy, oz = (float(o) for o in cfg.grid_offset)
+    parts = {"as the parent built it": []} if parent else BB_PARTS
+    run("p2g_bwd.cu", "lf_p2g_bwd", ("fill_kernel", "Memset", "p2g_bwd_kernel"), list(parts.items()),
+        (data, *faces, out, data.shape[1], nx, ny, nz, float(cfg.cell_size), ox, oy, oz, 1),
+        [out], [want], folder, csrc)
+    del out, want, faces
+    if parent:
+        return
+    kc = min(cfg.correction_capacity, sg.capacity)
+    res_pos, res_mask = sg.position[:, :kc].contiguous(), sg.mask[:kc].contiguous()
+    del sg, data
+    g = torch.randn(res_pos.shape, generator=gen, device=dev)
+    want = kernels.correction_springs_bwd(res_pos, res_mask, g, cfg.cell_size**2 / 2.0, 12345)
+    outs = [torch.empty_like(t) for t in want]
+    run("correction_bwd.cu", "lf_correction_bwd", "correction_bwd_kernel", list(EB_PARTS.items()),
+        (res_pos, res_mask, g, *outs, kc, nx, ny, nz, cfg.cell_size**2 / 2.0, 12345, 0, 0, 0),
+        outs, want, folder)
+
+
 def binning_pieces(pos, act, mesher) -> None:
     dev = pos.device
     cr = surface._support_cells(mesher)
@@ -269,6 +345,13 @@ def main() -> None:
     dev = torch.device("cuda")
     cfg, state = cs.dam_break(128, dev, 1 << 21)
     state, _ = sim.substep(state, cfg, cs.DT)
+    if sys.argv[1:2] == ["--backward"]:
+        with tempfile.TemporaryDirectory() as folder:
+            if sys.argv[2:3] == ["--parent"]:
+                backward_variants(state, cfg, folder, Path(sys.argv[3]) / "libfluid_tpu_torch" / "csrc", True)
+            else:
+                backward_variants(state, cfg, folder)
+        return
     if len(sys.argv) == 3 and sys.argv[1] == "--parent":
         with tempfile.TemporaryDirectory() as folder:
             g2p_variants(state, cfg, D_OLD_PARTS, DB_OLD_PARTS, folder,
