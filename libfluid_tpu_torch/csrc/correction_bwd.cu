@@ -40,34 +40,24 @@
 // Twice E's shared memory a slot: the 4 x 4 x 8 tile with 512 threads holds
 // up to BIG_TILE_MAX_KC = 18 slots a cell (360 cells x 19 x 32 B = 214 KB; at
 // the main path's KC = 12, 146 KB, one block an SM), above that a 4 x 4 x 4
-// tile with 256 threads (216 cells x 33 x 32 B = 223 KB at KC = 32).
-// 1 / sqrt(s) is rsqrtf (2 ulp), as in E; LF_EB_EXACT_RSQRT builds the pair
-// loop with 1 / sqrtf instead, to measure what that costs and changes.
+// tile with 256 threads (216 cells x 33 x 32 B = 223 KB at KC = 32; at KC = 12
+// it took 1.93 ms for the larger tile's 1.77).
+// 1 / sqrt(s) is rsqrtf (2 ulp), as in E: with 1 / sqrtf the kernel took 2.33
+// ms for 1.77 at the 128^3 shapes and its results moved by 9.5e-6 of values
+// up to 1e2, under the error either has against float64.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "jitter.cuh"
 
-#ifndef LF_EB_BIG_TILE_MAX_KC
-#define LF_EB_BIG_TILE_MAX_KC 18
-#endif
-
 namespace {
 
 constexpr int MAX_KC = 32;  // an occupancy mask is 32 bits
-constexpr int BIG_TILE_MAX_KC = LF_EB_BIG_TILE_MAX_KC;
+constexpr int BIG_TILE_MAX_KC = 18;  // the most slots a cell the 4 x 4 x 8 tile holds
 
 // 32-byte slots between two cells' lists in shared memory: odd
 __host__ __device__ constexpr int cell_stride(int KC) { return KC | 1; }
-
-__device__ __forceinline__ float inv_sqrt(float s) {
-#ifdef LF_EB_EXACT_RSQRT
-  return 1.0f / sqrtf(s);
-#else
-  return rsqrtf(s);
-#endif
-}
 
 // A block's tile of TX x TY x TZ cells (a power of two, at least 32, at most
 // THREADS) and the tile with its one-cell halo.
@@ -215,7 +205,7 @@ correction_bwd_kernel(const float* __restrict__ pos, const float* __restrict__ m
         const float sq = ex * ex + ey * ey + ez * ez;
         const bool coincide = sq < 1e-12f;
         const float kl = fmaxf(1.0f - sq * inv_re2, 0.0f);
-        const float rs = inv_sqrt(sq);
+        const float rs = rsqrtf(sq);
         const float kk = kl * kl * rs;
         const float w = coincide ? 0.0f : kk * kl;
         const float w2 = coincide ? 0.0f : -kk * (6.0f * inv_re2 + kl * rs * rs);  // 2 w'

@@ -27,9 +27,9 @@
 //
 // Design: two launches behind one entry point, as the bound has two parts.
 //   1. A zero fill of the whole cotangent with 16-byte stores, at the card's
-//      store rate (LF_BB_MEMSET builds it as cudaMemsetAsync, to compare).
+//      store rate (0.50 ms at 128^3; cudaMemsetAsync took 0.49).
 //   2. A pass over the occupied slots: one block per tile of
-//      TX x TY x TZ = 2 x 4 x 32 cells, a thread a cell with z fastest, which
+//      TX x TY x TZ = 2 x 2 x 32 cells, a thread a cell with z fastest, which
 //      walks the cell's K slots, so that a warp reads and writes one z row of
 //      one payload row (128 bytes) at a time and a cell's coordinates are
 //      computed once.
@@ -37,7 +37,7 @@
 //         other; a tile without a particle (most of a dam-break's domain)
 //         returns.
 //      b. Else the block brings the (gn, gd) pairs of the faces its cells
-//         reach into shared memory, 17 KB for the three boxes, faces outside
+//         reach into shared memory, 11 KB for the three boxes, faces outside
 //         an array as zeros (so the bounds are resolved there and not per
 //         face).
 //      c. For each occupied slot the thread loads the 15 other rows at once
@@ -55,16 +55,17 @@
 //         replaces, which skipped dead faces by a test.
 // The slots are not compacted: in the fluid a warp's 32 cells at one slot
 // number are mostly all occupied or all empty.
-// LF_BB_FUSED builds both parts as one launch (the pass also stores the zeros
-// of the empty slots): measured slower, its stores run at the occupancy the
-// pass's registers leave (0.74 ms for the fill alone against 0.50).
+// Measured and not kept: both parts as one launch (the pass also storing the
+// zeros of the empty slots). Its stores run at the occupancy the pass's
+// registers leave: 0.69-0.74 ms for the fill alone against 0.50, and the
+// whole no faster than the two launches.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int TX = 2, TY = 4, TZ = 32, THREADS = TX * TY * TZ;  // a thread a cell
+constexpr int TX = 2, TY = 2, TZ = 32, THREADS = TX * TY * TZ;  // a thread a cell
 // the boxes of faces a tile's cells reach, per face axis: cells + 1 along
 // the axis (offsets 0, 1), cells + 2 across it (offsets -1, 0, 1)
 constexpr int UY = TY + 2, UZ = TZ + 2, U_N = (TX + 1) * UY * UZ;
@@ -172,8 +173,6 @@ __device__ __forceinline__ void slot_faces(const Tables& tb, const float2* __res
   }
 }
 
-// FUSED: the launch also stores the zeros of the empty slots
-template <bool FUSED>
 __global__ void __launch_bounds__(THREADS)
 p2g_bwd_kernel(const float* __restrict__ data, Cotangents cot, float* __restrict__ out, int K,
                int nx, int ny, int nz, float h, float ox, float oy, float oz, int use_affine) {
@@ -196,15 +195,7 @@ p2g_bwd_kernel(const float* __restrict__ data, Cotangents cot, float* __restrict
 #pragma unroll 4
     for (int k = 0; k < K; ++k) any |= mask[k * C] != 0.0f;
   }
-  if (!__syncthreads_or(any)) {
-    if (FUSED && inside) {
-      for (int k = 0; k < K; ++k) {
-#pragma unroll
-        for (int r = 0; r < 16; ++r) out[r * col + k * C + cell] = 0.0f;
-      }
-    }
-    return;
-  }
+  if (!__syncthreads_or(any)) return;  // the fill has stored its zeros
 
   // 2. the face cotangents in reach; a face outside its array counts 0
   for (int t = threadIdx.x; t < U_N + V_N + W_N; t += THREADS) {
@@ -233,13 +224,7 @@ p2g_bwd_kernel(const float* __restrict__ data, Cotangents cot, float* __restrict
   for (int k = 0; k < K; ++k) {
     const long long s = (long long)k * C + cell;
     const float m = data[3 * col + s];
-    if (m == 0.0f) {
-      if (FUSED) {
-#pragma unroll
-        for (int r = 0; r < 16; ++r) out[r * col + s] = 0.0f;
-      }
-      continue;
-    }
+    if (m == 0.0f) continue;
     // the slot's other rows, loads that do not wait for each other
     float p[3], row[12];
 #pragma unroll
@@ -316,25 +301,13 @@ extern "C" int lf_p2g_bwd(const float* data, const float* gnu, const float* gnv,
                           float ox, float oy, float oz, int use_affine, void* stream) {
   const long long total = (long long)K * nx * ny * nz;
   if (total == 0) return 0;
-#ifndef LF_BB_FUSED
   if ((uintptr_t)out & 15) return (int)cudaErrorMisalignedAddress;
-#endif
   cudaStream_t st = (cudaStream_t)stream;
   const dim3 grid((nz + TZ - 1) / TZ, (ny + TY - 1) / TY, (nx + TX - 1) / TX);
   const Cotangents cot{gnu, gnv, gnw, gdu, gdv, gdw};
-#ifndef LF_BB_FUSED
-#ifdef LF_BB_MEMSET
-  cudaError_t err = cudaMemsetAsync(out, 0, (size_t)total * 16 * sizeof(float), st);
-#else
   fill_kernel<<<FILL_BLOCKS, FILL_THREADS, 0, st>>>(reinterpret_cast<float4*>(out), total * 4);
   cudaError_t err = cudaGetLastError();
-#endif
   if (err != cudaSuccess) return (int)err;
-  p2g_bwd_kernel<false><<<grid, THREADS, 0, st>>>(data, cot, out, K, nx, ny, nz, h, ox, oy, oz,
-                                                  use_affine);
-#else
-  p2g_bwd_kernel<true><<<grid, THREADS, 0, st>>>(data, cot, out, K, nx, ny, nz, h, ox, oy, oz,
-                                                 use_affine);
-#endif
+  p2g_bwd_kernel<<<grid, THREADS, 0, st>>>(data, cot, out, K, nx, ny, nz, h, ox, oy, oz, use_affine);
   return (int)cudaGetLastError();
 }

@@ -143,6 +143,8 @@ def p2g_faces_bwd(data: torch.Tensor, gnum, gden, cfg: SimConfig) -> torch.Tenso
     point: a zero fill of the cotangent, then a block per tile of cells that
     visits the tile's occupied slots with the face cotangents in its reach in
     shared memory. Gather form, no atomics: the same bits from run to run."""
+    if not use_kernel(data, *gnum, *gden):
+        raise ValueError(f"p2g_faces_bwd takes CUDA tensors, got {data.device}")
     nx, ny, nz = cfg.grid_size
     k = data.shape[1]
     check(data, torch.float32, (16, k, nx, ny, nz), "slot payload")

@@ -120,6 +120,63 @@ def test_wrappers_dispatch_by_device():
                        torch.empty(4, dtype=torch.bool, device="meta"), MesherConfig())
 
 
+@pytest.mark.parametrize("name", ["p2g_bwd", "correction_bwd", "surface_bwd_nodes", "surface_bwd"])
+def test_backward_on_the_card_launches_its_kernel_or_raises(name, monkeypatch):
+    """On a CUDA tensor every backward launches its kernel, and a launch that
+    fails raises: nothing falls back to the plain version. Without a card the
+    dispatch is made to see CUDA tensors and the launches are recorded; the
+    forward kernels' launches do nothing (their outputs stay unset), the
+    backward kernel's launch fails as it would without a card."""
+    from libfluid_tpu_torch.mesher import surface
+
+    launched = []
+
+    def launch(kernel, entry, *args):
+        launched.append(kernel)
+        if kernel == name:
+            raise RuntimeError(f"{kernel} kernel ({entry}) failed: no card")
+
+    monkeypatch.setattr(kernels, "use_kernel", lambda *tensors: True)
+    monkeypatch.setattr(kernels, "launch", launch)
+    cfg = _cfg()
+    if name == "p2g_bwd":
+        leaf = torch.rand((16, 2, 8, 8, 8)).requires_grad_()
+        num, den = kernels.p2g_faces(leaf, cfg)
+        out = sum(t.sum() for t in (*num, *den))
+    elif name == "correction_bwd":
+        leaf = torch.rand((3, 2, 8, 8, 8)).requires_grad_()
+        out = correction._springs(leaf, torch.ones((2, 8, 8, 8)), 1, (0, 0, 0), 0.5, cfg).sum()
+    else:
+        leaf = (torch.rand((40, 3)) * 4.0).requires_grad_()
+        out = surface.sample_surface(leaf, torch.ones(40, dtype=torch.bool),
+                                     MesherConfig(grid_size=(8, 8, 8))).sum()
+    forward = list(launched)
+    assert forward and name not in forward
+    with pytest.raises(RuntimeError, match=name):
+        torch.autograd.grad(out, leaf)
+    assert launched[-1] == name
+
+
+def test_backward_wrappers_refuse_cpu_tensors():
+    """The backward kernels' wrappers take CUDA tensors only: the dispatch to
+    the plain versions is made by the autograd functions above them."""
+    from libfluid_tpu_torch.mesher import surface
+
+    cfg = _cfg()
+    data = torch.zeros((16, 2, 8, 8, 8))
+    faces = [torch.zeros(sh) for sh in kernels.face_shapes(cfg)]
+    with pytest.raises(ValueError):
+        kernels.p2g_faces_bwd(data, faces, faces, cfg)
+    with pytest.raises(ValueError):
+        kernels.correction_springs_bwd(data[:3], data[3], data[:3], 0.5, 1)
+    mcfg = MesherConfig(grid_size=(8, 8, 8))
+    binned = surface.bin_particles(torch.rand((10, 3)), torch.ones(10, dtype=torch.bool), mcfg)
+    with pytest.raises(ValueError):
+        surface.sample_surface_bwd(binned, torch.zeros((9, 9, 9)), mcfg)
+    with pytest.raises(ValueError):
+        surface.surface_bwd_gather(binned, torch.zeros((9, 9, 9, 4)), mcfg)
+
+
 def _constructors():
     """name -> constructor taking only `device`, one per constructor that
     allocates the port's tensors."""

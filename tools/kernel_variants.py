@@ -15,9 +15,9 @@ them, and ``--parent <tree>`` does the same for the sources of another tree
 (the kernels as they were before their redesign, whose text the
 ``*_OLD_PARTS`` tables match) and nothing else.
 
-``--backward`` does kernels B' (``csrc/p2g_bwd.cu``: its zero fill and its
-pass over the occupied slots as two launches or one, the fill alone, all 54
-faces a slot, one part switched off at a time, other tiles and register
+``--backward`` does kernels B' (``csrc/p2g_bwd.cu``: its zero fill as a
+kernel or as cudaMemsetAsync, the pass over the occupied slots with all 54
+faces a slot or one part switched off at a time, other tiles and register
 budgets) and E'
 (``csrc/correction_bwd.cu``: 1 / sqrtf for rsqrtf, the smaller tile) and
 nothing else; ``--backward --parent <tree>`` times B' as another tree has it.
@@ -225,39 +225,36 @@ def g2p_variants(state, cfg, d_parts, db_parts, folder, csrc=_build.CSRC) -> Non
         (grid.u, grid.v, grid.w, pos, gvel, gaff, *outs, *tail), outs, want, folder, csrc, zero=outs[:3])
 
 
-# kernel B': a macro of the source switched on, its tile, its register budget
-_DEFINE = "#include <cuda_runtime.h>"
-BB_TILE = "constexpr int TX = 2, TY = 4, TZ = 32, THREADS = TX * TY * TZ;"
+# kernel B': its fill, its parts, its tile, its register budget
+BB_FILL = "fill_kernel<<<FILL_BLOCKS, FILL_THREADS, 0, st>>>(reinterpret_cast<float4*>(out), total * 4);"
+BB_TILE = "constexpr int TX = 2, TY = 2, TZ = 32, THREADS = TX * TY * TZ;"
 BB_BOUNDS = "__launch_bounds__(THREADS)\np2g_bwd_kernel("
-_BB_FUSED = (_DEFINE, "#define LF_BB_FUSED\n" + _DEFINE)
-_BB_ALL_54 = ("wide |= !dead_lo && !dead_hi;", "wide |= K > 0;")
 _BB_NO_FACES = [("if (wide) {", "if (K < 0) {"),
                 ("slot_faces<2>(tb, box, ic, st,", "if (K < 0) slot_faces<2>(tb, box, ic, st,")]
 BB_PARTS = {
     "as built (a fill with 16-byte stores, then the pass)": [],
-    "cudaMemsetAsync, then the pass": [(_DEFINE, "#define LF_BB_MEMSET\n" + _DEFINE)],
-    "one launch": [_BB_FUSED],
-    "one launch, every tile as if empty (the fill alone)": [
-        _BB_FUSED, ("if (!__syncthreads_or(any)) {", "if (!__syncthreads_or(any) || K > 0) {")],
+    "cudaMemsetAsync, then the pass": [
+        (BB_FILL, "cudaMemsetAsync(out, 0, (size_t)total * 16 * sizeof(float), st);")],
     "every tile as if empty (the fill and the masks)": [
-        ("if (!__syncthreads_or(any)) {", "if (!__syncthreads_or(any) || K > 0) {")],
-    "all 54 faces a slot": [_BB_ALL_54],
+        ("if (!__syncthreads_or(any)) return;", "if (!__syncthreads_or(any) || K > 0) return;")],
+    "all 54 faces a slot": [("wide |= !dead_lo && !dead_hi;", "wide |= K > 0;")],
     "no face arithmetic": _BB_NO_FACES,
     "no face arithmetic, no loads of a slot's rows 4 to 15": [
         *_BB_NO_FACES, ("(use_affine || r < 3) ? data[(4 + r) * col + s] : 0.0f", "(float)r")],
-    "no stores of the occupied slots": [("    out[3 * col + s] = sum.m;", "    if (sum.m != 12345.678f) continue;\n    out[3 * col + s] = sum.m;"),
-                                        ("for (int q = 0; q < 3; ++q) out[q * col + s] = sum.t[q] / h + sum.x[q];",
-                                         "for (int q = 0; q < 3; ++q) if (sum.m == 12345.678f) out[q * col + s] = sum.t[q] / h + sum.x[q];")],
+    "no stores of the occupied slots": [
+        ("    out[3 * col + s] = sum.m;", "    if (sum.m != 12345.678f) continue;\n    out[3 * col + s] = sum.m;"),
+        ("for (int q = 0; q < 3; ++q) out[q * col + s] = sum.t[q] / h + sum.x[q];",
+         "for (int q = 0; q < 3; ++q) if (sum.m == 12345.678f) out[q * col + s] = sum.t[q] / h + sum.x[q];")],
     **{f"registers for {m} blocks an SM":
        [(BB_BOUNDS, f"__launch_bounds__(THREADS, {m})\np2g_bwd_kernel(")] for m in (3, 4)},
     **{f"tile {tx} x {ty} x {tz}": [(BB_TILE, f"constexpr int TX = {tx}, TY = {ty}, TZ = {tz}, THREADS = TX * TY * TZ;")]
-       for tx, ty, tz in ((1, 4, 32), (2, 2, 32), (4, 4, 32), (2, 8, 32), (2, 4, 16), (4, 4, 16), (1, 2, 64))},
+       for tx, ty, tz in ((1, 4, 32), (2, 4, 32), (4, 4, 32), (2, 8, 32), (2, 4, 16), (4, 4, 16), (1, 2, 64), (1, 2, 32))},
 }
 # kernel E'
 EB_PARTS = {
     "as built": [],
-    "1 / sqrtf for rsqrtf": [(_DEFINE, "#define LF_EB_EXACT_RSQRT\n" + _DEFINE)],
-    "the 4 x 4 x 4 tile at every KC": [(_DEFINE, "#define LF_EB_BIG_TILE_MAX_KC 0\n" + _DEFINE)],
+    "1 / sqrtf for rsqrtf": [("const float rs = rsqrtf(sq);", "const float rs = 1.0f / sqrtf(sq);")],
+    "the 4 x 4 x 4 tile at every KC": [("constexpr int BIG_TILE_MAX_KC = 18;", "constexpr int BIG_TILE_MAX_KC = 0;")],
 }
 
 
