@@ -70,10 +70,10 @@ Phases, one line of output each (or a few):
 9. the 128^3 dam-break with FLIP and the bfloat16 V-cycle ("mg16"), 2
    substeps;
 10. the testbed CLI, setup 4 (jet source + obstacle), 2 frames with an OBJ
-    export every frame;
-11. the device's own time of one launch of every kernel (torch.profiler) at
-    the main path's shapes: last, because a profiler window slows the
-    host-bound paths that run after it.
+    export every frame.
+
+Phase 3 also logs, beside each kernel's event median around its wrapper, the
+device's own time of one launch (torch.profiler).
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after; each fails if a kernel of its path was not launched. Any
@@ -135,6 +135,10 @@ MESH_GRAD_KERNELS = ("surface", "surface_bwd_nodes", "surface_bwd")
 # sums, so "4 x the plain version's" is held above this share of the largest
 # component only
 F_FLOOR = 1e-4
+# kernel F' is held at its maximum on the nodes with a weight W above THIN_W
+# whose average lies more than FLAT_DIFF cells from them, elsewhere by its bulk
+THIN_W = 1e-3
+FLAT_DIFF = 0.02
 # the card's published peaks (H100 SXM): device memory and float32 outside
 # the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -232,13 +236,14 @@ def wall_ms(fn, reps: int = 20) -> float:
     return (time.perf_counter() - t0) / reps * 1e3
 
 
-def vcycle_phases(levels, what: str):
+def vcycle_phases(levels, what: str, device_times: bool = False):
     """The fused V-cycle's kernels on `levels`: each against its plain stage
     function on the inputs the plain cycle gives that stage (rtol 1e-6 /
     atol 1e-5), the coarse kernel on its own, then the whole cycle against
     the plain one (1e-5 max|b|), with times and the launches of one cycle.
-    Returns the record of each kernel at its first (largest) level, and the
-    host-clock ms of one fused cycle."""
+    With `device_times`, also the device's own time of each kernel at its
+    first level. Returns the record of each kernel at its first (largest)
+    level, and the host-clock ms of one fused cycle."""
     dev = levels[0].fluid.device
     gen = torch.Generator(device=dev).manual_seed(2)
     b = 20.0 * torch.randn(levels[0].fluid.shape, generator=gen, device=dev) * levels[0].fluid
@@ -268,7 +273,9 @@ def vcycle_phases(levels, what: str):
             err = max_err(got, want)
             check(close(got, want, 1e-6, 1e-5), f"{name} at {shapes[l]} ({what}) error {err}")
             rec = dict(max_abs_err=err, ms=median_ms(fused), plain_ms=median_ms(plain), **bnd)
-            log(f"kernel {name} ({what}) level {shapes[l]}: within rtol 1e-6/atol 1e-5, {rec}")
+            own = (f"; device time {device_ms(fused, name + '_kernel')} (torch.profiler)"
+                   if device_times and name not in out else "")
+            log(f"kernel {name} ({what}) level {shapes[l]}: within rtol 1e-6/atol 1e-5, {rec}{own}")
             out.setdefault(name, rec)
     bc = bs[first]
     lows = levels[first:]
@@ -282,7 +289,9 @@ def vcycle_phases(levels, what: str):
         **bound(nbytes(bc, got, *(a for lv in lows for a in multigrid._level_args(lv))),
                 40.0 * sum(lv.fluid.numel() for lv in lows) * 6))
     log(f"kernel mg_coarse ({what}) levels {shapes[first:]}: within rtol 1e-6/atol 1e-5 of max "
-        f"{float(want.abs().max()):.3e}, {out['mg_coarse']}")
+        f"{float(want.abs().max()):.3e}, {out['mg_coarse']}"
+        + (f"; device time {device_ms(lambda: multigrid.coarse_cycle(levels, bc, first), 'mg_coarse_kernel')} "
+           f"(torch.profiler)" if device_times else ""))
 
     torch.cuda.synchronize()
     kernels.reset_launches()
@@ -487,13 +496,14 @@ def surface_odd_shapes(device) -> None:
         + " (< 2e-3), two launches bit-equal")
 
 
-def device_ms(fn, kernel: str, reps: int = 5):
-    """The device's own ms for one launch of the CUDA kernel whose name
+def device_ms(fn, kernel: str, reps: int = 5) -> str:
+    """The device's own time for one launch of the CUDA kernel whose name
     contains `kernel`, from torch.profiler over `reps` calls of `fn` (an
     event median around a wrapper carries the launch path and whatever
-    else the wrapper runs). The profiler now and then misses launches of a
-    window, or reports them twice: the median is over the launches it
-    reported, after up to three windows, and None if it reported none."""
+    else the wrapper runs), as text. The profiler now and then misses
+    launches of a window, or reports them twice: the median is over the
+    launches it reported, after up to three windows, and "not measured" if
+    it reported none."""
     fn()
     for _ in range(3):
         torch.cuda.synchronize()
@@ -504,87 +514,8 @@ def device_ms(fn, kernel: str, reps: int = 5):
         times = [e.device_time_total for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
         if times:
-            return float(np.median(times)) / 1e3
-    return None
-
-
-def dev_text(ms) -> str:
-    return "not measured" if ms is None else f"{ms:.4f} ms"
-
-
-def device_alone_phase(device) -> dict:
-    """The device's own ms of one launch of each kernel (torch.profiler), at
-    the 128^3 main path's shapes (the state after one substep; the V-cycle's
-    kernels at its first level). It is the last phase: a profiler window
-    leaves its tracing attached to the process, and the host-bound paths
-    that run after one are slower for it (a 128^3 substep took 48-55 ms
-    before any window, 54-74 ms after one to forty of them, on an NVIDIA
-    H100 80GB HBM3 at 700 W)."""
-    cfg, state = dam_break(128, device, 1 << 21)
-    state, _ = sim.substep(state, cfg, DT)
-    gen = torch.Generator(device=device).manual_seed(4)
-    out = {}
-    nx, ny, nz = cfg.grid_size
-
-    rs = slotsort.sort_rank_major(state, cfg)
-    out["expand"] = device_ms(lambda: slotsort.expand(rs.payT, rs.ins, rs.counts), "expand_kernel")
-    data = slotsort.expand(rs.payT, rs.ins, rs.counts).reshape(16, cfg.max_neighbors_per_cell, nx, ny, nz)
-    del rs
-    out["p2g"] = device_ms(lambda: kernels.p2g_faces(data, cfg), "p2g_kernel")
-    faces = [torch.randn(sh, generator=gen, device=device) for sh in kernels.face_shapes(cfg) * 2]
-    parts = [device_ms(lambda: kernels.p2g_faces_bwd(data, faces[:3], faces[3:], cfg), name)
-             for name in ("fill_kernel", "p2g_bwd_kernel")]
-    out["p2g_bwd"] = None if None in parts else sum(parts)
-    kc = min(cfg.correction_capacity, data.shape[1])
-    res_pos, res_mask = data[:3, :kc].contiguous(), data[3, :kc].contiguous()
-    del data, faces
-    re2 = cfg.cell_size**2 / 2.0
-    out["correction"] = device_ms(lambda: kernels.correction_springs(res_pos, res_mask, re2, 12345),
-                                  "correction_kernel")
-    g = torch.randn(res_pos.shape, generator=gen, device=device)
-    out["correction_bwd"] = device_ms(
-        lambda: kernels.correction_springs_bwd(res_pos, res_mask, g, re2, 12345), "correction_bwd_kernel")
-    del res_pos, res_mask, g
-
-    levels = multigrid.build_levels(state.grid.cell_type)
-    lv, lc = levels[0], levels[1]
-    x = torch.randn(lv.fluid.shape, generator=gen, device=device) * lv.fluid
-    b = 20.0 * torch.randn(lv.fluid.shape, generator=gen, device=device) * lv.fluid
-    out["stencil"] = device_ms(lambda: multigrid.stencil(lv, x, b, multigrid.MODE_JACOBI, 0.8), "stencil_kernel")
-    l16 = multigrid.MGLevel(*[f.to(torch.bfloat16) for f in lv[:-1]], 1.0)
-    x16, b16 = x.to(torch.bfloat16), b.to(torch.bfloat16)
-    out["stencil16"] = device_ms(lambda: multigrid.stencil(l16, x16, b16, multigrid.MODE_JACOBI, 0.8),
-                                 "stencil16_kernel")
-    xw = multigrid.pre_smooth(lv, b)
-    rc = multigrid.restrict_residual(lv, lc, xw, b)
-    first = multigrid.first_coarse_level(levels)
-    bc = torch.randn(levels[first].fluid.shape, generator=gen, device=device) * levels[first].fluid
-    out["mg_pre"] = device_ms(lambda: multigrid.pre_smooth(lv, b), "mg_pre_kernel")
-    out["mg_restrict"] = device_ms(lambda: multigrid.restrict_residual(lv, lc, xw, b), "mg_restrict_kernel")
-    out["mg_up"] = device_ms(lambda: multigrid.prolong_smooth(lv, xw, rc, b), "mg_up_kernel")
-    out["mg_coarse"] = device_ms(lambda: multigrid.coarse_cycle(levels, bc, first), "mg_coarse_kernel")
-    del levels, lv, lc, l16, x, b, x16, b16, xw, rc, bc
-
-    grid, pos, act = state.grid, state.position.contiguous(), state.active
-    out["g2p"] = device_ms(lambda: transfers.g2p_pic(grid, pos, cfg), "g2p_kernel")
-    gv = torch.randn((pos.shape[0], 3), generator=gen, device=device)
-    ga = torch.randn((pos.shape[0], 3, 3), generator=gen, device=device)
-    out["g2p_bwd"] = device_ms(lambda: transfers.g2p_bwd(grid.u, grid.v, grid.w, pos, gv, ga, cfg),
-                               "g2p_bwd_kernel")
-    del gv, ga
-    binned = surface._binned(pos, act, MESH_128)
-    out["surface"] = device_ms(
-        lambda: surface._sample_surface_cuda(binned, MESH_128, MESH_128.particle_radius), "surface_kernel")
-    g = torch.randn(tuple(n + 1 for n in MESH_128.grid_size), generator=gen, device=device)
-    out["surface_bwd_nodes"] = device_ms(lambda: surface.surface_bwd_nodes(binned, g, MESH_128), "surface_kernel")
-    ab = surface.surface_bwd_nodes(binned, g, MESH_128)
-    out["surface_bwd"] = device_ms(lambda: surface.surface_bwd_gather(binned, ab, MESH_128), "surface_bwd_kernel")
-    log("the device's own time of one launch at the 128^3 main path's shapes (torch.profiler; the V-cycle's "
-        "kernels at their 128^3 level; surface without its binning): "
-        + ", ".join(f"{name} {dev_text(ms)}" for name, ms in out.items())
-        + f"; p2g_bwd is its zero fill {dev_text(parts[0])} and its pass over the occupied slots "
-        f"{dev_text(parts[1])}")
-    return out
+            return f"{float(np.median(times)) / 1e3:.4f} ms"
+    return "not measured"
 
 
 def kernel_phases(cfg, state):
@@ -605,7 +536,8 @@ def kernel_phases(cfg, state):
         ms=median_ms(lambda: slotsort.expand(rs.payT, rs.ins, rs.counts)),
         plain_ms=median_ms(lambda: slotsort._expand_torch(rs.payT, rs.ins, rs.counts)),
     )
-    log(f"kernel expand: exact, shape {tuple(got.shape)}, {out['expand']}")
+    log(f"kernel expand: exact, shape {tuple(got.shape)}, {out['expand']}; device time "
+        f"{device_ms(lambda: slotsort.expand(rs.payT, rs.ins, rs.counts), 'expand_kernel')} (torch.profiler)")
 
     nx, ny, nz = cfg.grid_size
     data = got.reshape(16, cfg.max_neighbors_per_cell, nx, ny, nz)
@@ -630,7 +562,8 @@ def kernel_phases(cfg, state):
         ms=median_ms(lambda: kernels.p2g_faces(data, cfg)),
         plain_ms=median_ms(lambda: transfers._p2g_slots_torch(data, cfg)),
     )
-    log(f"kernel p2g: normalized error {max(errs):.3e} (< 2e-5), {out['p2g']}")
+    log(f"kernel p2g: normalized error {max(errs):.3e} (< 2e-5), {out['p2g']}; device time "
+        f"{device_ms(lambda: kernels.p2g_faces(data, cfg), 'p2g_kernel')} (torch.profiler)")
     del data, rs
     p2g_odd_shapes(state.position.device)
     g2p_odd_shapes(state.position.device)
@@ -657,10 +590,12 @@ def kernel_phases(cfg, state):
         plain_ms=median_ms(lambda: multigrid._stencil_torch(lvl, x, b, multigrid.MODE_JACOBI, 0.8)),
     )
     log(f"kernel stencil: {len(levels)} levels {[tuple(l.fluid.shape) for l in levels]} x 3 modes "
-        f"within rtol 1e-6/atol 1e-5, time at {tuple(lvl.fluid.shape)} Jacobi mode, {out['stencil']}")
+        f"within rtol 1e-6/atol 1e-5, time at {tuple(lvl.fluid.shape)} Jacobi mode, {out['stencil']}; "
+        f"device time {device_ms(lambda: multigrid.stencil(lvl, x, b, multigrid.MODE_JACOBI, 0.8), 'stencil_kernel')}"
+        f" (torch.profiler)")
     operator_wall = wall_ms(lambda: multigrid.apply_level(lvl, x))
     del lvl, x, b
-    records, cycle_wall = vcycle_phases(levels, "128^3")
+    records, cycle_wall = vcycle_phases(levels, "128^3", device_times=True)
     out.update(records)
     log(f"a 128^3 CG iteration's kernels on the host clock: V-cycle {cycle_wall:.4f} ms, operator "
         f"(apply_level) {operator_wall:.4f} ms")
@@ -688,7 +623,8 @@ def kernel_phases(cfg, state):
         ms=median_ms(lambda: transfers.g2p_pic(grid, pos, cfg)),
         plain_ms=median_ms(plain),
     )
-    log(f"kernel g2p: {pos.shape[0]} particles within rtol/atol 1e-5, {out['g2p']}")
+    log(f"kernel g2p: {pos.shape[0]} particles within rtol/atol 1e-5, {out['g2p']}; device time "
+        f"{device_ms(lambda: transfers.g2p_pic(grid, pos, cfg), 'g2p_kernel')} (torch.profiler)")
     del vk, ak, vp, ap
 
     sb = slotsort.sort_and_build(state, cfg)
@@ -714,7 +650,9 @@ def kernel_phases(cfg, state):
     )
     log(f"kernel correction: springs {tuple(got.shape)} of {occ} resident slots, {pairs:.4e} pairs, "
         f"normalized error {norm:.3e} (< 2e-6), plain timed over {PLAIN_REPS_SLOW} reps, "
-        f"{out['correction']}")
+        f"{out['correction']}; device time "
+        f"{device_ms(lambda: kernels.correction_springs(res_pos, res_mask, re2, seed), 'correction_kernel')} "
+        f"(torch.profiler)")
     del sb, res_pos, res_mask, got, want
     correction_many_slots(state.position.device)
 
@@ -736,7 +674,8 @@ def kernel_phases(cfg, state):
     bin_ms = median_ms(lambda: surface.bin_particles(pos, act, MESH_128))
     log(f"kernel surface: {tuple(got.shape)} nodes from {int(act.sum())} particles, max abs "
         f"error {err:.3e} (< 2e-3); ms includes the CSR binning ({bin_ms:.3f} ms of it); plain timed over "
-        f"{PLAIN_REPS_SLOW} reps, {out['surface']}")
+        f"{PLAIN_REPS_SLOW} reps, {out['surface']}; device time of the node pass "
+        f"{device_ms(lambda: surface.sample_surface(pos, act, MESH_128), 'surface_kernel')} (torch.profiler)")
     del got, want
     surface_odd_shapes(state.position.device)
     return out, (cycle_wall, operator_wall)
@@ -765,6 +704,34 @@ def held_to_float64(what: str, got: torch.Tensor, plain32: torch.Tensor, ref64: 
     check(cos >= 0.9999, f"{what}: cosine against float64 {cos} < 0.9999")
     return (f"{what}: max|ref| {scale:.3e}, error against float64 kernel {err_k:.3e} / float32 plain "
             f"{err_p:.3e} (kernel <= 4 x plain or {floor:.0e} max|ref|), cosine {cos:.8f} (>= 0.9999)")
+
+
+def held_on_sound_nodes(what: str, pos: torch.Tensor, act: torch.Tensor, g: torch.Tensor,
+                        mcfg: MesherConfig, float64: bool) -> str:
+    """Kernel F' (both launches) at its maximum over every particle. F' is
+    linear in the node cotangent `g`; a node's words carry 1 / W and the
+    direction of avg - x_n, so a node of little weight, or one whose average
+    sits on it, turns the roundings of any float32 version into errors far
+    above the rest. With `g` set to 0 on those nodes (W <= ``THIN_W``, or
+    |avg - x_n| <= ``FLAT_DIFF`` cells) the largest error of any particle is
+    held to 1e-4 of the largest component: against the plain closed form on
+    the card, or with `float64` against the closed form on CPU copies in
+    float64. Returns text."""
+    ref_pos, ref_act = (pos.cpu().double(), act.cpu()) if float64 else (pos, act)
+    weight, sums = surface._node_sums(ref_pos, ref_act, mcfg)
+    diff = sums / weight.clamp(min=1e-30)[..., None] - surface._node_positions(mcfg, ref_pos.dtype, ref_pos.device)
+    sound = (weight > THIN_W) & (diff.norm(dim=-1) > FLAT_DIFF * mcfg.cell_size)
+    del sums, diff
+    g_ref = g.to(ref_pos) * sound
+    want = surface._sample_surface_vjp_torch(ref_pos, ref_act, g_ref, mcfg)
+    got = surface.sample_surface_bwd(surface._binned(pos, act, mcfg), g_ref.to(g), mcfg)
+    rel = float((got.to(want) - want).abs().max() / want.abs().max())
+    against = "the closed form in float64 on CPU copies" if float64 else "the plain closed form"
+    check(rel < 1e-4, f"surface_bwd, {what}, the cotangent of the sound nodes only: relative error {rel} >= 1e-4 "
+                      f"against {against}")
+    return (f"with the cotangent of the {int(sound.sum())} sound nodes only (of {int((weight > 0).sum())} with "
+            f"W > 0: W > {THIN_W} and |avg - x_n| > {FLAT_DIFF} cells) the largest error of any particle "
+            f"{rel:.3e} (< 1e-4) of the largest component against {against}")
 
 
 def p2g_bwd_odd_shapes(device) -> None:
@@ -859,7 +826,9 @@ def correction_bwd_phases(cfg, state, gen) -> dict:
     log(f"kernel correction_bwd (E'): cotangents of {n_occ} resident slots at {tuple(res_pos.shape)}, "
         f"{pairs:.4e} pairs, relative error against the plain closed form positions {rel_p:.3e} mask "
         f"{rel_m:.3e} (< 1e-4), cosine {cos:.8f}, empty slots 0, two launches bit-equal, plain timed "
-        f"over {PLAIN_REPS_SLOW} reps, {rec}")
+        f"over {PLAIN_REPS_SLOW} reps, {rec}; device time "
+        + device_ms(lambda: kernels.correction_springs_bwd(res_pos, res_mask, g, re2, seed),
+                    "correction_bwd_kernel") + " (torch.profiler)")
     del res_pos, res_mask, g, dp, dm, occ
     torch.cuda.empty_cache()
 
@@ -944,15 +913,18 @@ def surface_bwd_phases(state, gen) -> dict:
     # tens of per cent, and the particle part multiplies them by that kl
     # again. The words are held where W > 1e-3, the pattern of zeros
     # everywhere, and both launches together against the plain versions below.
-    well = surface._node_sums(pos, act, MESH_128)[0] > 1e-3
+    weight = surface._node_sums(pos, act, MESH_128)[0]
+    well = weight > THIN_W
+    n_has = int((weight > 0).sum())
+    del weight
     rel_ab = max_err(ab[well], want_ab[well]) / float(want_ab[well].abs().max())
     check(rel_ab < 1e-3, f"surface_bwd_nodes: relative error {rel_ab} >= 1e-3 where W > 1e-3")
     check(torch.equal(ab[..., :3].abs().sum(-1) == 0, want_ab[..., :3].abs().sum(-1) == 0),
           "surface_bwd_nodes: other nodes are zero than in the plain version")
-    check(bool((ab[want_ab[..., 3] == 0] == 0).all()) or True, "unreachable")
     reach = 4.0 / 3.0 * np.pi * (MESH_128.particle_extent / MESH_128.cell_size) ** 3
+    # kernel F's pair loop (~21 operations a pair), then ~23 a node with W > 0
     out = {"surface_bwd_nodes": dict(
-        **bound(nbytes(g, ab) + 12 * n_act, 25.0 * reach * n_act),
+        **bound(nbytes(g, ab) + 12 * n_act, 21.0 * reach * n_act + 23.0 * n_has),
         max_abs_err=max_err(ab[well], want_ab[well]),
         ms=median_ms(lambda: surface.surface_bwd_nodes(binned, g, MESH_128)),
         plain_ms=median_ms(lambda: surface._node_cotangents_torch(pos, act, g, MESH_128), PLAIN_REPS_SLOW),
@@ -974,9 +946,8 @@ def surface_bwd_phases(state, gen) -> dict:
     check(rel < 1e-4, f"surface_bwd: relative error {rel} >= 1e-4")
     err_gather = max_err(got, want)
     del ab_well, want
-    # both launches against both plain parts, every node: a node that only
-    # particles at the very edge of their support reach may have W > 0 in one
-    # version and not in the other, so the bulk is held, not the maximum
+    # both launches against both plain parts, every node: the bulk is held to
+    # 1e-4 of the largest component; the maximum is held on the sound nodes
     got = back(surface.surface_bwd_gather(binned, ab, MESH_128))
     check(not bool(got[~act].any()), "surface_bwd: an inactive particle got a cotangent")
     check(torch.equal(got, back(surface.surface_bwd_gather(binned, ab, MESH_128))),
@@ -992,8 +963,10 @@ def surface_bwd_phases(state, gen) -> dict:
           f"surface_bwd, both launches: 99.9th percentile of the relative error {q_whole} >= 1e-4 or "
           f"cosine {cos_whole} < 0.9999")
     del want_ab, whole_want, diff
+    sound_whole = held_on_sound_nodes("261^3 nodes", pos, act, g, MESH_128, False)
+    # ~29 operations a particle and node within its extent
     out["surface_bwd"] = dict(
-        **bound(nbytes(ab) + 24 * n_act, 20.0 * reach * n_act),
+        **bound(nbytes(ab) + 24 * n_act, 29.0 * reach * n_act),
         max_abs_err=err_gather,
         ms=median_ms(lambda: surface.surface_bwd_gather(binned, ab, MESH_128)),
         plain_ms=median_ms(lambda: surface._gather_cotangents_torch(pos, act, ab, MESH_128), PLAIN_REPS_SLOW),
@@ -1001,14 +974,18 @@ def surface_bwd_phases(state, gen) -> dict:
     whole = median_ms(lambda: surface.sample_surface_bwd(binned, g, MESH_128))
     log(f"kernel surface_bwd_nodes (F', node part): {nodes} nodes from {n_act} particles, relative error "
         f"{rel_ab:.3e} (< 1e-3) on the {n_well} nodes with W > 1e-3, the same nodes zero, plain timed over "
-        f"{PLAIN_REPS_SLOW} reps, {out['surface_bwd_nodes']}")
+        f"{PLAIN_REPS_SLOW} reps, {out['surface_bwd_nodes']}; device time "
+        f"{device_ms(lambda: surface.surface_bwd_nodes(binned, g, MESH_128), 'surface_kernel')} (torch.profiler)")
     log(f"kernel surface_bwd (F', particle part): relative error {rel:.3e} (< 1e-4) against the plain gather "
         f"of the same node words (those with W > 1e-3), both launches against both plain parts on every "
-        f"node: 99.9th percentile {q_whole:.3e} (< 1e-4), maximum {rel_whole:.3e}, cosine {cos_whole:.8f} "
-        f"(>= 0.9999), "
+        f"node: 99.9th percentile {q_whole:.3e} (< 1e-4), maximum {rel_whole:.3e}, cosine "
+        f"{cos_whole:.8f} (>= 0.9999), "
+        f"{sound_whole}; "
         f"{live} particles with a cotangent, inactive 0, two launches bit-equal, "
         f"ms includes the zero fill of the result, {out['surface_bwd']}; both launches and the write "
-        f"through the sort's order {whole:.3f} ms")
+        f"through the sort's order {whole:.3f} ms; device time of the particle part "
+        f"{device_ms(lambda: surface.surface_bwd_gather(binned, ab, MESH_128), 'surface_bwd_kernel')} "
+        f"(torch.profiler)")
     del binned, ab, got, g
     torch.cuda.empty_cache()
 
@@ -1026,7 +1003,8 @@ def surface_bwd_phases(state, gen) -> dict:
             surface._sample_surface_torch(leaf, act.cpu(), MESH_66), leaf, g.cpu().to(dtype))
     log("kernel surface_bwd (F', both launches) at the 32^3 scene's 66^3 mesher grid, against the scatter "
         "oracle's autograd on CPU copies: "
-        + held_to_float64("positions", got, refs[torch.float32], refs[torch.float64], F_FLOOR))
+        + held_to_float64("positions", got, refs[torch.float32], refs[torch.float64], F_FLOOR) + ", "
+        + held_on_sound_nodes("66^3 nodes", pos, act, g, MESH_66, True))
 
     # supports of 1, 2 and 4 cells, a crammed bin, particles around the grid
     grid, h, origin = (37, 30, 45), 0.5, (-1.0, 0.5, 0.25)
@@ -1051,7 +1029,8 @@ def surface_bwd_phases(state, gen) -> dict:
         check(not bool(got[~act].any()), f"surface_bwd with extent {extent}: an inactive particle moved")
         ref = surface._sample_surface_vjp_torch(pos.cpu().double(), act.cpu(), g.cpu().double(), mcfg)
         plain = surface._sample_surface_vjp_torch(pos.cpu(), act.cpu(), g.cpu(), mcfg)
-        texts.append(held_to_float64(f"support {round(extent / h)} cells", got, plain, ref, F_FLOOR))
+        texts.append(held_to_float64(f"support {round(extent / h)} cells", got, plain, ref, F_FLOOR) + ", "
+                     + held_on_sound_nodes(f"support {round(extent / h)} cells", pos, act, g, mcfg, True))
     log(f"kernel surface_bwd (F'), odd shapes at {tuple(n + 1 for n in grid)} nodes from {pos.shape[0]} "
         f"particles, against the closed form on CPU copies in float64: " + " | ".join(texts)
         + "; two launches bit-equal")
@@ -1101,14 +1080,20 @@ def backward_kernel_phases(cfg, state) -> dict:
     sb = slotsort.sort_and_build(state, cfg)
     data = sb.slot_grid.data.contiguous()
     faces = [torch.randn(sh, generator=gen, device=device) for sh in kernels.face_shapes(cfg) * 2]
-    ms_128 = median_ms(lambda: kernels.p2g_faces_bwd(data, faces[:3], faces[3:], cfg))
+
+    def b_prime_128():
+        return kernels.p2g_faces_bwd(data, faces[:3], faces[3:], cfg)
+
+    ms_128 = median_ms(b_prime_128)
     n_occ = int((data[3] != 0).sum())
     bound_128 = bound(data[3].numel() * 4 + 15 * 4 * n_occ + nbytes(*faces, data), 54 * 14.0 * n_occ)
     out["p2g_bwd"].update(ms_128=ms_128, bound_ms_128=bound_128["bound_ms"])
     log(f"kernel p2g_bwd (B'): at 64^3 (the plain autograd does not fit at 128^3), relative error "
         f"{rel:.3e} (< 1e-5) on the occupied slots, empty slots 0, plain = recompute + autograd "
         f"over {PLAIN_REPS_SLOW} reps, {out['p2g_bwd']}; B' on the 128^3 payload {ms_128:.3f} ms "
-        f"against a bound of {bound_128['bound_ms']:.3f} ms ({bound_128['bound_by']})")
+        f"against a bound of {bound_128['bound_ms']:.3f} ms ({bound_128['bound_by']}); device time there "
+        f"(torch.profiler): its zero fill {device_ms(b_prime_128, 'fill_kernel')}, its pass over the occupied "
+        f"slots {device_ms(b_prime_128, 'p2g_bwd_kernel')}")
     del sb, data, faces
     torch.cuda.empty_cache()
     p2g_bwd_odd_shapes(device)
@@ -1142,7 +1127,9 @@ def backward_kernel_phases(cfg, state) -> dict:
     )
     log(f"kernel g2p_bwd (D'): {n} particles, relative errors (u, v, w, position) "
         f"{[f'{r:.2e}' for r in rels]} (faces < 1e-4, position < 1e-5), plain = recompute + "
-        f"autograd, {out['g2p_bwd']} (the event median includes the wrapper's zero fill)")
+        f"autograd, {out['g2p_bwd']} (the event median includes the wrapper's zero fill); device time "
+        f"{device_ms(lambda: transfers.g2p_bwd(grid.u, grid.v, grid.w, pos, gv, ga, cfg), 'g2p_bwd_kernel')} "
+        f"(torch.profiler)")
     del got, want, gv, ga
     torch.cuda.empty_cache()
 
@@ -1172,7 +1159,9 @@ def backward_kernel_phases(cfg, state) -> dict:
         plain_ms=median_ms(lambda: multigrid._stencil_torch(l16, x, b, multigrid.MODE_JACOBI, damp)),
     )
     log(f"kernel stencil16: {len(levels)} levels x 3 modes in bfloat16, max abs error {worst:.3e} "
-        f"(within 2^-8 relative), time at {tuple(l16.fluid.shape)} Jacobi mode, {out['stencil16']}")
+        f"(within 2^-8 relative), time at {tuple(l16.fluid.shape)} Jacobi mode, {out['stencil16']}; device "
+        f"time {device_ms(lambda: multigrid.stencil(l16, x, b, multigrid.MODE_JACOBI, 0.8), 'stencil16_kernel')} "
+        f"(torch.profiler)")
     return out
 
 
@@ -1763,10 +1752,6 @@ def main() -> None:
                              ("expand", "p2g", "stencil", "stencil16"))
     torch.cuda.empty_cache()
     drive("testbed path (setup 4)", testbed_run, FORWARD_KERNELS)
-
-    for name, ms in device_alone_phase(device).items():
-        # B' is held to its plain version at 64^3; its device time is at 128^3
-        stats[name]["device_ms_128" if name == "p2g_bwd" else "device_ms"] = ms
 
     # launches: each kernel's count on the path it belongs to (the main path
     # for A-F, the gradient path for B' and D', the correction-on gradient

@@ -41,10 +41,11 @@
 // up to BIG_TILE_MAX_KC = 18 slots a cell (360 cells x 19 x 32 B = 214 KB; at
 // the main path's KC = 12, 146 KB, one block an SM), above that a 4 x 4 x 4
 // tile with 256 threads (216 cells x 33 x 32 B = 223 KB at KC = 32; at KC = 12
-// it took 1.93 ms for the larger tile's 1.77).
-// 1 / sqrt(s) is rsqrtf (2 ulp), as in E: with 1 / sqrtf the kernel took 2.33
-// ms for 1.77 at the 128^3 shapes and its results moved by 9.5e-6 of values
-// up to 1e2, under the error either has against float64.
+// it took 1.94 ms on the device for the larger tile's 1.78).
+// 1 / sqrt(s) is rsqrtf (2 ulp), as in E: with 1 / sqrtf the kernel took 2.44
+// ms for 1.78 at the 128^3 shapes and its results moved by 9.5e-6 of values
+// up to 1e2, under the error either has against float64 (one run of
+// tools/kernel_variants.py --backward on an NVIDIA H100 80GB HBM3 at 700 W).
 
 #include <cuda_runtime.h>
 #include <stdint.h>

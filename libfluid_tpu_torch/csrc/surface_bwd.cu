@@ -17,9 +17,9 @@
 // from b (both of the support's size), not from world coordinates. A gather:
 // no atomics, the same bits from run to run, whatever the tiles.
 //
-// Bound: operations, ~20 a particle and node of its window (2.0M particles x
-// 512 nodes at the main path: 0.31 ms); the bytes (16 B a node read, 24 B a
-// particle) are less.
+// Bound: operations, ~29 a particle and node within its extent (2.0M
+// particles x 268 nodes at the main path: 0.23 ms; the loop runs over the 512
+// nodes of the window); the bytes (16 B a node read, 24 B a particle) are less.
 //
 // Design: one block per tile of TB^3 bins of the padded bin grid (the CSR
 // bins the forward sorted the particles into), a thread a particle.

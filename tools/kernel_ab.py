@@ -85,12 +85,8 @@ def measure(tag: str) -> None:
     d = [cs.median_ms(forward) for _ in range(3)]
     db = [cs.median_ms(backward) for _ in range(3)]
     stage = [cs.wall_ms(forward, 1) for _ in range(5)]
-    def device(fn, kernel):  # a tree's chip_smoke gives text, or ms that its dev_text turns into text
-        ms = cs.device_ms(fn, kernel)
-        return ms if isinstance(ms, str) else cs.dev_text(ms)
-
-    print(f"{tag}: D ms {fmt(d)} (device {device(forward, 'g2p_kernel')}) | D' ms {fmt(db)} "
-          f"(device {device(backward, 'g2p_bwd_kernel')}) | g2p_pic stage wall ms {fmt(stage)}",
+    print(f"{tag}: D ms {fmt(d)} (device {cs.device_ms(forward, 'g2p_kernel')}) | D' ms {fmt(db)} "
+          f"(device {cs.device_ms(backward, 'g2p_bwd_kernel')}) | g2p_pic stage wall ms {fmt(stage)}",
           flush=True)
 
     # kernel B' on the payload of this state and random face cotangents
@@ -101,7 +97,7 @@ def measure(tag: str) -> None:
         return kernels.p2g_faces_bwd(data, faces[:3], faces[3:], cfg)
 
     bb = [cs.median_ms(p2g_backward) for _ in range(3)]
-    print(f"{tag}: B' ms {fmt(bb)} (device {device(p2g_backward, 'p2g_bwd_kernel')})", flush=True)
+    print(f"{tag}: B' ms {fmt(bb)} (device {cs.device_ms(p2g_backward, 'p2g_bwd_kernel')})", flush=True)
 
 
 def main() -> None:

@@ -116,7 +116,7 @@ def run(source, entry, kernel, variants, args, outs, want, folder, csrc=_build.C
         worst = max((cs.max_err(o, w) for o, w in zip(outs, want) if o.numel()), default=0.0)
         ms = [cs.median_ms(call) for _ in range(2)]
         names = (kernel,) if isinstance(kernel, str) else kernel
-        device = ", ".join(f"{name} {cs.dev_text(cs.device_ms(call, name))}" for name in names)
+        device = ", ".join(f"{name} {cs.device_ms(call, name)}" for name in names)
         print(f"{entry} {what}: ms {ms[0]:.4f} {ms[1]:.4f}, device {device}, "
               f"the library's bits: {same} (max abs difference {worst:.3e}); {said}", flush=True)
 
