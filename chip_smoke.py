@@ -70,7 +70,20 @@ Phases, one line of output each (or a few):
 9. the 128^3 dam-break with FLIP and the bfloat16 V-cycle ("mg16"), 2
    substeps;
 10. the testbed CLI, setup 4 (jet source + obstacle), 2 frames with an OBJ
-    export every frame.
+    export every frame;
+11. the renderer (no kernel of its own: PyTorch loops): BASELINE configs 1
+    and 2 (Cornell and glass, 256^2 x 32 spp, the persistent tracer; wall
+    time, rays cast, Mrays/s, host reads); both tracers against the golden
+    images at 64^2 x 128 spp; config 3, the 64^3 simulate -> mesh -> render
+    frame (substep, mesh, accelerator build and megakernel render ms); the
+    accelerator on config 3's mesh and on the 128^3 main path's (~270k
+    triangles) against the brute force on the card, build and traversal ms;
+    one profiled Cornell render (device busy share); the CLI's ``--scene
+    cornell1``.
+
+Phase 3 also holds kernels B, E and E' at 40 slots a cell and F and F' with
+a support of 16 cells (where the slots take two words of an occupancy mask
+and F's box of bin starts no longer fits shared memory).
 
 Phase 3 also logs, beside each kernel's event median around its wrapper, the
 device's own time of one launch (torch.profiler).
@@ -95,8 +108,11 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from libfluid_tpu_torch import _build, testbed
-from libfluid_tpu_torch.config import MesherConfig, SimConfig, SolverConfig, TransferScheme
+from libfluid_tpu_torch.config import MesherConfig, RenderConfig, SimConfig, SolverConfig, TransferScheme
 from libfluid_tpu_torch import sim
+from libfluid_tpu_torch.renderer import accel, intersect, loops, pathtrace, scenes
+from libfluid_tpu_torch.renderer.render import render
+from libfluid_tpu_torch.renderer.scene import inject_mesh
 from libfluid_tpu_torch.io.obj import load_obj
 from libfluid_tpu_torch.mesher import generate_mesh, surface
 from libfluid_tpu_torch.sim import (correction, extrapolation, kernels, multigrid, pressure, slotsort,
@@ -345,31 +361,36 @@ def cg_parity(state, cfg) -> None:
 
 def correction_many_slots(device) -> None:
     """Kernel E's shared memory grows with the slots a cell may hold, up to
-    32 (186 KB a block; the main path has 12). 16 and 32 slots a cell on
-    random slots of a small grid with an empty third, against the plain
-    version."""
+    a word of 32 (186 KB a block; the main path has 12); above that it
+    takes its own and its neighbours' slots a word at a time. 16, 32 and 40
+    slots a cell on random slots of a small grid with an empty third,
+    against the plain version, two launches bit-equal."""
     shape = (20, 18, 28)
     cfg = SimConfig(grid_size=shape, particle_capacity=8)
     gen = torch.Generator(device=device).manual_seed(5)
     cell = torch.stack(torch.meshgrid(
         *(torch.arange(n, device=device, dtype=torch.float32) for n in shape), indexing="ij"))
     errs = {}
-    for kc in (16, 32):
+    for kc in (16, 32, 40):
         mask = (torch.rand((kc, *shape), generator=gen, device=device) < 0.4).float()
         mask[..., : shape[2] // 3] = 0.0
         pos = (cell[:, None] + torch.rand((3, kc, *shape), generator=gen, device=device)) * mask
         got = kernels.correction_springs(pos, mask, 0.5, 99, (2, 0, 5))
+        check(torch.equal(got, kernels.correction_springs(pos, mask, 0.5, 99, (2, 0, 5))),
+              f"correction with {kc} slots a cell: two launches differ")
         want = correction._springs_torch(pos, mask, 0.5, 99, cfg, (2, 0, 5))
         errs[kc] = max_err(got, want) / (100.0 * float(torch.max(torch.abs(pos))))
         check(errs[kc] < 2e-6, f"correction with {kc} slots a cell: normalized error {errs[kc]} >= 2e-6")
     log(f"kernel correction, more slots a cell at {shape}: normalized error "
-        + ", ".join(f"{e:.3e} with {kc} slots a cell" for kc, e in errs.items()) + " (< 2e-6)")
+        + ", ".join(f"{e:.3e} with {kc} slots a cell" for kc, e in errs.items())
+        + " (< 2e-6), two launches bit-equal")
 
 
 def p2g_odd_shapes(device) -> None:
     """Kernel B away from the main path's shapes: a grid no tile divides,
-    a cell size and offset that are not 1 and 0, 5, 12 and 32 slots a cell
-    (32 fills more than one shared-memory chunk), slots that are not
+    a cell size and offset that are not 1 and 0, 5, 12, 32 and 40 slots a
+    cell (32 fills more than one shared-memory chunk, 40 takes two words of
+    the occupancy mask), slots that are not
     prefix-dense, a third of the grid empty, one cell full, APIC and PIC;
     each against the plain version, and two launches bit-equal."""
     shape = (20, 18, 28)
@@ -378,7 +399,7 @@ def p2g_odd_shapes(device) -> None:
         *(torch.arange(n, device=device, dtype=torch.float32) for n in shape), indexing="ij"))
     errs = {}
     for scheme in (TransferScheme.APIC, TransferScheme.PIC):
-        for k in (5, 12, 32):
+        for k in (5, 12, 32, 40):
             cfg = SimConfig(grid_size=shape, cell_size=0.7, grid_offset=(0.3, -0.2, 0.1),
                             scheme=scheme, max_neighbors_per_cell=k, particle_capacity=8)
             mask = (torch.rand((k, *shape), generator=gen, device=device) < 0.4).float()
@@ -494,6 +515,47 @@ def surface_odd_shapes(device) -> None:
         f"particles: max abs error "
         + ", ".join(f"{e:.3e} (support {round(x / h)} cells)" for x, e in errs.items())
         + " (< 2e-3), two launches bit-equal")
+
+
+def surface_wide_support(device) -> None:
+    """Kernels F and F' with a support of 16 cells (extent 2.0, cell
+    0.125), where the box's bin starts no longer fit a block's shared
+    memory and F takes the box's rows in runs: a node grid no tile divides,
+    half of it empty, inactive particles, one bin of 3,700 particles (more
+    than one chunk). F against the plain version (< 2e-3); F' at its maximum
+    on the sound nodes against the plain closed form (< 1e-4 of the largest
+    component, see :func:`held_on_sound_nodes`); both two launches
+    bit-equal, an inactive particle's cotangent 0."""
+    grid, h, origin = (40, 36, 44), 0.125, (-0.5, 0.25, 0.0)
+    mcfg = MesherConfig(grid_size=grid, cell_size=h, grid_offset=origin, particle_extent=2.0,
+                        particle_radius=0.5)
+    check(surface._support_cells(mcfg) == 16, "the support is not 16 cells")
+    gen = torch.Generator(device=device).manual_seed(19)
+    lo = torch.tensor(origin, device=device)
+    size = torch.tensor(grid, device=device) * h * torch.tensor([0.5, 1.0, 1.0], device=device)
+    fluid = lo + torch.rand((1_500, 3), generator=gen, device=device) * size
+    crammed = lo + (torch.tensor([9.0, 17.0, 30.0], device=device)
+                    + torch.rand((3_700, 3), generator=gen, device=device)) * h
+    pos = torch.cat([fluid, crammed]).contiguous()
+    act = torch.arange(pos.shape[0], device=device) % 7 != 0
+    got = surface.sample_surface(pos, act, mcfg)
+    check(torch.equal(got, surface.sample_surface(pos, act, mcfg)), "surface, support 16: two launches differ")
+    want = surface._sample_surface_torch(pos, act, mcfg)
+    err = max_err(got, want)
+    check(err < 2e-3, f"surface, support 16: max abs error {err} >= 2e-3")
+    check(bool((want < 0).any()) and bool((want == 1.0).any()),
+          "surface, support 16: no node inside the fluid, or none away from it")
+    g = torch.randn(tuple(n + 1 for n in grid), generator=gen, device=device)
+    binned = surface._binned(pos, act, mcfg)
+    dp = surface.sample_surface_bwd(binned, g, mcfg)
+    check(torch.equal(dp, surface.sample_surface_bwd(binned, g, mcfg)),
+          "surface_bwd, support 16: two launches differ")
+    check(not bool(dp[~act].any()), "surface_bwd, support 16: an inactive particle got a cotangent")
+    check(bool(dp.any()), "surface_bwd, support 16: no particle got a cotangent")
+    log(f"kernels surface and surface_bwd, support 16 cells at {tuple(n + 1 for n in grid)} nodes (cell {h}) "
+        f"from {pos.shape[0]} particles: F max abs error {err:.3e} (< 2e-3); F' "
+        + held_on_sound_nodes("support 16 cells", pos, act, g, mcfg, False)
+        + "; two launches bit-equal each")
 
 
 def device_ms(fn, kernel: str, reps: int = 5) -> str:
@@ -678,6 +740,7 @@ def kernel_phases(cfg, state):
         f"{device_ms(lambda: surface.sample_surface(pos, act, MESH_128), 'surface_kernel')} (torch.profiler)")
     del got, want
     surface_odd_shapes(state.position.device)
+    surface_wide_support(state.position.device)
     return out, (cycle_wall, operator_wall)
 
 
@@ -737,7 +800,7 @@ def held_on_sound_nodes(what: str, pos: torch.Tensor, act: torch.Tensor, g: torc
 def p2g_bwd_odd_shapes(device) -> None:
     """Kernel B' away from the main path's shapes, as :func:`p2g_odd_shapes`
     has kernel B: a grid no tile divides, a cell size and offset that are not
-    1 and 0, 5, 12 and 32 slots a cell, slots that are not prefix-dense with
+    1 and 0, 5, 12, 32 and 40 slots a cell, slots that are not prefix-dense with
     slot 0's particles on cell corners (the hats' kinks), a third of the grid
     empty, APIC and PIC; against the plain autograd (relative error < 1e-5
     on the occupied slots, empty slots 0), two launches bit-equal. The plain
@@ -750,7 +813,7 @@ def p2g_bwd_odd_shapes(device) -> None:
         *(torch.arange(n, device=device, dtype=torch.float32) for n in shape), indexing="ij"))
     errs = {}
     for scheme in (TransferScheme.APIC, TransferScheme.PIC):
-        for k in (5, 12, 32):
+        for k in (5, 12, 32, 40):
             cfg = SimConfig(grid_size=shape, cell_size=0.7, grid_offset=(0.3, -0.2, 0.1),
                             scheme=scheme, max_neighbors_per_cell=k, particle_capacity=8)
             mask = (torch.rand((k, *shape), generator=gen, device=device) < 0.4).float()
@@ -855,13 +918,14 @@ def correction_bwd_phases(cfg, state, gen) -> dict:
                           refs[torch.float64][1] * occ))
     del refs
 
-    # more slots a cell (the smaller tile above 18), coincident pairs, nothing
+    # more slots a cell (the words kernel above 18, two words of the
+    # occupancy mask at 40), coincident pairs, nothing
     shape = (20, 18, 28)
     cfg_s = SimConfig(grid_size=shape, particle_capacity=8)
     cell = torch.stack(torch.meshgrid(
         *(torch.arange(n, device=device, dtype=torch.float32) for n in shape), indexing="ij"))
     texts = []
-    for kc in (16, 32):
+    for kc in (16, 32, 40):
         mask = (torch.rand((kc, *shape), generator=gen, device=device) < 0.4).float()
         mask[..., : shape[2] // 3] = 0.0
         pos = cell[:, None] + torch.rand((3, kc, *shape), generator=gen, device=device)
@@ -875,6 +939,9 @@ def correction_bwd_phases(cfg, state, gen) -> dict:
         pos = pos * mask
         g = torch.randn(pos.shape, generator=gen, device=device)
         dp, dm = kernels.correction_springs_bwd(pos, mask, g, 0.5, 99, (2, 0, 5))
+        dp2, dm2 = kernels.correction_springs_bwd(pos, mask, g, 0.5, 99, (2, 0, 5))
+        check(torch.equal(dp, dp2) and torch.equal(dm, dm2),
+              f"correction_bwd with {kc} slots a cell: two launches differ")
         ref = correction._springs_vjp_torch(pos.cpu().double(), mask.cpu().double(), g.cpu().double(),
                                             0.5, 99, cfg_s, (2, 0, 5))
         plain = correction._springs_vjp_torch(pos.cpu(), mask.cpu(), g.cpu(), 0.5, 99, cfg_s, (2, 0, 5))
@@ -888,7 +955,8 @@ def correction_bwd_phases(cfg, state, gen) -> dict:
                                             0.5, 99)
     check(not bool(dp.any()) and not bool(dm.any()), "correction_bwd on an empty grid is not zero")
     log(f"kernel correction_bwd (E'), more slots a cell at {shape} with coincident pairs, against the closed "
-        f"form on CPU copies in float64: " + " | ".join(texts) + "; an empty grid gives zeros")
+        f"form on CPU copies in float64: " + " | ".join(texts) + "; two launches bit-equal; an empty grid "
+        f"gives zeros")
     return {"correction_bwd": rec}
 
 
@@ -1630,11 +1698,11 @@ def busy_share(state, cfg, n0: int):
     return state
 
 
-def dam_break_run(device, correct: bool, substeps: int, cg_parts=None) -> None:
+def dam_break_run(device, correct: bool, substeps: int, cg_parts=None):
     """The 128^3 dam-break: one warm-up substep, `substeps` timed ones and,
     given `cg_parts` (see :func:`stage_split`), the stage split, the
     profiled substep and one CFL step(1/60); then, with correction, the
-    mesh."""
+    mesh, whose triangles it returns ((T, 3, 3) vertices, (T,) valid)."""
     cfg, state = dam_break(128, device, 1 << 21, correct)
     what = "correction on" if correct else "correction off"
     n0 = int(particle_count(state))
@@ -1687,6 +1755,8 @@ def dam_break_run(device, correct: bool, substeps: int, cg_parts=None) -> None:
             f"(capacity {MESH_128.max_triangles}) in {mesh_s * 1e3:.1f} ms")
         check(0 < count < MESH_128.max_triangles, f"mesh: {count} triangles")
         check(bool(torch.isfinite(tris).all()), "mesh: non-finite vertices")
+        return tris.contiguous(), mesh.valid[:count].contiguous()
+    return None
 
 
 def testbed_run() -> None:
@@ -1699,6 +1769,224 @@ def testbed_run() -> None:
         for frame in range(2):
             pos, idx = load_obj(os.path.join(out, f"mesh_{frame:05d}.obj"))
             check(idx.shape[0] > 0 and bool(np.isfinite(pos).all()), f"testbed frame {frame} mesh")
+
+
+# the renderer: BASELINE configs 1 and 2 (bench.py's bench_rays) and 3
+# (bench_e2e_64); the water of config 3's fluid box
+RENDER_SCENES = {"cornell": scenes.cornell_box_one_light, "glass": scenes.glass_ball_box}
+WATER = (0.4, 0.55, 0.8)
+GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden")
+
+
+def psnr(a: np.ndarray, b: np.ndarray) -> float:
+    mse = float(np.mean((a - b) ** 2))
+    peak = float(max(a.max(), b.max(), 1e-6))
+    return 10.0 * np.log10(peak * peak / max(mse, 1e-20))
+
+
+def render_configs_1_2(device) -> None:
+    """Configs 1 and 2 as bench.py sets them: Cornell and glass at 256^2 x
+    32 spp, max_bounces 5, the persistent brute tracer with its cast count;
+    the wall time of the second call, rays cast, Mrays/s (cast-accounted)
+    and the host reads of the loop."""
+    cfg = RenderConfig(width=256, height=256, samples_per_pixel=32, max_bounces=5, differentiable=False)
+    for number, (name, mk) in enumerate(RENDER_SCENES.items(), start=1):
+        b, cam = mk(1.0, device=device)
+        scene = b.finish(device=device)
+        pathtrace.trace_persistent(scene, cam, cfg, torch.Generator().manual_seed(0), True)
+        torch.cuda.synchronize()
+        loops.reset_host_reads()
+        t0 = time.perf_counter()
+        img, cast = pathtrace.trace_persistent(scene, cam, cfg, torch.Generator().manual_seed(1), True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        reads, rays = loops.HOST_READS["count"], int(cast)
+        img = img / cfg.samples_per_pixel
+        check(img.device.type == "cuda", f"config {number}: the image is not on the card")
+        check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0, f"config {number}: image not finite or black")
+        log(f"render config {number} ({name}) 256^2 x 32 spp, max_bounces 5, persistent brute tracer: "
+            f"{wall:.4f} s (second call), {rays} rays cast "
+            f"({rays / (cfg.width * cfg.height * cfg.samples_per_pixel):.3f} a path), "
+            f"{rays / wall / 1e6:.3f} Mrays/s (cast-accounted), {reads} host reads, image mean "
+            f"{float(img.mean()):.5f}")
+
+
+def render_goldens(device) -> None:
+    """Cornell and glass at 64^2 x 128 spp, max_bounces 5, with each tracer
+    (the fixed-count one of ``render``'s default and the persistent one),
+    against tests/golden/*_64.npz: PSNR > 26 dB and the mean within 3 %,
+    the rule of tests/test_golden_images.py."""
+    texts = []
+    for name, mk in RENDER_SCENES.items():
+        golden = np.load(os.path.join(GOLDEN_DIR, f"{name}_64.npz"))["img"]
+        b, cam = mk(1.0, device=device)
+        scene = b.finish(device=device)
+        for differentiable, tracer in ((True, "fixed-count"), (False, "persistent")):
+            cfg = RenderConfig(width=64, height=64, samples_per_pixel=128, max_bounces=5,
+                               differentiable=differentiable)
+            t0 = time.perf_counter()
+            img = render(scene, cam, cfg, torch.Generator().manual_seed(7), device=device)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            img = img.cpu().numpy()
+            p, rel = psnr(img, golden), abs(float(img.mean()) / float(golden.mean()) - 1.0)
+            check(bool(np.isfinite(img).all()) and p > 26.0 and rel < 0.03,
+                  f"golden {name}, {tracer} tracer: PSNR {p:.2f} dB, mean off by {rel:.4f}")
+            texts.append(f"{name} {tracer}: PSNR {p:.2f} dB, mean off by {100 * rel:.2f} % ({wall:.3f} s)")
+    log("render against the golden images at 64^2 x 128 spp (PSNR > 26 dB, mean within 3 %): " + "; ".join(texts))
+
+
+def fluid_scene(n: float, vertices: torch.Tensor, valid: torch.Tensor, device):
+    """The fluid box around an n^3 domain with the water mesh injected, and
+    its camera."""
+    b, cam = scenes.fluid_box((0.0, 0.0, 0.0), (n, n, n), device=device)
+    water = b.lambertian(WATER)
+    return inject_mesh(b.finish(device=device), vertices, valid, water), cam
+
+
+def render_config_3(device):
+    """Config 3 as bench.py sets it: the 64^3 APIC dam-break (capacity 2^18,
+    seed box (1, 1, 1)-(31, 31, 31), no obstacles), a substep of 0.02, the
+    mesh on 64^3 cells of 1.0 (2^17 triangles), the fluid box with the water
+    mesh injected, the accelerator at 64^3, and the megakernel at 256^2 x 4
+    spp, max_bounces 4. Three warm-up frames, one timed; the ms of each part
+    (a synchronize after each), triangles, rays cast, host reads. Returns the
+    timed frame's mesh ((T, 3, 3) vertices, (T,) valid)."""
+    cfg = SimConfig(grid_size=(64, 64, 64), gravity=(0.0, -981.0, 0.0), particle_capacity=1 << 18,
+                    scheme=TransferScheme.APIC, has_obstacles=False)
+    state = sim.seed_box(sim.new_state(cfg, device), cfg, (1.0, 1.0, 1.0), (31.0, 31.0, 31.0))
+    mcfg = MesherConfig(grid_size=(64, 64, 64), cell_size=1.0, max_triangles=1 << 17)
+    b, cam = scenes.fluid_box((0.0, 0.0, 0.0), (64.0, 64.0, 64.0), device=device)
+    water = b.lambertian(WATER)
+    scene0 = b.finish(device=device)
+    rcfg = RenderConfig(width=256, height=256, samples_per_pixel=4, max_bounces=4, differentiable=False)
+
+    def frame(state, seed):
+        marks = [time.perf_counter()]
+
+        def mark():
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        state, diag = sim.substep(state, cfg, DT)
+        mark()
+        mesh = generate_mesh(state.position, state.active, mcfg)
+        mark()
+        scene = inject_mesh(scene0, mesh.vertices, mesh.valid, water)
+        scene = scene._replace(accel=accel.build(scene, res=(64, 64, 64), device=device))
+        mark()
+        loops.reset_host_reads()
+        img, cast = pathtrace.trace_persistent(scene, cam, rcfg, torch.Generator().manual_seed(seed), True)
+        img = img / rcfg.samples_per_pixel
+        mark()
+        ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+        return state, diag, mesh, scene, img, int(cast), loops.HOST_READS["count"], ms
+
+    for i in range(3):
+        state, *_ = frame(state, 1 + i)
+    state, diag, mesh, scene, img, rays, reads, ms = frame(state, 9)
+    count = int(mesh.count)
+    check(float(diag.pressure_residual) < 1e-5, f"config 3: CG residual {float(diag.pressure_residual)}")
+    check(0 < count < mcfg.max_triangles, f"config 3: {count} triangles")
+    check(int(scene.accel.big_overflow) == 0, "config 3: the accelerator's big list overflowed")
+    check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0, "config 3: image not finite or black")
+    log(f"render config 3 (64^3 simulate -> mesh -> render frame, the 4th of 4): {sum(ms):.1f} ms = substep "
+        f"{ms[0]:.1f} + mesh {ms[1]:.1f} + accel build {ms[2]:.1f} + render {ms[3]:.1f} (megakernel, 256^2 x 4 "
+        f"spp, max_bounces 4); {count} triangles, {rays} rays cast, {rays / (ms[3] / 1e3) / 1e6:.3f} Mrays/s "
+        f"in the render, {reads} host reads, CG {int(diag.pressure_iterations)} it, image mean "
+        f"{float(img.mean()):.5f}")
+    return mesh.vertices[:count].contiguous(), mesh.valid[:count].contiguous()
+
+
+def accel_at_fluid_scale(device, meshes) -> None:
+    """The accelerator on fluid meshes: for each (what, domain, res,
+    vertices, valid) the fluid box with the mesh injected, ``accel.build``
+    at `res` with no big-list overflow, ``traverse`` of 8,192 rays from
+    points in the domain against ``_brute_force_tris`` on the card (the same
+    hits and materials, t within rtol 1e-5), and the device ms of the build
+    and of the traversal of the camera's 65,536 primary rays (256^2)."""
+    for what, n, res, vertices, valid in meshes:
+        scene, cam = fluid_scene(n, vertices, valid, device)
+        acc = accel.build(scene, res=res, device=device)
+        check(int(acc.big_overflow) == 0, f"accel {what}: {int(acc.big_overflow)} big triangles dropped")
+        pack = accel.pack_tris(scene)
+        gen = torch.Generator(device=device).manual_seed(3)
+        o = torch.rand((8192, 3), generator=gen, device=device) * n
+        d = torch.randn((8192, 3), generator=gen, device=device)
+        d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+        t, tid, _, _ = accel.traverse(acc, pack, o, d, 3.0e38)
+        bt, bid, _, _ = intersect._brute_force_tris(scene, o, d, 3.0e38)
+        hit = bid >= 0
+        check(torch.equal(tid >= 0, hit), f"accel {what}: {int(((tid >= 0) != hit).sum())} hits differ")
+        check(torch.equal(scene.tri_mat[tid.clamp(min=0)][hit], scene.tri_mat[bid.clamp(min=0)][hit]),
+              f"accel {what}: materials differ")
+        check(close(t[hit], bt[hit], 1e-5, 0.0), f"accel {what}: t differs by {max_err(t[hit], bt[hit])}")
+        water_hits = int((scene.tri_mat[bid.clamp(min=0)][hit] == scene.tri_mat.max()).sum())
+        gx, gy = torch.meshgrid(torch.arange(256, device=device, dtype=torch.float32),
+                                torch.arange(256, device=device, dtype=torch.float32), indexing="xy")
+        po, pd = cam.get_rays((torch.stack([gx, gy], -1).reshape(-1, 2) + 0.5) / 256.0)
+        build_ms = median_ms(lambda: accel.build(scene, res=res, device=device), 5)
+        loops.reset_host_reads()
+        accel.traverse(acc, pack, po, pd, 3.0e38)
+        reads = loops.HOST_READS["count"]
+        trav_ms = median_ms(lambda: accel.traverse(acc, pack, po, pd, 3.0e38), 5)
+        log(f"accel {what}: {vertices.shape[0]} mesh triangles, res {res}, {acc.tri_ids.shape[0]} entries, "
+            f"big overflow 0; 8192 rays: {int(hit.sum())} hits ({water_hits} on the water) equal to the brute "
+            f"force on the card, t within rtol 1e-5 (max abs {max_err(t[hit], bt[hit]):.3e}); build "
+            f"{build_ms:.3f} ms, traverse of 65536 primary rays {trav_ms:.3f} ms ({reads} host reads)")
+
+
+def render_busy_share(device) -> None:
+    """One config-1 Cornell render (persistent tracer) under torch.profiler:
+    the device's busy share of the wall time and the largest device items."""
+    b, cam = scenes.cornell_box_one_light(1.0, device=device)
+    scene = b.finish(device=device)
+    cfg = RenderConfig(width=256, height=256, samples_per_pixel=32, max_bounces=5, differentiable=False)
+    render(scene, cam, cfg, torch.Generator().manual_seed(0), device=device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        render(scene, cam, cfg, torch.Generator().manual_seed(1), device=device)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    on_device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in on_device) / 1e3
+    check(busy > 0, "torch.profiler saw no device time in the render")
+    log(f"profiled Cornell render 256^2 x 32 spp (persistent): wall {wall:.1f} ms, device busy {busy:.2f} ms = "
+        f"{100.0 * busy / wall:.1f} % of the wall time; largest device items: "
+        + "; ".join(f"{e.key[:48]} x{e.count} {e.device_time_total / 1e3:.2f} ms"
+                    for e in sorted(on_device, key=lambda e: -e.device_time_total)[:8]))
+
+
+def scene_cli_run() -> None:
+    """The testbed CLI's ``--scene cornell1`` at its defaults (400^2, 16
+    spp, the fixed-count tracer) on the card: a P6 PPM of the right size."""
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        rc = testbed_cli.main(["--scene", "cornell1", "--out", out])
+        log(f"testbed --scene cornell1 (400^2 x 16 spp): rc {rc}, {time.perf_counter() - t0:.2f} s")
+        check(rc == 0, f"testbed --scene exited with {rc}")
+        data = open(os.path.join(out, "cornell1.ppm"), "rb").read()
+        header = b"P6\n400 400\n255\n"
+        check(data.startswith(header) and len(data) == len(header) + 400 * 400 * 3,
+              f"cornell1.ppm: header {data[:16]!r}, {len(data)} bytes")
+        check(np.frombuffer(data[len(header):], np.uint8).max() > 0, "cornell1.ppm is black")
+
+
+def renderer_phases(device, mesh128) -> None:
+    """The renderer's slice: configs 1 and 2, both tracers against the
+    golden images, config 3's frame (driven, with the kernels of its
+    substep and mesher), the accelerator on config 3's and the 128^3 main
+    path's meshes, a profiled render and the CLI's --scene."""
+    render_configs_1_2(device)
+    render_goldens(device)
+    mesh64, _ = drive("config 3 frame (64^3 simulate -> mesh -> render)", lambda: render_config_3(device),
+                      FORWARD_KERNELS)
+    accel_at_fluid_scale(device, [("config 3's 64^3 frame", 64.0, (64, 64, 64), *mesh64),
+                                  ("the 128^3 main path's mesh", 128.0, (128, 128, 128), *mesh128)])
+    del mesh64
+    render_busy_share(device)
+    scene_cli_run()
 
 
 def main() -> None:
@@ -1734,8 +2022,8 @@ def main() -> None:
            *MESH_GRAD_KERNELS))
     descent_32(device)
     torch.cuda.empty_cache()
-    _, launches = drive("main path (128^3, correction on, mesh)",
-                        lambda: dam_break_run(device, True, 5, cg_parts), FORWARD_KERNELS)
+    mesh128, launches = drive("main path (128^3, correction on, mesh)",
+                              lambda: dam_break_run(device, True, 5, cg_parts), FORWARD_KERNELS)
     torch.cuda.empty_cache()
     drive("128^3 correction-off path", lambda: dam_break_run(device, False, 2),
           ("expand", "p2g", "stencil", *VCYCLE_KERNELS, "g2p"))
@@ -1752,6 +2040,9 @@ def main() -> None:
                              ("expand", "p2g", "stencil", "stencil16"))
     torch.cuda.empty_cache()
     drive("testbed path (setup 4)", testbed_run, FORWARD_KERNELS)
+    torch.cuda.empty_cache()
+    renderer_phases(device, mesh128)
+    del mesh128
 
     # launches: each kernel's count on the path it belongs to (the main path
     # for A-F, the gradient path for B' and D', the correction-on gradient

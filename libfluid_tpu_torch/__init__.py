@@ -8,7 +8,7 @@ package never imports ``jax``.
 """
 
 from libfluid_tpu_torch.config import (
-    CellType, MesherConfig, SimConfig, SolverConfig, TransferScheme,
+    CellType, MesherConfig, RenderConfig, SimConfig, SolverConfig, TransferScheme,
 )
 
-__all__ = ["CellType", "MesherConfig", "SimConfig", "SolverConfig", "TransferScheme"]
+__all__ = ["CellType", "MesherConfig", "RenderConfig", "SimConfig", "SolverConfig", "TransferScheme"]

@@ -17,15 +17,20 @@ import torch
 def resolve_device(device=None) -> torch.device:
     """The device a constructor builds on: the CUDA card unless the caller
     names another (``device="cpu"``, as the tests do). ``device=None`` never
-    falls back to the CPU: without a card it raises."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "device=None selects the CUDA card, but torch.cuda.is_available() is False; "
-            'pass device="cpu" to build on the CPU'
-        )
-    return torch.device("cuda")
+    falls back to the CPU: without a card it raises. A CUDA device comes
+    back with its index (``cuda`` is the current card), so that it compares
+    equal to a tensor's device."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device=None selects the CUDA card, but torch.cuda.is_available() is False; "
+                'pass device="cpu" to build on the CPU'
+            )
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 class TransferScheme(enum.Enum):
@@ -129,3 +134,23 @@ class MesherConfig:
     particle_extent: float = 2.0  # kernel support radius, world units
     particle_radius: float = 0.5  # average-radius contribution per particle
     max_triangles: int = 1 << 18  # output capacity of marching cubes
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Renderer tunables; see ``libfluid_tpu.config.RenderConfig``."""
+
+    width: int = 256
+    height: int = 256
+    samples_per_pixel: int = 16
+    algorithm: str = "pt"  # "pt" (naive forward); "bdpt" is not ported yet
+    max_bounces: int = 5
+    max_camera_bounces: int = 6
+    max_light_bounces: int = 6
+    ray_batch: int = 1 << 15  # rays traced per strip of the fixed-count tracer
+    # Russian roulette from this bounce on (>= max_bounces disables it)
+    rr_start: int = 3
+    rr_floor: float = 0.05
+    # the fixed-count bounce tracer (reverse-differentiable in JAX); False
+    # selects the persistent early-exit tracers
+    differentiable: bool = True

@@ -33,8 +33,8 @@
 //   3. The nodes the tile reaches are a box of TB + 2 cr - 1 nodes an axis.
 //      Its (a, b) words go to shared memory, nodes outside the node grid as
 //      zeros: the whole box if it fits SLAB_NODES words (cr <= 4), else a slab
-//      of x-planes at a time, the particle's sums staying in registers across
-//      the slabs. THREADS particles are in flight at a time; a tile with more
+//      of (x, y) lines along z at a time, in line order, the particle's sums
+//      staying in registers across the slabs. THREADS particles are in flight at a time; a tile with more
 //      (a crammed bin) takes its list in rounds, and with several slabs
 //      stages them again each round.
 //   4. A particle walks its window x, y, z ascending, so its bits depend on
@@ -52,8 +52,10 @@ constexpr int TB = 8;           // bins a tile and axis
 constexpr int ROWS = TB * TB;   // its rows of bins along z
 constexpr int THREADS = 256;
 constexpr int SLAB_NODES = 3584;  // 16-byte words of shared memory for the nodes
-constexpr int MAX_CR = 12;        // kernel F's limit
 
+// ONE_SLAB: the whole box of nodes fits shared memory (cr <= 4); the
+// window's lines then need no clipping to the slab
+template <bool ONE_SLAB>
 __global__ void __launch_bounds__(THREADS)
 surface_bwd_kernel(const float* __restrict__ pos, const int* __restrict__ starts,
                    const float4* __restrict__ ab, float* __restrict__ out, int mx, int my, int mz,
@@ -116,9 +118,8 @@ surface_bwd_kernel(const float* __restrict__ pos, const int* __restrict__ starts
   // b - 2 cr + 1 ... b
   const int w = TB + n2 - 1;  // nodes an axis of the box
   const int n0x = t0x - n2 + 1, n0y = t0y - n2 + 1, n0z = t0z - n2 + 1;
-  const int plane = w * w;
-  const int sx = min(w, SLAB_NODES / plane);  // x-planes a slab
-  const bool one_slab = sx >= w;
+  const int lines = w * w;  // its (x, y) lines of w nodes along z
+  const int sl = ONE_SLAB ? lines : min(lines, SLAB_NODES / w);  // lines a slab
   const float inv_ext2 = 1.0f / ext2;
   const float slope = -6.0f * inv_ext2;  // 3 kl^2 * (-2 / ext^2)
 
@@ -147,13 +148,13 @@ surface_bwd_kernel(const float* __restrict__ pos, const int* __restrict__ starts
     }
     float gx = 0.f, gy = 0.f, gz = 0.f;
 
-    for (int s0 = 0; s0 < w; s0 += sx) {
-      const int s1 = min(s0 + sx, w);
-      if (!one_slab || e0 == 0) {
+    for (int s0 = 0; s0 < lines; s0 += sl) {  // the lines [s0, s1)
+      const int s1 = min(s0 + sl, lines);
+      if (!ONE_SLAB || e0 == 0) {
         __syncthreads();  // the last slab is read
-        for (int t = threadIdx.x; t < (s1 - s0) * plane; t += THREADS) {
-          const int lx = s0 + t / plane, ly = (t / w) % w, lz = t % w;
-          const int a = n0x + lx, b = n0y + ly, c = n0z + lz;
+        for (int t = threadIdx.x; t < (s1 - s0) * w; t += THREADS) {
+          const int line = s0 + t / w, lz = t % w;
+          const int a = n0x + line / w, b = n0y + line % w, c = n0z + lz;
           float4 word = make_float4(0.f, 0.f, 0.f, 0.f);
           if (a >= 0 && a <= mx && b >= 0 && b <= my && c >= 0 && c <= mz)
             word = ab[((long long)a * (my + 1) + b) * (mz + 1) + c];
@@ -162,13 +163,16 @@ surface_bwd_kernel(const float* __restrict__ pos, const int* __restrict__ starts
         __syncthreads();
       }
       if (!has) continue;
-      const int x_lo = max(lbx, s0), x_hi = min(lbx + n2, s1);
-      for (int lx = x_lo; lx < x_hi; ++lx) {
+      for (int lx = lbx; lx < lbx + n2; ++lx) {
+        // the slab's lines of plane lx in the window
+        const int y_lo = ONE_SLAB ? lby : max(lby, s0 - lx * w);
+        const int y_hi = ONE_SLAB ? lby + n2 : min(lby + n2, s1 - lx * w);
+        if (!ONE_SLAB && y_lo >= y_hi) continue;
         const float dx = px - (ox + (float)(n0x + lx) * h);
-        for (int ly = lby; ly < lby + n2; ++ly) {
+        for (int ly = y_lo; ly < y_hi; ++ly) {
           const float dy = py - (oy + (float)(n0y + ly) * h);
           const float dxy = dx * dx + dy * dy;
-          const float4* line = nodes + ((lx - s0) * w + ly) * w;
+          const float4* line = nodes + (lx * w + ly - s0) * w;
 #pragma unroll 2
           for (int lz = lbz; lz < lbz + n2; ++lz) {
             const float4 n = line[lz];
@@ -198,19 +202,20 @@ surface_bwd_kernel(const float* __restrict__ pos, const int* __restrict__ starts
 // pos: (M, 3) f32 particles sorted by padded bin; starts: ((mx+2cr)(my+2cr)(mz+2cr) + 1)
 // int32 CSR starts; ab: (mx+1, my+1, mz+1, 4) f32, 16-byte aligned, from
 // lf_surface_bwd_nodes; out: (M, 3) f32 in the sorted order, zero-filled by the
-// caller (rows of unbinned particles are not written); 1 <= cr <= 12.
+// caller (rows of unbinned particles are not written); any cr >= 1.
 extern "C" int lf_surface_bwd(const float* pos, const int* starts, const float* ab, float* out,
                               int mx, int my, int mz, int cr, float h, float ox, float oy,
                               float oz, float ext2, void* stream) {
-  if (cr < 1 || cr > MAX_CR) return (int)cudaErrorInvalidValue;
+  if (cr < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = SLAB_NODES * sizeof(float4);
+  const int n2 = 2 * cr, w = TB + n2 - 1;
+  auto kernel = w * w * w <= SLAB_NODES ? surface_bwd_kernel<true> : surface_bwd_kernel<false>;
   // above 48 KB a kernel has to ask for its dynamic shared memory
-  cudaError_t err = cudaFuncSetAttribute(surface_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int n2 = 2 * cr;
   const dim3 grid((mz + n2 + TB - 1) / TB, (my + n2 + TB - 1) / TB, (mx + n2 + TB - 1) / TB);
-  surface_bwd_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+  kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       pos, starts, reinterpret_cast<const float4*>(ab), out, mx, my, mz, cr, h, ox, oy, oz, ext2);
   return (int)cudaGetLastError();
 }

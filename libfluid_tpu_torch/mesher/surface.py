@@ -10,8 +10,8 @@ per node over the particles binned by mesher cell in CSR form
 (:func:`bin_particles`), one block per 8 x 8 x 8 tile of nodes with the
 particles and bin starts of the tile's support box in shared memory, a
 chunk at a time; a tile with no particle in reach writes +1 and returns.
-No cap on the particles a cell holds; a support of up to
-``MAX_SUPPORT_CELLS`` cells. On CPU tensors it is
+No cap on the particles a cell holds, nor on the support (beyond 12 cells
+the box is taken a run of rows at a time). On CPU tensors it is
 :func:`_sample_surface_torch`, the port of the JAX package's scatter
 oracle.
 
@@ -37,10 +37,6 @@ import torch
 
 from libfluid_tpu_torch.config import MesherConfig
 from libfluid_tpu_torch.sim import kernels
-
-
-# kernel F keeps the bin starts of a tile's support box in shared memory
-MAX_SUPPORT_CELLS = 12
 
 
 def _support_cells(cfg: MesherConfig) -> int:
@@ -250,14 +246,8 @@ def bin_particles(position: torch.Tensor, active: torch.Tensor, cfg: MesherConfi
 
 
 def _binned(position: torch.Tensor, active: torch.Tensor, cfg: MesherConfig):
-    """:func:`bin_particles` for the kernels: raises for a support of more
-    than ``MAX_SUPPORT_CELLS`` cells or positions the kernels do not take."""
-    cr = _support_cells(cfg)
-    if cr > MAX_SUPPORT_CELLS:
-        raise ValueError(
-            f"surface kernel takes a support of up to {MAX_SUPPORT_CELLS} cells, got {cr} "
-            f"(particle_extent {cfg.particle_extent} / cell_size {cfg.cell_size})"
-        )
+    """:func:`bin_particles` for the kernels: raises for positions the
+    kernels do not take."""
     binned = bin_particles(position, active, cfg)
     kernels.check(binned[0], torch.float32, (position.shape[0], 3), "sorted positions")
     return binned

@@ -32,9 +32,10 @@ of each tile of cells with the tile's face cotangents in shared memory;
 beside the positions; "surface_bwd_nodes" is "surface"'s pass with another
 last step (four floats a node), which "surface_bwd" gathers a thread a
 particle, a block a tile of bins, the nodes in reach in shared memory.
-"p2g" takes up to ``P2G_MAX_SLOTS`` slots a cell, "correction" and
-"correction_bwd" up to 32, "surface" and its backward a support of up to
-``surface.MAX_SUPPORT_CELLS`` mesher cells; the wrappers raise above that. "g2p" and "g2p_bwd" run a thread a particle
+"p2g", "correction" and "correction_bwd" take any number of slots a cell (32
+at a time: the width of a cell's occupancy mask), "surface" and its
+backward any support (the box's bin starts and nodes a run at a time where
+shared memory runs out). "g2p" and "g2p_bwd" run a thread a particle
 (any order of particles): per-axis weight tables, the 24 live face samples
 of the 54 in reach, positions and results through shared memory; "g2p_bwd"
 merges the face cotangents of a block's particles in a shared-memory box
@@ -108,10 +109,6 @@ def launch(name: str, entry: str, *args) -> None:
 # ---------------------------------------------------------------------------
 
 
-# kernel B keeps a cell's occupied slots as a 32-bit mask
-P2G_MAX_SLOTS = 32
-
-
 def face_shapes(cfg: SimConfig):
     """Shapes of the u, v, w face arrays."""
     nx, ny, nz = cfg.grid_size
@@ -121,8 +118,6 @@ def face_shapes(cfg: SimConfig):
 def _p2g_faces_cuda(data: torch.Tensor, cfg: SimConfig) -> Tuple[tuple, tuple]:
     nx, ny, nz = cfg.grid_size
     k = data.shape[1]
-    if not 1 <= k <= P2G_MAX_SLOTS:
-        raise ValueError(f"p2g kernel takes 1 to {P2G_MAX_SLOTS} slots a cell, got {k}")
     check(data, torch.float32, (16, k, nx, ny, nz), "slot payload")
     num = [torch.empty(s, dtype=torch.float32, device=data.device) for s in face_shapes(cfg)]
     den = [torch.empty(s, dtype=torch.float32, device=data.device) for s in face_shapes(cfg)]
@@ -200,9 +195,9 @@ def p2g_faces(data: torch.Tensor, cfg: SimConfig) -> Tuple[tuple, tuple]:
     Replaces ``libfluid_tpu/sim/kernels.py:p2g_lo_faces_pallas`` (with
     ``transfers._p2g_hi_plane``) and its ``custom_vjp``. CUDA:
     ``csrc/p2g.cu`` (one block per tile of lattice points with the occupied
-    slots of its cells and their halo in shared memory, a chunk at a time;
-    K <= 32; the same bits from run to run), backward ``csrc/p2g_bwd.cu``;
-    CPU: the plain ``transfers._p2g_slots_torch``.
+    slots of its cells and their halo in shared memory, a chunk at a time,
+    32 slots a cell at a time; the same bits from run to run), backward
+    ``csrc/p2g_bwd.cu``; CPU: the plain ``transfers._p2g_slots_torch``.
     """
     out = _P2GFaces.apply(data, cfg)
     return tuple(out[:3]), tuple(out[3:])
@@ -223,15 +218,14 @@ def correction_springs(
 
     Replaces ``libfluid_tpu/sim/kernels.py:correction_springs_pallas``.
     CUDA: ``csrc/correction.cu``, one block per tile of cells with the
-    tile's and its halo's occupied slots in shared memory; KC <= 32. The
-    slot grid's position and mask columns are contiguous when KC is the slot
-    capacity; otherwise this takes one contiguous copy of each.
+    tile's and its halo's occupied slots in shared memory, 32 slots a cell
+    at a time. The slot grid's position and mask columns are contiguous when
+    KC is the slot capacity; otherwise this takes one contiguous copy of
+    each.
     """
     if not use_kernel(res_pos, res_mask):
         raise ValueError(f"correction_springs takes CUDA tensors, got {res_pos.device}")
     kc, nx, ny, nz = res_mask.shape
-    if not 1 <= kc <= 32:
-        raise ValueError(f"correction kernel takes 1 to 32 slots a cell, got {kc}")
     res_pos = res_pos.contiguous()
     res_mask = res_mask.contiguous()
     check(res_pos, torch.float32, (3, kc, nx, ny, nz), "res_pos")
@@ -259,13 +253,12 @@ def correction_springs_bwd(
     Stands in for ``libfluid_tpu/sim/correction.py:_springs_bwd`` (``jax.vjp``
     of the jnp oracle around ``_correction_kernel``). CUDA:
     ``csrc/correction_bwd.cu``, kernel E's tile with ``g`` staged beside the
-    positions, a gather over the symmetric pair set, no atomics; KC <= 32.
+    positions, a gather over the symmetric pair set, no atomics, 32 slots a
+    cell at a time.
     """
     if not use_kernel(res_pos, res_mask, g):
         raise ValueError(f"correction_springs_bwd takes CUDA tensors, got {res_pos.device}")
     kc, nx, ny, nz = res_mask.shape
-    if not 1 <= kc <= 32:
-        raise ValueError(f"correction kernel takes 1 to 32 slots a cell, got {kc}")
     res_pos = res_pos.contiguous()
     res_mask = res_mask.contiguous()
     g = g.contiguous()

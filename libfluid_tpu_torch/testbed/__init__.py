@@ -1,9 +1,10 @@
-"""Headless testbed (port of ``libfluid_tpu.testbed``, rendering excluded).
+"""Headless testbed (port of ``libfluid_tpu.testbed``; the fluid render scene
+is not ported yet).
 
 - :func:`build_setup`: the reference testbed's five scenarios, seeded from
   ``np.random.default_rng(seed)`` exactly as the JAX package seeds them.
 - :func:`default_mesher_config`: the mesher thread's parameters.
-- :func:`fluid_render_scene` waits for the renderer's port.
+- :func:`fluid_render_scene` is not ported yet (ROADMAP §1 item 2).
 - the CLI in ``__main__``: the frame loop with per-frame diagnostics and
   OBJ/points export.
 """
@@ -102,9 +103,8 @@ def default_mesher_config(max_triangles: int = 1 << 18) -> MesherConfig:
 
 
 def fluid_render_scene(*args, **kwargs):
-    """The testbed's fluid render scene needs the renderer, which is not
-    ported yet."""
+    """The testbed's fluid render scene is not ported yet."""
     raise NotImplementedError(
-        "fluid_render_scene needs the renderer, which is not ported yet "
-        "(ROADMAP: the renderer)"
+        "fluid_render_scene is not ported yet (ROADMAP §1 item 2: BDPT, the fluid render scene "
+        "and the pixel gradient)"
     )

@@ -1,12 +1,16 @@
 """Headless testbed CLI (port of ``libfluid_tpu.testbed.__main__``, on one
-CUDA device; rendering is not ported yet).
+CUDA device).
 
 The frame loop runs ``step(1/fps)`` per frame with the reference testbed's
-per-step diagnostics, and exports OBJ meshes and point clouds.
+per-step diagnostics, and exports OBJ meshes and point clouds. ``--scene``
+renders a canned scene to a PPM with the forward path tracer. Rendering
+the simulation (``--render-every``) and ``--algorithm bdpt`` are not ported
+yet.
 
 Examples:
     python -m libfluid_tpu_torch.testbed --setup 0 --frames 60
     python -m libfluid_tpu_torch.testbed --setup 4 --frames 2 --mesh-every 1 --out /tmp/tb
+    python -m libfluid_tpu_torch.testbed --scene cornell1 --out /tmp/tb
 """
 
 from __future__ import annotations
@@ -89,7 +93,8 @@ def run_sim(args) -> int:
 
     if args.render_every:
         raise NotImplementedError(
-            "--render-every needs the renderer, which is not ported yet (ROADMAP: the renderer)"
+            "--render-every needs fluid_render_scene, which is not ported yet (ROADMAP §1 item 2: "
+            "BDPT, the fluid render scene and the pixel gradient)"
         )
     device = resolve_device(None)  # the card; raises where there is none
     cfg, state = build_setup(args.setup, seed=args.seed, device=device)
@@ -102,10 +107,52 @@ def run_sim(args) -> int:
     return frame_loop(cfg, state, default_mesher_config(), args)
 
 
-def main(argv=None) -> int:
+SCENE_BUILDERS = ("redgreen", "cornell1", "cornell2", "glass")
+
+
+def run_scene(args, device=None) -> int:
+    """Static render of a canned scene to ``<out>/<scene>.ppm`` (gamma 2.2)
+    on `device` (None: the CUDA card; the tests pass ``"cpu"``)."""
+    from libfluid_tpu_torch.config import RenderConfig
+    from libfluid_tpu_torch.io.ppm import save_ppm
+    from libfluid_tpu_torch.renderer import scenes as scenes_mod
+    from libfluid_tpu_torch.renderer.render import BDPT_NOT_PORTED, render
+
+    if args.algorithm == "bdpt":
+        raise NotImplementedError(BDPT_NOT_PORTED)
+    device = resolve_device(device)
+    builders = {
+        "redgreen": scenes_mod.red_green_box,
+        "cornell1": scenes_mod.cornell_box_one_light,
+        "cornell2": scenes_mod.cornell_box_two_lights,
+        "glass": scenes_mod.glass_ball_box,
+    }
+    builder, cam = builders[args.scene](1.0, device=device)
+    scene = builder.finish(device=device)
+    size = 800 if args.offline_render else args.render_size
+    spp = 400 if args.offline_render else args.spp
+    rcfg = RenderConfig(width=size, height=size, samples_per_pixel=spp, algorithm=args.algorithm)
+    _log(f"rendering {args.scene}: {size}x{size} @ {spp} spp ({args.algorithm}) on {device}")
+    t0 = time.time()
+    img = render(scene, cam, rcfg, torch.Generator().manual_seed(args.seed), device=device)
+    _sync(device)
+    wall = time.time() - t0
+    _log(f"render: {wall:.2f} s  ({size * size * spp / wall / 1e6:.2f} Mpaths/s)")
+    if not bool(torch.isfinite(img).all()):
+        _log("*** ERROR: the image holds non-finite values")
+        return 1
+    os.makedirs(args.out, exist_ok=True)
+    path = os.path.join(args.out, f"{args.scene}.ppm")
+    save_ppm(path, img, gamma=2.2)
+    _log(f"wrote {path}")
+    return 0
+
+
+def main(argv=None, device=None) -> int:
     p = argparse.ArgumentParser(prog="python -m libfluid_tpu_torch.testbed", description=__doc__)
     p.add_argument("--setup", type=int, default=0, help="sim scenario 0-4")
-    p.add_argument("--scene", help="render a static scene (not ported yet)")
+    p.add_argument("--scene", choices=SCENE_BUILDERS,
+                   help="render a static scene instead of simulating")
     p.add_argument("--frames", type=int, default=10)
     p.add_argument("--fps", type=float, default=60.0)
     p.add_argument("--seed", type=int, default=0)
@@ -113,11 +160,15 @@ def main(argv=None) -> int:
     p.add_argument("--mesh-every", type=int, default=0, help="export OBJ every N frames")
     p.add_argument("--points-every", type=int, default=0, help="export points every N frames")
     p.add_argument("--render-every", type=int, default=0, help="render every N frames (not ported yet)")
+    p.add_argument("--render-size", type=int, default=400)
+    p.add_argument("--spp", type=int, default=16)
+    p.add_argument("--algorithm", choices=["pt", "bdpt"], default="pt",
+                   help="the path tracer; bdpt is not ported yet")
+    p.add_argument("--offline-render", action="store_true",
+                   help="with --scene: 800x800 @ 400 spp like the reference's F5")
     args = p.parse_args(argv)
     if args.scene:
-        raise NotImplementedError(
-            "--scene needs the renderer, which is not ported yet (ROADMAP: the renderer)"
-        )
+        return run_scene(args, device)
     return run_sim(args)
 
 

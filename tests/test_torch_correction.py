@@ -96,6 +96,20 @@ def test_springs_match_jax(kc, h):
     assert np.max(np.abs(no_jitter - want)) > 1e-3
 
 
+def test_springs_at_forty_slots_match_jax():
+    """40 slots a cell, more than one word of kernel E's occupancy mask, on
+    a small grid: the plain version against the JAX oracle."""
+    cfg = SimConfig(grid_size=(4, 3, 5), cell_size=1.0, particle_capacity=64)
+    tcfg = convert.config_from_fields(**vars(cfg))
+    pos, mask = _slot_fixture(40, h=1.0, shape=cfg.grid_size)
+    want = np.asarray(correction._springs_jnp(jnp.asarray(pos), jnp.asarray(mask), 0.5,
+                                              jnp.int32(12345), cfg))
+    got = t_correction._springs(_t(pos), _t(mask), 12345, (0, 0, 0), 0.5, tcfg).numpy()
+    err = np.max(np.abs(got - want)) / (100.0 * np.max(np.abs(pos)))
+    assert err < 2e-6, err
+    assert float(mask[32:].sum()) > 0  # the second word holds slots
+
+
 def test_springs_across_tile_edges_match_jax():
     """Particles only in cells 3, 4 and 7, 8 along each axis, the rest of the
     grid empty: the clusters straddle the edges of the CUDA kernel's 4x4x8

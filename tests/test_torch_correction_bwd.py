@@ -120,3 +120,28 @@ def test_springs_vjp_with_an_origin_and_smaller_cells():
         torch.from_numpy(pos), torch.from_numpy(mask), torch.from_numpy(g), re2, 99, tcfg, origin)
     _assert_close(got_p.numpy(), want_p, "d pos")
     _assert_close(got_m.numpy(), want_m, "d mask")
+
+
+def test_springs_vjp_at_forty_slots():
+    """40 slots a cell, more than one word of kernel E''s occupancy mask:
+    the closed form against ``jax.vjp`` of the oracle, with coincident
+    pairs in a cell's second word (eager oracle: one more shape)."""
+    kc, shape = 40, (3, 4, 3)
+    cfg = SimConfig(grid_size=shape, cell_size=H, particle_capacity=64)
+    tcfg = convert.config_from_fields(**vars(cfg))
+    rng = np.random.default_rng(40)
+    counts = rng.integers(0, kc + 1, size=shape)
+    counts[1, 2, 1] = kc
+    mask = (np.arange(kc)[:, None, None, None] < counts[None]).astype(np.float32)
+    cell = np.stack(np.meshgrid(*(np.arange(n) for n in shape), indexing="ij"))
+    pos = (cell[:, None] + rng.uniform(0.05, 0.95, (3, kc) + shape)) * H
+    pos[:, 35, 1, 2, 1] = pos[:, 3, 1, 2, 1]
+    pos = (pos * mask[None]).astype(np.float32)
+    g = rng.normal(size=pos.shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda p, m: correction._springs_jnp(p, m, RE2, jnp.int32(SEED), cfg),
+                     jnp.asarray(pos), jnp.asarray(mask))
+    want_p, want_m = (np.asarray(a) for a in vjp(jnp.asarray(g)))
+    got_p, got_m = t_correction._springs_vjp_torch(
+        torch.from_numpy(pos), torch.from_numpy(mask), torch.from_numpy(g), RE2, SEED, tcfg)
+    _assert_close(got_p.numpy(), want_p, "d pos")
+    _assert_close(got_m.numpy(), want_m, "d mask")

@@ -27,7 +27,10 @@ def test_port_imports_without_jax():
         "from libfluid_tpu_torch.sim import slotsort, transfers, multigrid, pressure, step\n"
         "from libfluid_tpu_torch.sim import correction, collisions, sources, jitterhash\n"
         "import libfluid_tpu_torch.mesher, libfluid_tpu_torch.io, libfluid_tpu_torch.testbed\n"
-        "import libfluid_tpu_torch.testbed.__main__\n"
+        "import libfluid_tpu_torch.testbed.__main__, libfluid_tpu_torch.math, libfluid_tpu_torch.io.ppm\n"
+        "import libfluid_tpu_torch.renderer\n"
+        "from libfluid_tpu_torch.renderer import (accel, camera, draws, intersect, loops, materials,\n"
+        "    pathtrace, render, scene, scenes)\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
     )
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
@@ -182,8 +185,38 @@ def _constructors():
     allocates the port's tensors."""
     import numpy as np
 
+    import importlib
+
     from libfluid_tpu_torch import convert, grids, testbed
+    from libfluid_tpu_torch.config import RenderConfig
+    from libfluid_tpu_torch.renderer import Camera, accel, scenes
     from libfluid_tpu_torch.sim import jitterhash, state as state_mod
+
+    render_mod = importlib.import_module("libfluid_tpu_torch.renderer.render")
+
+    class _OnDevice:
+        """A CPU scene or camera, moved to the constructor's device where
+        there is one (None without a card stays on the CPU: the constructor
+        under test is the one that must raise)."""
+
+        def __init__(self, thing):
+            self.thing = thing
+
+        def to_device(self, device):
+            if device is None and not torch.cuda.is_available():
+                return self.thing
+            dev = torch.device(device or "cuda")
+            return type(self.thing)(*(_move(a, dev) for a in self.thing))
+
+    def _move(a, dev):
+        if isinstance(a, torch.Tensor):
+            return a.to(dev)
+        if isinstance(a, tuple):
+            return type(a)(*(_move(x, dev) for x in a))
+        return a
+
+    builder, cam = scenes.cornell_box_one_light(1.0, device="cpu")
+    cornell, camera = _OnDevice(builder.finish(device="cpu")), _OnDevice(cam)
 
     cfg = _cfg()
     arrays = convert.state_to_numpy(sim.new_state(cfg, "cpu"))
@@ -198,12 +231,23 @@ def _constructors():
             np.array([[1, 2, 3]]), (0.0, 1.0, 0.0), device=device).cells,
         "jitter_field": lambda device: jitterhash.jitter_field(
             7, 2, (3, 3, 3), (0, 0, 0), torch.float32, device),
+        "SceneBuilder.finish": lambda device: scenes.cornell_box_one_light(
+            1.0, device="cpu")[0].finish(device=device).tri_p0,
+        "Camera.from_parameters": lambda device: Camera.from_parameters(
+            (0, 0, -5), (0, 0, 0), (0, 1, 0), 0.5, 1.0, device=device).position,
+        "accel.build": lambda device: accel.build(cornell.to_device(device), res=(4, 4, 4),
+                                                  device=device).dist,
+        "render": lambda device: render_mod.render(
+            cornell.to_device(device), camera.to_device(device),
+            RenderConfig(width=2, height=2, samples_per_pixel=1, ray_batch=4),
+            torch.Generator().manual_seed(0), device=device),
     }
 
 
 @pytest.mark.parametrize("name", [
     "new_state", "empty_sources", "grids.zeros", "state_from_numpy", "build_setup",
-    "make_source_set", "jitter_field",
+    "make_source_set", "jitter_field", "SceneBuilder.finish", "Camera.from_parameters",
+    "accel.build", "render",
 ])
 def test_constructors_default_to_the_card(name):
     """``device=None`` is the CUDA card and never the CPU: without a card it

@@ -104,12 +104,13 @@ def test_csr_bins_reach_what_the_scatter_reaches():
     assert (want < 0).any() and (want == 1.0).any()
 
 
-def _tile_gather(pos, active, cfg, tile, cap):
+def _tile_gather(pos, active, cfg, tile, cap, run=None):
     """Kernel F's algorithm (``csrc/surface.cu``) in numpy, float32
     throughout: a block per tile of nodes; the (x, y) rows of bins of the
     tile's support box, each one contiguous range of the sorted particles;
     the quick test on whole planes of rows, then on the rows' own ends;
-    the box's particles as one list, row after row, staged `cap` at a time;
+    the box's rows `run` at a time (all of them by default), the run's
+    particles as one list, row after row, staged `cap` at a time;
     a node summing the (2 cr)^2 rows of its support in the order x, y,
     particle, each row clipped to the bins its z reaches and to the chunk.
     Returns the SDF and the most chunks a tile took."""
@@ -138,50 +139,56 @@ def _tile_gather(pos, active, cfg, tile, cap):
                     out[box] = 1.0
                     continue
                 z0, z1 = min(t0z, bz_n), min(t0z + wz, bz_n)
-                glo, lstart, place = [], [], 0
-                for r in range(wx * wy):
-                    bx, by = t0x + r // wy, t0y + r % wy
-                    if bx < bx_n and by < by_n:
-                        row = (bx * by_n + by) * bz_n
-                        ends = starts[[row + min(t0z + z, bz_n) for z in range(wz + 1)]]
-                    else:
-                        ends = np.zeros(wz + 1, np.int64)
-                    glo.append(int(ends[0]))
-                    lstart.append(place + (ends - ends[0]))  # the bins' places in the list
-                    place += int(ends[-1] - ends[0])
-                total = place
-                if total == 0:
-                    out[box] = 1.0
-                    continue
-                # the list's particle at place e: row r's glo[r] + e - lstart[r][0]
-                src = np.concatenate([glo[r] + np.arange(lstart[r][-1] - lstart[r][0])
-                                      for r in range(wx * wy)]).astype(np.int64)
                 sums = np.zeros((tx, ty, tz, 4), f32)
                 chunks = 0
-                for e0 in range(0, total, cap):
-                    e1 = min(e0 + cap, total)
-                    chunk = pos_s[src[e0:e1]]
-                    chunks += 1
-                    for a in range(tx):
-                        for b in range(ty):
-                            for c in range(tz):
-                                node = off + np.array([t0x + a, t0y + b, t0z + c], f32) * h
-                                acc = sums[a, b, c]
-                                for rx in range(n2):
-                                    for ry in range(n2):
-                                        bins = lstart[(a + rx) * wy + b + ry]
-                                        lo, hi = max(bins[c], e0), min(bins[c + n2], e1)
-                                        if lo >= hi:
-                                            continue
-                                        p = chunk[lo - e0:hi - e0]
-                                        d = p - node
-                                        d2 = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
-                                        kl = np.maximum(f32(1.0) - d2 * inv_ext2, f32(0.0))
-                                        w = kl * kl * kl
-                                        terms = np.concatenate([w[:, None], w[:, None] * p], axis=1)
-                                        # one particle after the other, as the thread adds them
-                                        acc[:] = np.add.accumulate(np.concatenate([acc[None], terms]), axis=0)[-1]
-                    del chunk
+                rows = wx * wy
+                for r0 in range(0, rows, run or rows):  # a run of whole rows at a time
+                    nr = min(run or rows, rows - r0)
+                    glo, lstart, place = [], [], 0
+                    for r in range(r0, r0 + nr):
+                        bx, by = t0x + r // wy, t0y + r % wy
+                        if bx < bx_n and by < by_n:
+                            row = (bx * by_n + by) * bz_n
+                            ends = starts[[row + min(t0z + z, bz_n) for z in range(wz + 1)]]
+                        else:
+                            ends = np.zeros(wz + 1, np.int64)
+                        glo.append(int(ends[0]))
+                        lstart.append(place + (ends - ends[0]))  # the bins' places in the list
+                        place += int(ends[-1] - ends[0])
+                    total = place
+                    if total == 0:
+                        continue
+                    # the list's particle at place e: row r's glo[r] + e - lstart[r][0]
+                    src = np.concatenate([glo[r] + np.arange(lstart[r][-1] - lstart[r][0])
+                                          for r in range(nr)]).astype(np.int64)
+                    for e0 in range(0, total, cap):
+                        e1 = min(e0 + cap, total)
+                        chunk = pos_s[src[e0:e1]]
+                        chunks += 1
+                        for a in range(tx):
+                            for b in range(ty):
+                                for c in range(tz):
+                                    node = off + np.array([t0x + a, t0y + b, t0z + c], f32) * h
+                                    acc = sums[a, b, c]
+                                    for rx in range(n2):
+                                        for ry in range(n2):
+                                            r = (a + rx) * wy + b + ry - r0
+                                            if not 0 <= r < nr:
+                                                continue
+                                            bins = lstart[r]
+                                            lo, hi = max(bins[c], e0), min(bins[c + n2], e1)
+                                            if lo >= hi:
+                                                continue
+                                            p = chunk[lo - e0:hi - e0]
+                                            d = p - node
+                                            d2 = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+                                            kl = np.maximum(f32(1.0) - d2 * inv_ext2, f32(0.0))
+                                            w = kl * kl * kl
+                                            terms = np.concatenate([w[:, None], w[:, None] * p], axis=1)
+                                            # one particle after the other, as the thread adds them
+                                            acc[:] = np.add.accumulate(np.concatenate([acc[None], terms]),
+                                                                       axis=0)[-1]
+                        del chunk
                 most_chunks = max(most_chunks, chunks)
                 for a in range(min(tx, mx + 1 - t0x)):
                     for b in range(min(ty, my + 1 - t0y)):
@@ -221,23 +228,44 @@ def test_surface_tile_algorithm_matches_jax_oracle(extent):
     again, chunks = _tile_gather(pos, active, tcfg, (3, 2, 5), cap=1 << 20)
     assert chunks == 1
     np.testing.assert_array_equal(got, again)
+    # the box's rows a few at a time, as where its starts do not fit shared memory
+    runs, chunks = _tile_gather(pos, active, tcfg, (4, 4, 4), cap=128, run=7)
+    assert chunks > 2
+    np.testing.assert_array_equal(got, runs)
 
 
-@pytest.mark.parametrize("case", ["support", "dtype"])
+def test_surface_tile_algorithm_beyond_twelve_cells():
+    """The tile algorithm of kernel F with a support of 13 cells (extent
+    1.625, cell 0.125), where the box's starts no longer fit a block's
+    shared memory and the kernel takes its rows in runs: against
+    ``_sample_surface_jnp`` and the plain version, and the same bits in runs
+    of 40 rows or all at once."""
+    cfg, tcfg = _cfgs(grid_size=(6, 5, 7), cell_size=0.125, grid_offset=(-0.1, 0.0, 0.05),
+                      particle_extent=1.625, particle_radius=0.1)
+    assert t_surface._support_cells(tcfg) == 13
+    rng = np.random.default_rng(0)
+    pos = rng.uniform(-0.3, 1.0, (150, 3)).astype(np.float32)
+    active = np.arange(150) % 6 != 0
+    # eager: the oracle's 17,576 unrolled scatters take about a minute; jitted,
+    # their compile takes more memory than a test may
+    want = np.asarray(surface._sample_surface_jnp(jnp.asarray(pos), jnp.asarray(active), cfg))
+    plain = t_surface._sample_surface_torch(torch.from_numpy(pos), torch.from_numpy(active), tcfg).numpy()
+    np.testing.assert_allclose(plain, want, rtol=0, atol=1e-4)
+    got, _ = _tile_gather(pos, active, tcfg, (4, 4, 4), cap=64, run=40)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    assert (want < 0).any()
+    whole, _ = _tile_gather(pos, active, tcfg, (4, 4, 4), cap=64)
+    np.testing.assert_array_equal(got, whole)
+
+
+@pytest.mark.parametrize("case", ["dtype"])
 def test_surface_kernel_wrapper_refuses(case):
     """What kernel F's wrapper does not take raises before anything is
-    launched: a support of more than 12 cells, positions that are not
-    float32."""
+    launched: positions that are not float32. It takes any support."""
     pos, active = _particles(n=50)
-    if case == "support":
-        _, tcfg = _cfgs(**dict(KERNEL_CFG, particle_extent=6.2))
-        assert t_surface._support_cells(tcfg) == 13
-        args, error = (torch.from_numpy(pos), torch.from_numpy(active), tcfg, 0.5), ValueError
-    else:
-        _, tcfg = _cfgs(**KERNEL_CFG)
-        args, error = (torch.from_numpy(pos).double(), torch.from_numpy(active), tcfg, 0.5), TypeError
-    with pytest.raises(error):
-        t_surface._binned(*args[:3])
+    _, tcfg = _cfgs(**KERNEL_CFG)
+    with pytest.raises(TypeError):
+        t_surface._binned(torch.from_numpy(pos).double(), torch.from_numpy(active), tcfg)
 
 
 def _sphere_sdf(cfg, center, radius):

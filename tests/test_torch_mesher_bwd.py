@@ -2,7 +2,8 @@
 (``surface._sample_surface_vjp_torch``, the arithmetic kernel F' implements:
 a node pass, then a gather per particle) against ``jax.vjp`` of the JAX
 package's scatter oracle ``_sample_surface_jnp`` and against the port's own
-autograd of the plain version, on numpy-seeded particles.
+autograd of the plain version, on numpy-seeded particles; and a numpy model
+of the particle part's slab algorithm against ``jax.vjp`` of the oracle.
 
 Tolerances, as shares of the largest component of the reference cotangent:
 2e-4 against the two float32 references and 1e-5 against the plain autograd
@@ -113,6 +114,126 @@ def test_surface_vjp_closed_form_matches_jax_and_autograd(case, extent):
         # particle still feels the nodes nearer to it
         d = pos[row] - _node(3, 2, 2).astype(np.float32)
         assert np.float32(1.0) - np.float32(d @ d) / np.float32(extent * extent) == 0.0
+
+
+def _slab_gather(pos, active, ab, cfg, slab_nodes, tb=8):
+    """The particle part of kernel F' (``csrc/surface_bwd.cu``) in numpy,
+    float32 throughout: a block per tile of tb^3 bins of the padded bin
+    grid; the tile's rows of bins as one list of the sorted particles; the
+    box of tb + 2 cr - 1 nodes an axis that the tile reaches, staged whole
+    where it fits `slab_nodes` words, else a slab of (x, y) lines at a time
+    in line order, each particle's window clipped to the slab; a particle
+    summing its window x, y, z ascending. ``ab`` is the node part's words.
+    Returns the cotangents in the particles' order and the most slabs a tile
+    took."""
+    f32 = np.float32
+    pos_s, starts, order = (t.numpy() for t in t_surface.bin_particles(
+        torch.from_numpy(pos), torch.from_numpy(active), cfg))
+    cr = t_surface._support_cells(cfg)
+    n2 = 2 * cr
+    mx, my, mz = cfg.grid_size
+    bx_n, by_n, bz_n = mx + n2, my + n2, mz + n2
+    h = f32(cfg.cell_size)
+    off = np.asarray(cfg.grid_offset, f32)
+    inv_ext2 = f32(1.0) / f32(cfg.particle_extent**2)
+    slope = f32(-6.0) * inv_ext2
+    w = tb + n2 - 1
+    lines = w * w
+    sl = lines if w**3 <= slab_nodes else min(lines, slab_nodes // w)
+    out = np.zeros_like(pos_s)
+    most_slabs = 0
+    for t0x in range(0, bx_n, tb):
+        for t0y in range(0, by_n, tb):
+            for t0z in range(0, bz_n, tb):
+                glo, n = np.zeros(tb * tb, np.int64), np.zeros(tb * tb, np.int64)
+                lstart = np.zeros((tb * tb, tb + 1), np.int64)
+                for r in range(tb * tb):
+                    bx, by = t0x + r // tb, t0y + r % tb
+                    if bx < bx_n and by < by_n:
+                        row = (bx * by_n + by) * bz_n
+                        ends = starts[[row + min(t0z + z, bz_n) for z in range(tb + 1)]]
+                        glo[r], n[r] = ends[0], ends[-1] - ends[0]
+                        lstart[r] = ends - ends[0]
+                rb = np.concatenate([[0], np.cumsum(n)])
+                total = int(rb[-1])
+                if total == 0:
+                    continue
+                lstart += rb[:-1, None]
+                e = np.arange(total)
+                r = np.searchsorted(rb[:-1], e, side="right") - 1
+                lz0 = np.array([np.searchsorted(lstart[ri, :tb], ei, side="right") - 1
+                                for ri, ei in zip(r, e)])
+                lx0, ly0 = r // tb, r % tb
+                rows = glo[r] + e - rb[r]
+                p = pos_s[rows]
+                n0 = np.array([t0x, t0y, t0z]) - n2 + 1
+                acc = np.zeros((total, 3), f32)
+                slabs = 0
+                for s0 in range(0, lines, sl):  # the lines [s0, s1)
+                    s1 = min(s0 + sl, lines)
+                    slabs += 1
+                    line = np.arange(s0, s1)[:, None]
+                    a, b = n0[0] + line // w, n0[1] + line % w
+                    c = n0[2] + np.arange(w)[None, :]
+                    inside = (a >= 0) & (a <= mx) & (b >= 0) & (b <= my) & (c >= 0) & (c <= mz)
+                    nodes = np.where(inside[..., None],
+                                     ab[np.clip(a, 0, mx), np.clip(b, 0, my), np.clip(c, 0, mz)], f32(0.0))
+                    for dlx in range(n2):
+                        lx = lx0 + dlx
+                        y_lo, y_hi = np.maximum(ly0, s0 - lx * w), np.minimum(ly0 + n2, s1 - lx * w)
+                        dx = p[:, 0] - (off[0] + (n0[0] + lx).astype(f32) * h)
+                        for dly in range(n2):
+                            ly = ly0 + dly
+                            live = (ly >= y_lo) & (ly < y_hi)
+                            dy = p[:, 1] - (off[1] + (n0[1] + ly).astype(f32) * h)
+                            dxy = dx * dx + dy * dy
+                            at = np.where(live, lx * w + ly - s0, 0)
+                            for dlz in range(n2):
+                                lz = lz0 + dlz
+                                word = nodes[at, lz]
+                                dz = p[:, 2] - (off[2] + (n0[2] + lz).astype(f32) * h)
+                                kl = np.maximum(f32(1.0) - (dxy + dz * dz) * inv_ext2, f32(0.0))
+                                k2 = kl * kl
+                                t = (word[:, 0] * dx + word[:, 1] * dy + word[:, 2] * dz - word[:, 3]) * (k2 * slope)
+                                k3 = k2 * kl
+                                step = np.stack([t * dx + word[:, 0] * k3, t * dy + word[:, 1] * k3,
+                                                 t * dz + word[:, 2] * k3], axis=1)
+                                acc = np.where(live[:, None], acc + step, acc)
+                most_slabs = max(most_slabs, slabs)
+                out[rows] = acc
+    back = np.empty_like(out)
+    back[order] = out
+    return back, most_slabs
+
+
+@pytest.mark.parametrize("extent,slab_nodes", [(2.5, 3584), (1.0, 40)],
+                         ids=["support-5-kernel-slabs", "support-2-small-slabs"])
+def test_surface_bwd_slab_algorithm_matches_jax(extent, slab_nodes):
+    """The particle part of kernel F' where the box of nodes does not fit
+    shared memory and is staged a slab of lines at a time: at a support of 5
+    cells with the kernel's own 3584 words (the first support that takes
+    slabs), and at 2 cells with slabs of 3 lines. Node words from the plain
+    node part; against ``jax.vjp`` of the scatter oracle, and the same bits
+    as the box staged whole."""
+    cfg, tcfg = _cfgs(extent)
+    pos, active, _ = _particles("inactive", extent)
+    rng = np.random.default_rng(5)
+    g = rng.normal(size=tuple(n + 1 for n in GRID)).astype(np.float32)
+    tp, ta, tg = torch.from_numpy(pos), torch.from_numpy(active), torch.from_numpy(g)
+    ab = t_surface._node_cotangents_torch(tp, ta, tg, tcfg).numpy()
+    got, slabs = _slab_gather(pos, active, ab, tcfg, slab_nodes)
+    assert slabs > 1
+    # eager: compiling the oracle's unrolled scatters takes longer than running them
+    _, vjp = jax.vjp(lambda p: surface._sample_surface_jnp(p, jnp.asarray(active), cfg, extent / 4),
+                     jnp.asarray(pos))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    scale = float(np.max(np.abs(want)))
+    assert scale > 0
+    assert float(np.max(np.abs(got - want))) / scale < RTOL
+    assert not got[~active].any()
+    whole, slabs = _slab_gather(pos, active, ab, tcfg, 1 << 30)
+    assert slabs == 1
+    np.testing.assert_array_equal(got, whole)
 
 
 def test_bin_order_puts_the_result_back():

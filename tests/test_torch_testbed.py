@@ -1,7 +1,7 @@
 """The PyTorch port's headless testbed: the five setups seed the same
 particles, solids and sources as the JAX package's; the frame loop runs a
 small scene with the default simulation options and exports OBJ and
-points; what needs the renderer raises."""
+points; ``--scene`` renders a PPM; what is not ported yet raises."""
 
 import argparse
 import dataclasses
@@ -60,9 +60,25 @@ def test_frame_loop_exports_mesh_and_points(tmp_path):
 
 
 def test_render_paths_raise(tmp_path):
-    with pytest.raises(NotImplementedError):
-        t_cli.main(["--scene", "cornell1"])
-    with pytest.raises(NotImplementedError):
+    """What the renderer's slice leaves for later raises, naming ROADMAP §1
+    item 2: BDPT, rendering the simulation, the fluid render scene."""
+    with pytest.raises(NotImplementedError, match="item 2"):
+        t_cli.main(["--scene", "cornell1", "--algorithm", "bdpt", "--out", str(tmp_path)], device="cpu")
+    with pytest.raises(NotImplementedError, match="item 2"):
         t_cli.run_sim(_args(tmp_path, render_every=1))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 2"):
         t_testbed.fluid_render_scene(None, None, 4)
+
+
+@pytest.mark.parametrize("scene", ["cornell1", "glass"])
+def test_run_scene_writes_a_ppm(tmp_path, scene):
+    """``--scene`` on the CPU at 16^2 x 2 spp: a P6 header, the image's
+    bytes, pixels that are not all black."""
+    rc = t_cli.main(["--scene", scene, "--render-size", "16", "--spp", "2", "--out", str(tmp_path)],
+                    device="cpu")
+    assert rc == 0
+    data = (tmp_path / f"{scene}.ppm").read_bytes()
+    header = b"P6\n16 16\n255\n"
+    assert data.startswith(header) and len(data) == len(header) + 16 * 16 * 3
+    pixels = np.frombuffer(data[len(header):], np.uint8)
+    assert pixels.max() > 0

@@ -163,9 +163,10 @@ def _random_payload(cfg, rng, fill=0.4):
 
 def _p2g_tiles(data, cfg, tile, cap):
     """Kernel B's algorithm (``csrc/p2g.cu``) in numpy, float32 throughout:
-    a block per tile of lattice points, the occupied slots of the tile's
-    cells and one-cell halo compacted into one list in cell and slot order
-    (a cell's list padded to an odd length), the list staged in chunks of
+    a block per tile of lattice points; 32 slots a cell at a time, the
+    occupied slots of the tile's cells and one-cell halo compacted into one
+    list in cell and slot order (a cell's list padded to an odd length), the
+    list staged in chunks of
     whole cells of at most `cap` places, a thread per (j, l) column that
     feeds the tile's points along x from each slot it reads (x offsets
     -1, 0, +1) in the order plane, y offset, z offset, slot. Returns the
@@ -190,71 +191,75 @@ def _p2g_tiles(data, cfg, tile, cap):
     for t0x in range(0, nx + 1, tx):
         for t0y in range(0, ny + 1, ty):
             for t0z in range(0, nz + 1, tz):
-                # occupancy of the tile's cells and halo, in (x, y, z) order
-                cells, occupied = [], []
-                for hc in range(hx * hy * hz):
-                    c = (t0x - 1 + hc // (hy * hz), t0y - 1 + (hc // hz) % hy, t0z - 1 + hc % hz)
-                    inside = all(0 <= c[a] < (nx, ny, nz)[a] for a in range(3))
-                    cells.append(c)
-                    occupied.append([k for k in range(k_slots) if data[(3, k) + c] != 0] if inside else [])
-                if not any(occupied):
-                    continue
-                first = np.concatenate([[0], np.cumsum([(len(o) | 1) if o else 0 for o in occupied])])
                 acc = np.zeros((ty, tz, tx, 6), f32)  # nu, du, nv, dv, nw, dw per point
-                c0, chunks = 0, 0
-                while c0 < len(cells):
-                    base = first[c0]
-                    c1 = max(c for c in range(c0 + 1, len(cells) + 1) if first[c] - base <= cap)
-                    chunks += 1
-                    pool = {}
-                    for hc in range(c0, c1):
-                        for nth, k in enumerate(occupied[hc]):
-                            s = data[(slice(None), k) + cells[hc]]
-                            g = ((s[0] - ox) / h, (s[1] - oy) / h, (s[2] - oz) / h)
-                            a9 = s[7:16] if affine else np.zeros(9, f32)
-                            pool[first[hc] - base + nth] = (g, s[0:3], s[3], s[4:7], a9)
-                    for tj in range(ty):
-                        for tl in range(tz):
-                            fj, fl = f32(t0y + tj), f32(t0z + tl)
-                            yj, zl = fj * h + oy, fl * h + oz
-                            yc, zc = (fj + half) * h + oy, (fl + half) * h + oz
-                            for p in range(hx):
-                                cx = f32(t0x - 1 + p)
-                                for n in range(9):
-                                    dy, dz = n // 3 - 1, n % 3 - 1
-                                    hc = (p * hy + tj + 1 + dy) * hz + tl + 1 + dz
-                                    if not c0 <= hc < c1:
-                                        continue
-                                    for e in range(len(occupied[hc])):
-                                        g, x, m, v, a9 = pool[first[hc] - base + e]
-                                        hy0, hy5 = hat(g[1] - fj), hat(g[1] - half - fj)
-                                        hz0, hz5 = hat(g[2] - fl), hat(g[2] - half - fl)
-                                        wu, wv, ww = m * hy5 * hz5, m * hy0 * hz5, m * hy5 * hz0
-                                        y0, y5, z0, z5 = yj - x[1], yc - x[1], zl - x[2], zc - x[2]
-                                        su = v[0] + a9[1] * y5 + a9[2] * z5
-                                        sv = v[1] + a9[4] * y0 + a9[5] * z5
-                                        sw = v[2] + a9[7] * y5 + a9[8] * z0
-                                        for r in range(3):  # x offset r - 1 of the cell from the point
-                                            i = p - r
-                                            if not 0 <= i < tx:
-                                                continue
-                                            fi = cx + f32(1 - r)
-                                            a = acc[tj, tl, i]
-                                            if r != 2:
-                                                w = wu * hat(g[0] - fi)
-                                                a[0] += w * (su + a9[0] * (fi * h + ox - x[0]))
-                                                a[1] += w
-                                            hx5 = hat(g[0] - half - fi)
-                                            xc = (fi + half) * h + ox - x[0]
-                                            if dy != 1:
-                                                w = wv * hx5
-                                                a[2] += w * (sv + a9[3] * xc)
-                                                a[3] += w
-                                            if dz != 1:
-                                                w = ww * hx5
-                                                a[4] += w * (sw + a9[6] * xc)
-                                                a[5] += w
-                    c0 = c1
+                chunks = 0
+                for w0 in range(0, k_slots, 32):  # the slots w0 ... w0 + 31, a word at a time
+                    # occupancy of the word's slots of the tile's cells and halo, in
+                    # (x, y, z) order
+                    cells, occupied = [], []
+                    for hc in range(hx * hy * hz):
+                        c = (t0x - 1 + hc // (hy * hz), t0y - 1 + (hc // hz) % hy, t0z - 1 + hc % hz)
+                        inside = all(0 <= c[a] < (nx, ny, nz)[a] for a in range(3))
+                        cells.append(c)
+                        word = range(w0, min(w0 + 32, k_slots))
+                        occupied.append([k for k in word if data[(3, k) + c] != 0] if inside else [])
+                    if not any(occupied):
+                        continue
+                    first = np.concatenate([[0], np.cumsum([(len(o) | 1) if o else 0 for o in occupied])])
+                    c0 = 0
+                    while c0 < len(cells):
+                        base = first[c0]
+                        c1 = max(c for c in range(c0 + 1, len(cells) + 1) if first[c] - base <= cap)
+                        chunks += 1
+                        pool = {}
+                        for hc in range(c0, c1):
+                            for nth, k in enumerate(occupied[hc]):
+                                s = data[(slice(None), k) + cells[hc]]
+                                g = ((s[0] - ox) / h, (s[1] - oy) / h, (s[2] - oz) / h)
+                                a9 = s[7:16] if affine else np.zeros(9, f32)
+                                pool[first[hc] - base + nth] = (g, s[0:3], s[3], s[4:7], a9)
+                        for tj in range(ty):
+                            for tl in range(tz):
+                                fj, fl = f32(t0y + tj), f32(t0z + tl)
+                                yj, zl = fj * h + oy, fl * h + oz
+                                yc, zc = (fj + half) * h + oy, (fl + half) * h + oz
+                                for p in range(hx):
+                                    cx = f32(t0x - 1 + p)
+                                    for n in range(9):
+                                        dy, dz = n // 3 - 1, n % 3 - 1
+                                        hc = (p * hy + tj + 1 + dy) * hz + tl + 1 + dz
+                                        if not c0 <= hc < c1:
+                                            continue
+                                        for e in range(len(occupied[hc])):
+                                            g, x, m, v, a9 = pool[first[hc] - base + e]
+                                            hy0, hy5 = hat(g[1] - fj), hat(g[1] - half - fj)
+                                            hz0, hz5 = hat(g[2] - fl), hat(g[2] - half - fl)
+                                            wu, wv, ww = m * hy5 * hz5, m * hy0 * hz5, m * hy5 * hz0
+                                            y0, y5, z0, z5 = yj - x[1], yc - x[1], zl - x[2], zc - x[2]
+                                            su = v[0] + a9[1] * y5 + a9[2] * z5
+                                            sv = v[1] + a9[4] * y0 + a9[5] * z5
+                                            sw = v[2] + a9[7] * y5 + a9[8] * z0
+                                            for r in range(3):  # x offset r - 1 of the cell from the point
+                                                i = p - r
+                                                if not 0 <= i < tx:
+                                                    continue
+                                                fi = cx + f32(1 - r)
+                                                a = acc[tj, tl, i]
+                                                if r != 2:
+                                                    w = wu * hat(g[0] - fi)
+                                                    a[0] += w * (su + a9[0] * (fi * h + ox - x[0]))
+                                                    a[1] += w
+                                                hx5 = hat(g[0] - half - fi)
+                                                xc = (fi + half) * h + ox - x[0]
+                                                if dy != 1:
+                                                    w = wv * hx5
+                                                    a[2] += w * (sv + a9[3] * xc)
+                                                    a[3] += w
+                                                if dz != 1:
+                                                    w = ww * hx5
+                                                    a[4] += w * (sw + a9[6] * xc)
+                                                    a[5] += w
+                        c0 = c1
                 most_chunks = max(most_chunks, chunks)
                 for tj in range(ty):
                     for tl in range(tz):
@@ -268,10 +273,11 @@ def _p2g_tiles(data, cfg, tile, cap):
 
 
 @pytest.mark.parametrize("scheme", SCHEMES)
-@pytest.mark.parametrize("k", [5, 12])
+@pytest.mark.parametrize("k", [5, 12, 40])
 def test_p2g_tile_algorithm_matches_jax_oracle(scheme, k):
     """The tile algorithm of kernel B against ``transfers._p2g_slots_jnp`` on
-    a grid no tile divides: slots that are not prefix-dense, a full cell,
+    a grid no tile divides, at up to 40 slots a cell (two words of the
+    occupancy mask): slots that are not prefix-dense, a full cell,
     particles on tile and domain borders, a chunk size that cuts every busy
     tile's list several times; and the same bits whatever the tile's shape
     and the chunk size."""
@@ -289,21 +295,20 @@ def test_p2g_tile_algorithm_matches_jax_oracle(scheme, k):
         assert _normalized_err(got, want) < 2e-5
         np.testing.assert_allclose(den[a], np.asarray(jd[a]), rtol=1e-5, atol=1e-6)
     num2, den2, chunks2 = _p2g_tiles(data, cfg, (3, 2, 2), cap=1 << 20)
-    assert chunks2 == 1
+    assert chunks2 == -(-k // 32)  # one chunk a word of slots
     for a in range(3):
         np.testing.assert_array_equal(num[a], num2[a])
         np.testing.assert_array_equal(den[a], den2[a])
 
 
-@pytest.mark.parametrize("case", ["too many slots", "dtype", "shape", "strides"])
+@pytest.mark.parametrize("case", ["dtype", "shape", "strides"])
 def test_p2g_kernel_wrapper_refuses(case):
     """What kernel B's wrapper does not take raises before anything is
-    launched: more than 32 slots a cell, another dtype, a payload that does
-    not fit the grid, a payload that is not contiguous."""
+    launched: another dtype, a payload that does not fit the grid, a payload
+    that is not contiguous. It takes any number of slots a cell."""
     cfg = convert.config_from_fields(**vars(SimConfig(grid_size=(3, 2, 2), max_neighbors_per_cell=4)))
     data = torch.zeros((16, 4, 3, 2, 2))
     bad, error = {
-        "too many slots": (torch.zeros((16, 33, 3, 2, 2)), ValueError),
         "dtype": (data.double(), TypeError),
         "shape": (torch.zeros((16, 4, 3, 2, 3)), ValueError),
         "strides": (torch.zeros((16, 4, 3, 2, 4))[..., ::2], ValueError),

@@ -1,4 +1,5 @@
-"""Two trees of the port on one card in one call: kernels B, F, D, D' and B'.
+"""Two trees of the port on one card in one call: kernels B, F, D, D', B', E,
+E' and F'.
 
 Runs this file's measurement in a process of its own for each tree, in the
 order parent, change, change, parent (two calls may land on two cards, so
@@ -11,7 +12,12 @@ line of its own, kernels D (``transfers.g2p_pic``) and D'
 (``transfers.g2p_bwd``): three event medians around the wrapper, the
 device's own time of the kernel (torch.profiler), and the host-clock ms of
 the ``g2p_pic`` stage (a call and a synchronize); then kernel B'
-(``kernels.p2g_faces_bwd``) likewise.
+(``kernels.p2g_faces_bwd``) likewise; then kernels E
+(``kernels.correction_springs``) and E' (``kernels.correction_springs_bwd``)
+on the resident slots and F' (``surface.sample_surface_bwd``, both
+launches) on the 261^3-node grid, three event medians each and the
+device's own time of E and E'; last, E' at 32 slots a cell on a 64^3 grid
+of random slots.
 
 Run from the repository root on a machine with an H100, with the parent
 commit unpacked beside it (``git archive <commit> libfluid_tpu_torch
@@ -98,6 +104,51 @@ def measure(tag: str) -> None:
 
     bb = [cs.median_ms(p2g_backward) for _ in range(3)]
     print(f"{tag}: B' ms {fmt(bb)} (device {cs.device_ms(p2g_backward, 'p2g_bwd_kernel')})", flush=True)
+    del data, faces
+
+    # kernels E and E' on this state's resident slots, F' on its particles
+    sg = slotsort.sort_and_build(state, cfg).slot_grid
+    kc = min(cfg.correction_capacity, sg.capacity)
+    res_pos, res_mask = sg.position[:, :kc].contiguous(), sg.mask[:kc].contiguous()
+    del sg
+    g = torch.randn(res_pos.shape, generator=gen, device=pos.device)
+    re2 = cfg.cell_size**2 / 2.0
+
+    def springs():
+        return kernels.correction_springs(res_pos, res_mask, re2, 12345)
+
+    def springs_bwd():
+        return kernels.correction_springs_bwd(res_pos, res_mask, g, re2, 12345)
+
+    binned = surface._binned(pos, state.active, mesher)
+    gn = torch.randn(tuple(n + 1 for n in mesher.grid_size), generator=gen, device=pos.device)
+
+    def surface_bwd():
+        return surface.sample_surface_bwd(binned, gn, mesher)
+
+    e = [cs.median_ms(springs) for _ in range(3)]
+    eb = [cs.median_ms(springs_bwd) for _ in range(3)]
+    fb = [cs.median_ms(surface_bwd) for _ in range(3)]
+    print(f"{tag}: E ms {fmt(e)} (device {cs.device_ms(springs, 'correction_kernel')}) | E' ms {fmt(eb)} "
+          f"(device {cs.device_ms(springs_bwd, 'correction_bwd_kernel')}) | F' ms {fmt(fb)} (device: node "
+          f"part {cs.device_ms(surface_bwd, 'surface_kernel')}, particle part "
+          f"{cs.device_ms(surface_bwd, 'surface_bwd_kernel')})", flush=True)
+    del res_pos, res_mask, g, binned
+
+    # kernel E' at 32 slots a cell: 4 in 10 slots occupied, a point in its cell
+    shape = (64, 64, 64)
+    mask = (torch.rand((32, *shape), generator=gen, device=pos.device) < 0.4).float()
+    cell = torch.stack(torch.meshgrid(
+        *(torch.arange(n, device=pos.device, dtype=torch.float32) for n in shape), indexing="ij"))
+    slots = (cell[:, None] + torch.rand((3, 32, *shape), generator=gen, device=pos.device)) * mask
+    g32 = torch.randn(slots.shape, generator=gen, device=pos.device)
+
+    def springs_bwd32():
+        return kernels.correction_springs_bwd(slots, mask, g32, 0.5, 12345)
+
+    e32 = [cs.median_ms(springs_bwd32) for _ in range(3)]
+    print(f"{tag}: E' at 32 slots a cell on {shape} ms {fmt(e32)} (device "
+          f"{cs.device_ms(springs_bwd32, 'correction_bwd')})", flush=True)
 
 
 def main() -> None:
