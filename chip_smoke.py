@@ -79,7 +79,20 @@ Phases, one line of output each (or a few):
     accelerator on config 3's mesh and on the 128^3 main path's (~270k
     triangles) against the brute force on the card, build and traversal ms;
     one profiled Cornell render (device busy share); the CLI's ``--scene
-    cornell1``.
+    cornell1``; the bidirectional tracer as ``bench.py`` runs it (Cornell
+    and glass, 256^2 x 32 spp, 6 + 6 bounces: wall time, rays cast, Mrays/s,
+    host reads, the image mean against configs 1 and 2's) and through
+    ``render`` against the golden images at 64^2 x 32 spp; the voxelizer on
+    the 128^3 main path's and config 3's meshes (card against CPU); the
+    testbed CLI rendering setup 0 (``--render-every 1``, 256^2, two PT
+    frames at 4 spp and one BDPT frame at 1 spp: the split of a frame); the
+    pixel gradient through a 16^3 substep, the mesher and the renderer,
+    card against CPU (position correction off and on), and config 3's frame
+    differentiably at full width (forward and backward ms, peak memory,
+    |g|, a descent step);
+12. the small harness: the DCC pipeline at setup 0's scale (3 frames, a
+    mesh, a scrub back), a checkpoint of the 128^3 state restored and
+    stepped beside the original, the native host library.
 
 Phase 3 also holds kernels B, E and E' at 40 slots a cell and F and F' with
 a support of 16 cells (where the slots take two words of an occupancy mask
@@ -96,7 +109,9 @@ main path); the last line is ``{"ok": true, "device": {...}}``. Needs a
 CUDA device; never falls back to the CPU for the main path.
 """
 
+import contextlib
 import dataclasses
+import importlib
 import json
 import os
 import subprocess
@@ -107,12 +122,14 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from libfluid_tpu_torch import _build, testbed
+from libfluid_tpu_torch import _build, checkpoint, dcc, native, profiling, testbed, voxelizer
 from libfluid_tpu_torch.config import MesherConfig, RenderConfig, SimConfig, SolverConfig, TransferScheme
 from libfluid_tpu_torch import sim
-from libfluid_tpu_torch.renderer import accel, intersect, loops, pathtrace, scenes
+from libfluid_tpu_torch.renderer import accel, bdpt, intersect, loops, pathtrace, scenes
+from libfluid_tpu_torch.renderer.camera import Camera
+from libfluid_tpu_torch.renderer.draws import HashDraws
 from libfluid_tpu_torch.renderer.render import render
-from libfluid_tpu_torch.renderer.scene import inject_mesh
+from libfluid_tpu_torch.renderer.scene import SceneBuilder, inject_mesh
 from libfluid_tpu_torch.io.obj import load_obj
 from libfluid_tpu_torch.mesher import generate_mesh, surface
 from libfluid_tpu_torch.sim import (correction, extrapolation, kernels, multigrid, pressure, slotsort,
@@ -145,6 +162,7 @@ VCYCLE_KERNELS = ("mg_pre", "mg_restrict", "mg_up", "mg_coarse")
 FORWARD_KERNELS = ("expand", "p2g", "stencil", *VCYCLE_KERNELS, "g2p", "correction", "surface")
 GRAD_KERNELS = ("expand", "p2g", "p2g_bwd", "stencil", *VCYCLE_KERNELS, "g2p", "g2p_bwd")
 MESH_GRAD_KERNELS = ("surface", "surface_bwd_nodes", "surface_bwd")
+BACKWARD_KERNELS = ("p2g_bwd", "g2p_bwd", "correction_bwd", "surface_bwd_nodes", "surface_bwd")
 # Kernel F' against float64: the largest error of either float32 version sits
 # on a node that one far particle reaches (its words carry 1 / W, W the cube
 # of a kl of a few roundings) and varies severalfold with the order of the
@@ -1627,28 +1645,43 @@ STAGES = (
 )
 
 
-def stage_split(state, cfg, n0: int, cg_parts, substeps: int = 3):
-    """`substeps` substeps with a synchronize around each stage: ms per
-    stage (mean), CG iterations and ms per CG iteration, held beside
-    `cg_parts`, the ms of one V-cycle and one operator call. The stages are
-    timed by wrapping the functions `substep` calls, for this run only."""
-    spent = {label: 0.0 for label, _, _ in STAGES}
-    originals = [(mod, name, getattr(mod, name)) for _, mod, name in STAGES]
+@contextlib.contextmanager
+def timed_stages(timer, stages, sync: bool):
+    """While the block runs, time each function of `stages` ((label,
+    module, name), ...) as stage `label` of `timer` by wrapping the
+    module's attribute, with a synchronize before and after each call if
+    `sync`; the functions are restored after."""
+    originals = [(mod, name, getattr(mod, name)) for _, mod, name in stages]
 
     def timed(label, fn):
         def run(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            result = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            spent[label] += (time.perf_counter() - t0) * 1e3
+            if sync:
+                torch.cuda.synchronize()
+            with timer.stage(label):
+                result = fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
             return result
         return run
 
-    total, iters = 0.0, 0
     try:
-        for (label, mod, name), (_, _, fn) in zip(STAGES, originals):
+        for (label, mod, name), (_, _, fn) in zip(stages, originals):
             setattr(mod, name, timed(label, fn))
+        yield
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+
+
+def stage_split(state, cfg, n0: int, cg_parts, substeps: int = 3):
+    """`substeps` substeps with a synchronize around each stage: ms per
+    stage (mean, ``profiling.StageTimer``'s CUDA events between the
+    synchronizes), CG iterations and ms per CG iteration, held beside
+    `cg_parts`, the ms of one V-cycle and one operator call. The stages are
+    timed by wrapping the functions `substep` calls, for this run only."""
+    timer = profiling.StageTimer(state.position.device)
+    total, iters = 0.0, 0
+    with timed_stages(timer, STAGES, sync=True):
         for i in range(substeps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1657,9 +1690,8 @@ def stage_split(state, cfg, n0: int, cg_parts, substeps: int = 3):
             total += (time.perf_counter() - t0) * 1e3
             iters += int(diag.pressure_iterations)
             healthy(state, diag, cfg, n0, f"staged substep {i}")
-    finally:
-        for mod, name, fn in originals:
-            setattr(mod, name, fn)
+    totals = timer.totals
+    spent = {label: 1e3 * totals.get(label, 0.0) for label, _, _ in STAGES}
     rest = total - sum(spent.values())
     solve = spent[STAGES[2][0]]
     log(f"128^3 stage split, mean of {substeps} staged substeps: total {total / substeps:.2f} ms, "
@@ -1784,12 +1816,13 @@ def psnr(a: np.ndarray, b: np.ndarray) -> float:
     return 10.0 * np.log10(peak * peak / max(mse, 1e-20))
 
 
-def render_configs_1_2(device) -> None:
+def render_configs_1_2(device) -> dict:
     """Configs 1 and 2 as bench.py sets them: Cornell and glass at 256^2 x
     32 spp, max_bounces 5, the persistent brute tracer with its cast count;
     the wall time of the second call, rays cast, Mrays/s (cast-accounted)
-    and the host reads of the loop."""
+    and the host reads of the loop. Returns each image's mean."""
     cfg = RenderConfig(width=256, height=256, samples_per_pixel=32, max_bounces=5, differentiable=False)
+    means = {}
     for number, (name, mk) in enumerate(RENDER_SCENES.items(), start=1):
         b, cam = mk(1.0, device=device)
         scene = b.finish(device=device)
@@ -1809,6 +1842,8 @@ def render_configs_1_2(device) -> None:
             f"({rays / (cfg.width * cfg.height * cfg.samples_per_pixel):.3f} a path), "
             f"{rays / wall / 1e6:.3f} Mrays/s (cast-accounted), {reads} host reads, image mean "
             f"{float(img.mean()):.5f}")
+        means[name] = float(img.mean())
+    return means
 
 
 def render_goldens(device) -> None:
@@ -1973,20 +2008,397 @@ def scene_cli_run() -> None:
         check(np.frombuffer(data[len(header):], np.uint8).max() > 0, "cornell1.ppm is black")
 
 
-def renderer_phases(device, mesh128) -> None:
-    """The renderer's slice: configs 1 and 2, both tracers against the
-    golden images, config 3's frame (driven, with the kernels of its
-    substep and mesher), the accelerator on config 3's and the 128^3 main
-    path's meshes, a profiled render and the CLI's --scene."""
-    render_configs_1_2(device)
+def renderer_phases(device, mesh128) -> dict:
+    """The renderer: configs 1 and 2, both tracers against the golden
+    images, config 3's frame (driven, with the kernels of its substep and
+    mesher), the accelerator on config 3's and the 128^3 main path's
+    meshes, a profiled render and the CLI's --scene; then BDPT at full
+    width and against the goldens, the voxelizer on both meshes, the
+    testbed's rendered frames (driven), and the pixel gradient: card
+    against CPU at 16^3 and config 3's at full width (both driven). Returns
+    BDPT's Mrays/s."""
+    pt_means = render_configs_1_2(device)
     render_goldens(device)
     mesh64, _ = drive("config 3 frame (64^3 simulate -> mesh -> render)", lambda: render_config_3(device),
                       FORWARD_KERNELS)
     accel_at_fluid_scale(device, [("config 3's 64^3 frame", 64.0, (64, 64, 64), *mesh64),
                                   ("the 128^3 main path's mesh", 128.0, (128, 128, 128), *mesh128)])
-    del mesh64
     render_busy_share(device)
     scene_cli_run()
+    rates = bdpt_full_width(device, pt_means)
+    bdpt_goldens(device)
+    voxelize_meshes(device, mesh128, mesh64)
+    del mesh64
+    torch.cuda.empty_cache()
+    drive("testbed --render-every path (setup 0, PT and BDPT)", lambda: fluid_frames(device), FORWARD_KERNELS)
+    torch.cuda.empty_cache()
+    drive("pixel gradient parity (16^3 composed gate)", lambda: pixel_grad_parity(device), ())
+    torch.cuda.empty_cache()
+    drive("config 3 pixel gradient (two 64^3 substeps -> mesh -> 256^2 render)",
+          lambda: pixel_grad_full_width(device), (*FORWARD_KERNELS, *BACKWARD_KERNELS))
+    torch.cuda.empty_cache()
+    return rates
+
+
+# --- the second renderer slice and the harness ----------------------------------
+
+def bdpt_image(scene, cam, cfg: RenderConfig, seed: int):
+    """``bench.py``'s BDPT loop: per sample, every pixel's jittered ray in
+    one batch through ``bdpt.trace_rays(with_stats=True)`` on a
+    :class:`HashDraws` of `seed`. Returns the mean image (H*W, 3) and the
+    rays cast."""
+    draws = HashDraws(seed)
+    w, h = cfg.width, cfg.height
+    gx, gy = torch.meshgrid(torch.arange(w, dtype=torch.float32, device=scene.device),
+                            torch.arange(h, dtype=torch.float32, device=scene.device), indexing="xy")
+    base = torch.stack([gx, gy], dim=-1).reshape(-1, 2)
+    inv = torch.tensor([1.0 / w, 1.0 / h], device=scene.device)
+    acc = torch.zeros((w * h, 3), device=scene.device)
+    cast = torch.zeros((), dtype=torch.int64, device=scene.device)
+    for sample in range(cfg.samples_per_pixel):
+        o, d = cam.get_rays((base + draws.jitter(sample, w * h, scene.device)) * inv)
+        rad, c = bdpt.trace_rays(scene, o, d, draws.bdpt(sample, 0), cfg, with_stats=True)
+        acc, cast = acc + rad, cast + c
+    return acc / cfg.samples_per_pixel, cast
+
+
+def bdpt_full_width(device, pt_means) -> dict:
+    """BDPT as ``bench.py`` runs it (Cornell and glass at 256^2 x 32 spp,
+    6 camera and 6 light bounces, each sample's 65,536 rays one batch): the
+    wall time of the second call, rays cast, Mrays/s (cast-accounted), host
+    reads; the image mean within 8 % (Cornell) / 12 % (glass) of the
+    persistent PT image's of configs 1 / 2 (`pt_means`), the bounds of
+    tests/test_bdpt.py. Returns each scene's Mrays/s."""
+    cfg = RenderConfig(width=256, height=256, samples_per_pixel=32, algorithm="bdpt")
+    rates = {}
+    for (name, mk), bound_rel in zip(RENDER_SCENES.items(), (0.08, 0.12)):
+        b, cam = mk(1.0, device=device)
+        scene = b.finish(device=device)
+        bdpt_image(scene, cam, dataclasses.replace(cfg, samples_per_pixel=1), 0)
+        torch.cuda.synchronize()
+        loops.reset_host_reads()
+        t0 = time.perf_counter()
+        img, cast = bdpt_image(scene, cam, cfg, 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rays, reads = int(cast), loops.HOST_READS["count"]
+        mean = float(img.mean())
+        rel = abs(mean / pt_means[name] - 1.0)
+        check(bool(torch.isfinite(img).all()) and float(img.min()) >= 0, f"BDPT {name}: image not finite")
+        check(rel < bound_rel, f"BDPT {name}: mean {mean} off the PT mean {pt_means[name]} by {rel:.4f}")
+        rates[name] = rays / wall / 1e6
+        log(f"BDPT {name} 256^2 x 32 spp, 6 + 6 bounces: {wall:.4f} s (second call), {rays} rays cast "
+            f"({rays / (cfg.width * cfg.height * cfg.samples_per_pixel):.3f} a path), {rates[name]:.3f} Mrays/s "
+            f"(cast-accounted), {reads} host reads, image mean {mean:.5f} against the PT image's "
+            f"{pt_means[name]:.5f} (off by {100 * rel:.2f} %, bound {100 * bound_rel:.0f} %)")
+    return rates
+
+
+def bdpt_goldens(device) -> None:
+    """BDPT through ``render(algorithm="bdpt")`` at 64^2 x 32 spp with the
+    default 6 camera and 6 light bounces, against tests/golden/*_64.npz (PT
+    at 128 spp, 5 bounces): the mean within 8 % (Cornell) / 12 % (glass).
+    With 5 + 5 bounces the Cornell mean sat 8.3 % under the golden's: the
+    JAX package's BDPT, which the port equals on injected draws, reads
+    darker than its PT on the Cornell box (7.2 % at 256^2)."""
+    texts = []
+    for (name, mk), bound_rel in zip(RENDER_SCENES.items(), (0.08, 0.12)):
+        golden = np.load(os.path.join(GOLDEN_DIR, f"{name}_64.npz"))["img"]
+        b, cam = mk(1.0, device=device)
+        cfg = RenderConfig(width=64, height=64, samples_per_pixel=32, algorithm="bdpt")
+        t0 = time.perf_counter()
+        img = render(b.finish(device=device), cam, cfg, torch.Generator().manual_seed(7), device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        img = img.cpu().numpy()
+        rel = abs(float(img.mean()) / float(golden.mean()) - 1.0)
+        check(bool(np.isfinite(img).all()) and rel < bound_rel, f"BDPT golden {name}: mean off by {rel:.4f}")
+        texts.append(f"{name}: mean off by {100 * rel:.2f} % (bound {100 * bound_rel:.0f} %), PSNR "
+                     f"{psnr(img, golden):.2f} dB ({wall:.3f} s)")
+    log("BDPT against the golden images at 64^2 x 32 spp: " + "; ".join(texts))
+
+
+def fluid_frames(device) -> None:
+    """The testbed CLI renders the simulation: setup 0, 2 frames with
+    ``--render-every 1 --render-size 256 --spp 4`` (the forward tracer, the
+    default ``--tri-capacity`` of 2^17), then 1 frame with ``--algorithm
+    bdpt`` at 256^2 x 1 spp. Each frame's split from ``profiling.StageTimer``
+    (step, mesh, scene = host copy + builder + ``accel.build``, render:
+    CUDA events around the functions the frame loop calls, wrapped for
+    this run only); every PPM written, of the right size and not black."""
+    runs = (("pt", ["--frames", "2", "--spp", "4"]), ("bdpt", ["--frames", "1", "--spp", "1", "--algorithm", "bdpt"]))
+    stages = (("step", sim, "step"), ("mesh", importlib.import_module("libfluid_tpu_torch.mesher.marching_cubes"),
+                                      "generate_mesh"),
+              ("scene", testbed, "fluid_render_scene"),
+              ("render", importlib.import_module("libfluid_tpu_torch.renderer.render"), "render"))
+    for algorithm, extra in runs:
+        timer = profiling.StageTimer(device)
+        with tempfile.TemporaryDirectory() as out, timed_stages(timer, stages, sync=False):
+            t0 = time.perf_counter()
+            rc = testbed_cli.main(["--setup", "0", "--render-every", "1", "--render-size", "256", "--out", out,
+                                   *extra], device=device)
+            wall = time.perf_counter() - t0
+            check(rc == 0, f"testbed --render-every ({algorithm}) exited with {rc}")
+            frames = int(extra[1])
+            for frame in range(frames):
+                data = open(os.path.join(out, f"frame_{frame:05d}.ppm"), "rb").read()
+                header = b"P6\n256 256\n255\n"
+                check(data.startswith(header) and len(data) == len(header) + 256 * 256 * 3,
+                      f"frame {frame} ({algorithm}): {len(data)} bytes")
+                check(np.frombuffer(data[len(header):], np.uint8).max() > 0, f"frame {frame} ({algorithm}) is black")
+        totals = timer.totals
+        split = ", ".join(f"{name} {1e3 * totals[name] / timer.counts[name]:.1f}"
+                          for name in ("step", "mesh", "scene", "render"))
+        log(f"testbed setup 0 --render-every 1, 256^2, {algorithm} ({' '.join(extra)}): rc 0, {wall:.2f} s for "
+            f"{frames} frame(s); ms a frame (CUDA events): {split}")
+
+
+def ramp_texels() -> np.ndarray:
+    """A smooth 8x8 albedo ramp over a triangle's barycentric uv: the
+    water's texture where a pixel gradient must not vanish (a constant
+    lambertian albedo under a constant emitter gives a path weight that
+    does not depend on where the surface is hit)."""
+    u = np.linspace(0.0, 1.0, 8)
+    return np.stack([0.2 + 0.8 * np.broadcast_to(u[None, :], (8, 8)),
+                     0.2 + 0.8 * np.broadcast_to(u[:, None], (8, 8)), np.full((8, 8), 0.6)], -1)
+
+
+def pixel_loss(cfg, state, vel, mcfg, scene0, water, cam, rcfg, seed: int, dt: float, substeps: int = 1):
+    """The mean pixel (summed in float64) of the mesh after `substeps`
+    substeps, rendered differentiably: the substeps' draws from a generator
+    seeded 0, the render's from ``HashDraws(seed)``. A substep advects with
+    the velocity it starts with, so with one substep the gradient with
+    respect to the initial velocities passes through advection, the
+    correction springs (E') and the mesher (F') only; from the second on
+    also through G2P (D'), the pressure solve's adjoint and P2G (B')."""
+    st = state._replace(velocity=vel, generator=torch.Generator().manual_seed(0))
+    for _ in range(substeps):
+        st, diag = sim.substep(st, cfg, dt)
+    mesh = generate_mesh(st.position, st.active, mcfg)
+    img = render(inject_mesh(scene0, mesh.vertices, mesh.valid, water), cam, rcfg, HashDraws(seed),
+                 device=scene0.device)
+    return torch.mean(img.double()), diag, mesh
+
+
+def lit_box(device, textured: bool):
+    """The 16^3 composed gate's lit floor and lamp (tests/test_pixel_grad_fd.py)
+    and its water."""
+    b = SceneBuilder()
+    white = b.lambertian((0.75, 0.75, 0.75))
+    light = b.lambertian((0.8, 0.8, 0.8), emission=(60.0, 60.0, 60.0))
+    water = b.lambertian((0.4, 0.55, 0.8), albedo_tex=b.add_texture(ramp_texels()) if textured else 0)
+    b.add_mesh(np.array([[16, 0, 16], [0, 0, 16], [0, 0, 0], [16, 0, 0]], float), np.array([[0, 1, 2], [0, 2, 3]]),
+               white)
+    b.add_mesh(np.array([[11, 15.2, 11], [5, 15.2, 11], [5, 15.2, 5], [11, 15.2, 5]], float),
+               np.array([[0, 2, 1], [0, 3, 2]]), light)
+    cam = Camera.from_parameters((8.0, 10.0, 26.0), (8.0, 4.0, 8.0), (0.0, 1.0, 0.0), np.deg2rad(45.0), 1.0,
+                                 device=device)
+    return b.finish(device=device), water, cam
+
+
+def pixel_grad_parity(device) -> None:
+    """The composed pixel gradient (pixels -> render -> marching cubes ->
+    two 16^3 substeps of 0.05 -> initial velocities) on the card (kernels
+    A-F forward, B' D' F' and E' backward) against the CPU port (plain
+    versions and their autograd), with the same substep and render draws:
+    cosine >= 0.99, position correction off and on. Two substeps, where the
+    gate has one, so that the gradient passes through P2G, the solve and
+    G2P (see :func:`pixel_loss`). The water is textured and the image 16x16
+    x 2 spp (3 bounces): at the gate's 8x8 x 2 spp with a plain water the
+    gradient is zero on both sides (tests/test_torch_pixel_grad.py)."""
+    rcfg = RenderConfig(width=16, height=16, samples_per_pixel=2, max_bounces=3, ray_batch=256)
+    mcfg = MesherConfig(grid_size=(16, 16, 16), cell_size=1.0, grid_offset=(0.0, 0.0, 0.0), max_triangles=1 << 11)
+    for correct in (False, True):
+        cfg = SimConfig(grid_size=(16, 16, 16), cell_size=1.0, gravity=(0.0, -10.0, 0.0), particle_capacity=1 << 13,
+                        scheme=TransferScheme.APIC, has_obstacles=False, enable_position_correction=correct)
+        grads, losses = {}, {}
+        for dev in (torch.device("cpu"), device):
+            state = sim.seed_box(sim.new_state(cfg, dev), cfg, (5.0, 2.0, 5.0), (11.0, 6.0, 11.0))
+            scene0, water, cam = lit_box(dev, True)
+            vel = state.velocity.clone().requires_grad_()
+            kernels.reset_launches()
+            loss, _, _ = pixel_loss(cfg, state, vel, mcfg, scene0, water, cam, rcfg, 5, 0.05, substeps=2)
+            (grads[dev.type],) = torch.autograd.grad(loss, vel)
+            losses[dev.type] = float(loss.detach())
+        launches = dict(kernels.LAUNCHES)
+        need = ("p2g_bwd", "g2p_bwd", "surface_bwd_nodes", "surface_bwd") + (("correction_bwd",) if correct else ())
+        for k in need:
+            check(launches[k] > 0, f"pixel gradient parity: kernel {k} was not launched")
+        g_dev, g_cpu = grads[device.type].cpu().double().flatten(), grads["cpu"].double().flatten()
+        cos = float(torch.nn.functional.cosine_similarity(g_dev, g_cpu, dim=0))
+        what = "correction on" if correct else "correction off"
+        log(f"pixel gradient parity 16^3 ({what}), 2 substeps, 16x16 x 2 spp, textured water: loss card "
+            f"{losses['cuda']:.6f} / cpu {losses['cpu']:.6f}, max|g| card {float(g_dev.abs().max()):.4e} / cpu "
+            f"{float(g_cpu.abs().max()):.4e}, cosine {cos:.6f} (>= 0.99); backward launches "
+            + ", ".join(f"{k} {launches[k]}" for k in need))
+        check(float(g_cpu.abs().max()) > 0 and bool(torch.isfinite(g_dev).all()), f"parity {what}: gradient zero")
+        check(cos >= 0.99, f"pixel gradient parity ({what}): cosine {cos} < 0.99")
+
+
+def pixel_grad_full_width(device) -> None:
+    """Config 3's frame differentiably: the 64^3 APIC dam-break (capacity
+    2^18, box (1,1,1)-(31,31,31), correction on), two substeps of 0.02 (so
+    that the gradient passes through G2P, the pressure solve's adjoint and
+    P2G: kernels D', B' and the adjoint CG, beside E' and F'),
+    ``generate_mesh`` on 64^3 cells of 1.0 (2^17 triangles), ``inject_mesh``
+    into the fluid box (no accelerator: the brute-force search, whose
+    (rays, triangles) blocks autograd does not keep), ``render`` at 256^2 x
+    1 spp, 3 bounces; loss the mean pixel, gradient with respect to the
+    initial velocities. First with the plain water (the gradient is zero:
+    no path weight depends on where a lambertian surface of constant albedo
+    is hit), then with the water's albedo a ramp over the hit's uv: forward
+    and backward ms, peak memory, |g|, the backward kernels' launches
+    (p2g_bwd, g2p_bwd, correction_bwd, surface_bwd_nodes, surface_bwd: each
+    at least once); g finite and nonzero, and a step of
+    max|dv| = 0.01 along -g lowers the loss, beside its first-order
+    prediction, the loss recomputed at the same velocities (the float
+    atomics' noise) and steps of 0.003 and 0.1 (printed, not held: a pixel
+    whose path crosses a silhouette under the step moves the mean by
+    ~5e-6, which autodiff does not see; at max|dv| 0.1 that outweighed the
+    first-order change on the card)."""
+    cfg = SimConfig(grid_size=(64, 64, 64), gravity=(0.0, -981.0, 0.0), particle_capacity=1 << 18,
+                    scheme=TransferScheme.APIC, has_obstacles=False)
+    state = sim.seed_box(sim.new_state(cfg, device), cfg, (1.0, 1.0, 1.0), (31.0, 31.0, 31.0))
+    mcfg = MesherConfig(grid_size=(64, 64, 64), cell_size=1.0, max_triangles=1 << 17)
+    rcfg = RenderConfig(width=256, height=256, samples_per_pixel=1, max_bounces=3, differentiable=True)
+    for textured in (False, True):
+        b, cam = scenes.fluid_box((0.0, 0.0, 0.0), (64.0, 64.0, 64.0), device=device)
+        water = b.lambertian(WATER, albedo_tex=b.add_texture(ramp_texels()) if textured else 0)
+        scene0 = b.finish(device=device)
+        vel = state.velocity.clone().requires_grad_()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        loss, diag, mesh = pixel_loss(cfg, state, vel, mcfg, scene0, water, cam, rcfg, 3, DT, substeps=2)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        (g,) = torch.autograd.grad(loss, vel)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: kernels.LAUNCHES[k] - before[k] for k in BACKWARD_KERNELS}
+        gmax, gnorm = float(g.abs().max()), float(g.norm())
+        what = "textured water" if textured else "plain water"
+        check(bool(torch.isfinite(g).all()), f"config 3 pixel gradient ({what}): not finite")
+        for k, n in launches.items():
+            check(n > 0, f"config 3 pixel gradient ({what}): kernel {k} was not launched")
+        text = (f"config 3 pixel gradient ({what}): two 64^3 substeps (CG {int(diag.pressure_iterations)} it in "
+                f"the second) -> {int(mesh.count)} triangles -> 256^2 x 1 spp, 3 bounces, no accelerator: loss "
+                f"{float(loss.detach()):.6f}, "
+                f"forward {1e3 * (t1 - t0):.1f} ms, backward {1e3 * (t2 - t1):.1f} ms, peak memory "
+                f"{peak / 2**30:.2f} GiB ({peak} B), |g| {gnorm:.6e}, max|g| {gmax:.6e}; backward launches "
+                + ", ".join(f"{k} {n}" for k, n in launches.items()))
+        if not textured:
+            log(text)
+            continue
+        check(gmax > 0, "config 3 pixel gradient (textured water): the gradient is zero")
+        changes = {}
+        with torch.no_grad():
+            for step in (0.0, 0.003, 0.01, 0.1):
+                moved, _, _ = pixel_loss(cfg, state, state.velocity - (step / gmax) * g, mcfg, scene0, water, cam,
+                                         rcfg, 3, DT, substeps=2)
+                changes[step] = float(moved) - float(loss.detach())
+        log(f"{text}; the loss along -g, changed by (first-order prediction): "
+            + ", ".join(f"max|dv| {step}: {changes[step]:.6e} ({-(step / gmax) * gnorm * gnorm:.6e})"
+                        for step in changes))
+        check(changes[0.01] < 0, f"config 3 pixel gradient: the loss rose by {changes[0.01]} along -g")
+
+
+def voxelize_meshes(device, mesh128, mesh64) -> None:
+    """``obstacle_cells`` of the 128^3 main path's mesh (closed: the mesher
+    grid has a margin) onto the 128^3 grid on the card, with interior cells;
+    then ``voxelize`` and ``obstacle_cells`` of config 3's mesh on the card
+    and on the CPU, the surface, exterior and interior masks and the
+    obstacle mask equal. That mesh is open where the fluid meets the
+    mesher grid's edge, so the flood fill reaches every cell not on its
+    surface and the interior is empty on both."""
+    for what, n, (vertices, valid) in (("the 128^3 main path's mesh", 128, mesh128),
+                                       ("config 3's 64^3 mesh", 64, mesh64)):
+        cfg = SimConfig(grid_size=(n, n, n), particle_capacity=8)
+        tris = vertices[valid].reshape(-1, 3)
+        idx = torch.arange(tris.shape[0], device=tris.device).reshape(-1, 3)
+        torch.cuda.synchronize()
+        loops.reset_host_reads()
+        t0 = time.perf_counter()
+        mask = voxelizer.obstacle_cells(tris, idx, cfg, device)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        text = (f"voxelize {what} ({idx.shape[0]} triangles) onto {n}^3: {int(mask.sum())} interior cells, "
+                f"{ms:.1f} ms on the card ({loops.HOST_READS['count']} host reads)")
+        if n == 128:
+            check(int(mask.sum()) > 0, f"voxelize {what}: no interior cell")
+        else:
+            vox = voxelizer.voxelize(tris, idx, 1.0, device=device)
+            t0 = time.perf_counter()
+            want = voxelizer.voxelize(tris.cpu(), idx.cpu(), 1.0, device="cpu")
+            want_mask = voxelizer.obstacle_cells(tris.cpu(), idx.cpu(), cfg, "cpu")
+            cpu_ms = 1e3 * (time.perf_counter() - t0)
+            for field in ("surface", "exterior", "interior"):
+                got = getattr(vox, field).cpu()
+                check(torch.equal(got, getattr(want, field)), f"voxelize {what}: card and CPU {field} masks "
+                      f"differ in {int((got != getattr(want, field)).sum())} cells")
+            check(torch.equal(mask.cpu(), want_mask), f"voxelize {what}: card and CPU obstacle masks differ")
+            check(int(vox.surface.sum()) > 0, f"voxelize {what}: no surface cell")
+            text += (f"; voxelize: {int(vox.surface.sum())} surface, {int(vox.exterior.sum())} exterior, "
+                     f"{int(vox.interior.sum())} interior cells, the four masks equal to the CPU port's "
+                     f"({cpu_ms:.1f} ms there)")
+        log(text)
+
+
+def harness(device) -> None:
+    """The small harness on the card: the DCC pipeline at setup 0's scale
+    (50^3, 2^17 particles, the testbed's mesher) for 3 frames and a scrub
+    back; a checkpoint of the 128^3 main path's state restored, one substep
+    from each (positions within 1e-5 cells: the overflow scatter's float
+    atomics may move the last bits); the native host library."""
+    grid, mesher = dcc.create_simulation_pipeline(
+        grid_kwargs=dict(grid_size=(50, 50, 50), particle_capacity=1 << 17, frames_per_second=60.0),
+        mesher_cfg=testbed.default_mesher_config(), device=device)
+    grid.add_seeder(lambda s, c: sim.seed_box(s, c, (15.0, 15.0, 15.0), (20.0, 20.0, 20.0)))
+    t0 = time.perf_counter()
+    grid.set_time(3)
+    verts, count = mesher.evaluate()
+    wall = time.perf_counter() - t0
+    frame1 = grid._cache[1]
+    grid.set_time(1)
+    again = grid.evaluate()
+    check(count > 0 and bool(np.isfinite(verts[:count]).all()), f"dcc: mesh of {count} triangles")
+    check(len(grid._cache) == 4 and again is frame1, "dcc: the scrub back did not return the cached frame")
+    log(f"dcc pipeline, setup 0 scale: 3 frames and the mesh ({count} triangles) in {wall:.2f} s; a scrub back "
+        f"to frame 1 returned the cached frame ({again.shape[0]} particles), {len(grid._cache)} frames cached")
+    del grid, mesher
+
+    cfg, state = dam_break(128, device, 1 << 21)
+    state, _ = sim.substep(state, cfg, DT)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "state.npz")
+        t0 = time.perf_counter()
+        checkpoint.save(path, state, metadata={"substeps": 1})
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored = checkpoint.restore(path, sim.new_state(cfg, device, 7), device=device)
+        load_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+    a, _ = sim.substep(state, cfg, DT)
+    b, _ = sim.substep(restored, cfg, DT)
+    check(torch.equal(a.active, b.active), "checkpoint: active masks differ after a substep")
+    err = max_err(a.position[a.active], b.position[b.active])
+    log(f"checkpoint of the 128^3 state ({int(state.active.sum())} particles, {size} B): save {save_s:.2f} s, "
+        f"restore {load_s:.2f} s; one substep from each: positions within {err:.3e} cells (< 1e-5)")
+    check(err < 1e-5, f"checkpoint: positions differ by {err}")
+    del state, restored, a, b
+
+    check(native.available(), f"native: the host library did not build ({native._build_error})")
+    with native.ExportPool(2) as pool:
+        check(pool.native, "native: the export pool runs in Python")
+        with tempfile.TemporaryDirectory() as d:
+            pool.submit_obj(os.path.join(d, "mesh.obj"), verts[:count])
+            pool.flush()
+            check(pool.errors == 0, "native: the export pool reported errors")
+    pos, idx, _ = native.weld_mesh(verts, count)
+    log(f"native: {native._LIB_PATH} loaded, the export pool native; weld of {count} triangles -> "
+        f"{pos.shape[0]} vertices, {idx.shape[0]} faces")
 
 
 def main() -> None:
@@ -2043,6 +2455,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     renderer_phases(device, mesh128)
     del mesh128
+    torch.cuda.empty_cache()
+    drive("harness (DCC pipeline, checkpoint, native)", lambda: harness(device), FORWARD_KERNELS)
 
     # launches: each kernel's count on the path it belongs to (the main path
     # for A-F, the gradient path for B' and D', the correction-on gradient

@@ -2,9 +2,10 @@
 
 Each kernel source compiles with its own ``nvcc`` call, all at once, and
 the objects link into one shared library with a plain C interface (no
-PyTorch headers, so the build takes seconds), loaded with ``ctypes``. The
-build runs at first use and again whenever a source is
-newer than the library; a failed build raises. Every entry point takes raw
+PyTorch headers, so the build takes seconds), loaded with ``ctypes``, in
+the directory of :func:`libfluid_tpu_torch.cache.kernel_dir` under a name
+keyed by the sources', headers' and flags' hash. The build runs at first
+use of those sources; a failed build raises. Every entry point takes raw
 device pointers plus the CUDA stream and returns ``cudaGetLastError()``.
 """
 
@@ -17,10 +18,10 @@ import subprocess
 import threading
 from pathlib import Path
 
+from libfluid_tpu_torch import cache
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "build"
-LIB_PATH = BUILD_DIR / "libfluid_tpu_kernels.so"
 SOURCES = (
     "expand.cu", "p2g.cu", "p2g_bwd.cu", "stencil.cu", "vcycle.cu", "g2p.cu", "g2p_bwd.cu",
     "correction.cu", "correction_bwd.cu", "surface.cu", "surface_bwd.cu",
@@ -35,6 +36,11 @@ NVCC_FLAGS = (
 # flags of single sources: the fused V-cycle keeps the plain versions'
 # unfused multiplies and adds
 SOURCE_FLAGS = {"vcycle.cu": ("-fmad=false",)}
+LIB_PATH = cache.keyed_path(
+    "libfluid_tpu_kernels.so", [CSRC / f for f in SOURCES + HEADERS],
+    [*NVCC_FLAGS, *(f"{s}:{' '.join(fl)}" for s, fl in sorted(SOURCE_FLAGS.items()))],
+)
+BUILD_DIR = LIB_PATH.parent
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -72,13 +78,6 @@ def _nvcc() -> str:
     return os.path.join(cuda_home, "bin", "nvcc")
 
 
-def _stale() -> bool:
-    if not LIB_PATH.exists():
-        return True
-    built = LIB_PATH.stat().st_mtime
-    return any((CSRC / s).stat().st_mtime > built for s in SOURCES + HEADERS)
-
-
 def _run(cmds) -> None:
     """Run the commands in parallel; raise with the output of the first that
     fails."""
@@ -113,11 +112,11 @@ def build() -> None:
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library, built first if missing or stale."""
+    """The kernel library, built first if these sources have none."""
     global _lib
     with _lock:
         if _lib is None:
-            if _stale():
+            if not LIB_PATH.exists():
                 build()
             lib = ctypes.CDLL(str(LIB_PATH))
             for name, argtypes in SIGNATURES.items():

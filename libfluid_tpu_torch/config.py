@@ -143,7 +143,7 @@ class RenderConfig:
     width: int = 256
     height: int = 256
     samples_per_pixel: int = 16
-    algorithm: str = "pt"  # "pt" (naive forward); "bdpt" is not ported yet
+    algorithm: str = "pt"  # "pt" (naive forward) or "bdpt" (bidirectional)
     max_bounces: int = 5
     max_camera_bounces: int = 6
     max_light_bounces: int = 6

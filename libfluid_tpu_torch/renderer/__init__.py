@@ -1,6 +1,5 @@
 """Renderer: wavefront path tracing on PyTorch tensors (port of
-``libfluid_tpu.renderer``, forward only; the bidirectional tracer is not
-ported yet).
+``libfluid_tpu.renderer``: the forward and the bidirectional tracer).
 
 Primitives and materials are flat tensors with integer kind ids; the
 tracers are loops over masked ray batches; random numbers come from a

@@ -37,7 +37,28 @@ def _brute_force_tris(scene: Scene, origin, direction, t_max):
     triangles: (t, id, u, v), t == t_max and id == -1 for misses. The JAX
     package pads a chunk to a multiple of 128 (a TPU lane tile); here a
     scene of fewer triangles is one chunk of its own size. Pad rows never
-    hit and the first of equal hits wins, so the result is the same."""
+    hit and the first of equal hits wins, so the result is the same.
+
+    Under autograd (a geometry or ray tensor that requires grad) the search
+    runs without grad, and t, u, v are recomputed with grad on each ray's
+    chosen triangle by the same elementwise ``ray_triangle``: the same bits
+    forward, the gradient the JAX package's ``take_along_axis`` passes, and
+    no (rays, chunk) block kept for the backward."""
+    tensors = (origin, direction, scene.tri_p0, scene.tri_e1, scene.tri_e2)
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)):
+        return _search_tris(scene, origin, direction, t_max)
+    with torch.no_grad():
+        _, best_id, _, _ = _search_tris(scene, origin, direction, t_max)
+    hit_any = best_id >= 0
+    tid = torch.clamp(best_id, min=0)
+    _, t, u, v = isect.ray_triangle(origin, direction, scene.tri_p0[tid], scene.tri_e1[tid], scene.tri_e2[tid])
+    zero = torch.zeros_like(u)
+    return (torch.where(hit_any, t, torch.full_like(t, float(t_max))), best_id,
+            torch.where(hit_any, u, zero), torch.where(hit_any, v, zero))
+
+
+def _search_tris(scene: Scene, origin, direction, t_max):
+    """The chunked nearest-hit search of :func:`_brute_force_tris`."""
     r = origin.shape[0]
     n_tri = scene.tri_p0.shape[0]
     best_t = torch.full((r,), float(t_max), dtype=origin.dtype, device=origin.device)

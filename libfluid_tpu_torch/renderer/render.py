@@ -2,9 +2,10 @@
 ``libfluid_tpu.renderer.render``).
 
 The whole image is one flat ray batch. With ``cfg.differentiable`` (the
-default) every sample adds one jittered ray per pixel, traced in strips of
-``cfg.ray_batch`` rays by the fixed-count bounce loop; otherwise the
-persistent tracers run (``pathtrace.trace_persistent``). Random numbers
+default) or ``cfg.algorithm == "bdpt"`` every sample adds one jittered ray
+per pixel, traced in strips of ``cfg.ray_batch`` rays by the fixed-count
+bounce loop or the bidirectional tracer (``bdpt.trace_rays``); otherwise
+the persistent tracers run (``pathtrace.trace_persistent``). Random numbers
 come from a provider (:mod:`libfluid_tpu_torch.renderer.draws`), keyed by a
 ``torch.Generator`` by default.
 """
@@ -16,28 +17,25 @@ import dataclasses
 import torch
 
 from libfluid_tpu_torch.config import RenderConfig, resolve_device
+from libfluid_tpu_torch.renderer import bdpt
 from libfluid_tpu_torch.renderer import draws as draws_mod
 from libfluid_tpu_torch.renderer.camera import Camera
 from libfluid_tpu_torch.renderer.pathtrace import trace_persistent, trace_rays
 from libfluid_tpu_torch.renderer.scene import Scene
 
-BDPT_NOT_PORTED = ("the bidirectional path tracer is not ported yet "
-                   "(ROADMAP §1 item 2: BDPT, the fluid render scene and the pixel gradient)")
-
-
 def render(scene: Scene, camera: Camera, cfg: RenderConfig, rng, device=None) -> torch.Tensor:
     """Render an (H, W, 3) radiance image with ``cfg.samples_per_pixel``
     jittered samples a pixel, on `device` (None: the CUDA card; ``"cpu"`` on
     request), where the scene and the camera must lie. `rng` is a
-    ``torch.Generator`` or a draws provider."""
+    ``torch.Generator`` or a draws provider. ``cfg.algorithm`` picks the
+    integrator: ``"bdpt"`` the bidirectional one, else the forward one."""
     device = resolve_device(device)
     if scene.device != device or camera.device != device:
         raise ValueError(f"render on {device}: the scene lies on {scene.device}, the camera on "
                          f"{camera.device}")
-    if cfg.algorithm == "bdpt":
-        raise NotImplementedError(BDPT_NOT_PORTED)
     draws = draws_mod.as_draws(rng)
-    if not cfg.differentiable:
+    bidirectional = cfg.algorithm == "bdpt"
+    if not cfg.differentiable and not bidirectional:
         # persistent lanes: a finished path's lane respawns the next sample
         return trace_persistent(scene, camera, cfg, draws) / cfg.samples_per_pixel
 
@@ -61,7 +59,10 @@ def render(scene: Scene, camera: Camera, cfg: RenderConfig, rng, device=None) ->
         parts = []
         for s in range(nstrips):
             o, d = camera.get_rays(sp[s * strip:(s + 1) * strip])
-            parts.append(trace_rays(scene, o, d, draws.stream(sample, s, nstrips), cfg))
+            if bidirectional:
+                parts.append(bdpt.trace_rays(scene, o, d, draws.bdpt(sample, s, nstrips), cfg))
+            else:
+                parts.append(trace_rays(scene, o, d, draws.stream(sample, s, nstrips), cfg))
         acc = acc + torch.cat(parts)[:npix]
     img = acc / cfg.samples_per_pixel
     return img.reshape(h, w, 3)

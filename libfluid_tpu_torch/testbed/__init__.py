@@ -1,12 +1,12 @@
-"""Headless testbed (port of ``libfluid_tpu.testbed``; the fluid render scene
-is not ported yet).
+"""Headless testbed (port of ``libfluid_tpu.testbed``).
 
 - :func:`build_setup`: the reference testbed's five scenarios, seeded from
   ``np.random.default_rng(seed)`` exactly as the JAX package seeds them.
 - :func:`default_mesher_config`: the mesher thread's parameters.
-- :func:`fluid_render_scene` is not ported yet (ROADMAP §1 item 2).
+- :func:`fluid_render_scene`: the fluid box around the domain with the
+  water mesh as glass of IOR 1.7 (and setup 4's obstacle sphere).
 - the CLI in ``__main__``: the frame loop with per-frame diagnostics and
-  OBJ/points export.
+  OBJ/points/PPM export.
 """
 
 from __future__ import annotations
@@ -16,6 +16,10 @@ from typing import Optional, Tuple
 import numpy as np
 
 from libfluid_tpu_torch.config import MesherConfig, SimConfig, TransferScheme, resolve_device
+from libfluid_tpu_torch.math import transforms
+from libfluid_tpu_torch.renderer import scenes as scenes_mod
+from libfluid_tpu_torch.renderer.camera import Camera
+from libfluid_tpu_torch.renderer.scene import Scene
 from libfluid_tpu_torch.sim import SimState, new_state, seed_box, seed_sphere
 from libfluid_tpu_torch.sim.sources import make_source_set
 from libfluid_tpu_torch.sim.state import set_solid
@@ -102,9 +106,30 @@ def default_mesher_config(max_triangles: int = 1 << 18) -> MesherConfig:
     )
 
 
-def fluid_render_scene(*args, **kwargs):
-    """The testbed's fluid render scene is not ported yet."""
-    raise NotImplementedError(
-        "fluid_render_scene is not ported yet (ROADMAP §1 item 2: BDPT, the fluid render scene "
-        "and the pixel gradient)"
-    )
+def fluid_render_scene(mesh, cfg: SimConfig, setup: int, aspect: float = 1.0,
+                       tri_capacity: Optional[int] = None, device=None) -> Tuple[Scene, Camera]:
+    """The testbed's fluid scene on `device` (None: the CUDA card; ``"cpu"``
+    on request): the Cornell-style room around the simulation domain (fovy
+    30 deg), the mesh's ``count`` triangles copied to the host with their
+    winding reversed as glass of IOR 1.7, setup 4's obstacle proxy (a
+    lambertian sphere of radius 10 at (25, 25, 25)), and above 1,024
+    triangles the uniform-grid accelerator at 64^3."""
+    device = resolve_device(device)
+    dmin = np.asarray(cfg.domain_min)
+    dmax = np.asarray(cfg.domain_max)
+    builder, cam = scenes_mod.fluid_box(dmin, dmax, fovy=30.0 * np.pi / 180.0, aspect=aspect, device=device)
+    water = builder.glass(1.7)
+    count = int(mesh.count)
+    verts = mesh.vertices[:count].detach().cpu().numpy()[:, ::-1, :]  # reversed face directions
+    if count:
+        builder.add_triangle_soup(verts, water)
+    if setup == 4:
+        blue = builder.lambertian((0.2, 0.5, 0.8))
+        builder.add_sphere(np.asarray(transforms.scale_rotate_translate(
+            np.array([10.0, 10.0, 10.0]), np.zeros(3), np.array([25.0, 25.0, 25.0]))), blue)
+    scene = builder.finish(tri_capacity=tri_capacity, device=device)
+    if count > 1024:
+        from libfluid_tpu_torch.renderer import accel as accel_mod
+
+        scene = scene._replace(accel=accel_mod.build(scene, res=(64, 64, 64), device=device))
+    return scene, cam

@@ -2,15 +2,18 @@
 CUDA device).
 
 The frame loop runs ``step(1/fps)`` per frame with the reference testbed's
-per-step diagnostics, and exports OBJ meshes and point clouds. ``--scene``
-renders a canned scene to a PPM with the forward path tracer. Rendering
-the simulation (``--render-every``) and ``--algorithm bdpt`` are not ported
-yet.
+per-step diagnostics, and exports OBJ meshes, point clouds and rendered
+frames (``--render-every``: the fluid scene of
+:func:`~libfluid_tpu_torch.testbed.fluid_render_scene` to a PPM).
+``--scene`` renders a canned scene to a PPM. ``--algorithm`` picks the
+forward (``pt``) or the bidirectional (``bdpt``) path tracer.
 
 Examples:
     python -m libfluid_tpu_torch.testbed --setup 0 --frames 60
     python -m libfluid_tpu_torch.testbed --setup 4 --frames 2 --mesh-every 1 --out /tmp/tb
-    python -m libfluid_tpu_torch.testbed --scene cornell1 --out /tmp/tb
+    python -m libfluid_tpu_torch.testbed --setup 0 --frames 2 --render-every 1 --render-size 256 \
+        --spp 4 --out /tmp/tb
+    python -m libfluid_tpu_torch.testbed --scene cornell1 --algorithm bdpt --out /tmp/tb
 """
 
 from __future__ import annotations
@@ -35,19 +38,34 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def frame_loop(cfg, state, mesher_cfg, args) -> int:
-    """Advance `state` by ``args.frames`` frames of 1/``args.fps`` on its own
-    device, logging each frame's diagnostics and exporting an OBJ mesh every
-    ``args.mesh_every`` frames and the particles every ``args.points_every``
-    frames into ``args.out``. Returns 1 if the simulation diverged, else 0."""
+def frame_loop(cfg, state, mesher_cfg, args, device=None) -> int:
+    """Advance `state` by ``args.frames`` frames of 1/``args.fps`` on
+    `device` (None: the CUDA card; ``"cpu"`` on request), where the state
+    must lie, logging each frame's diagnostics and exporting into
+    ``args.out`` an OBJ mesh every ``args.mesh_every`` frames, the particles
+    every ``args.points_every`` frames and a rendered frame every
+    ``args.render_every`` frames (the fluid scene at ``args.render_size``^2 x
+    ``args.spp`` with ``args.algorithm``). Returns 1 if the simulation
+    diverged, else 0."""
+    from libfluid_tpu_torch.config import RenderConfig
     from libfluid_tpu_torch.io.obj import save_obj
     from libfluid_tpu_torch.io.point_cloud import save_points
+    from libfluid_tpu_torch.io.ppm import save_ppm
     from libfluid_tpu_torch.mesher.marching_cubes import generate_mesh
+    from libfluid_tpu_torch.renderer.render import render
     from libfluid_tpu_torch.sim import step
+    from libfluid_tpu_torch.testbed import fluid_render_scene
 
-    device = state.position.device
+    device = resolve_device(device)
+    if state.position.device != device:
+        raise ValueError(f"frame_loop on {device}: the state lies on {state.position.device}")
+
     os.makedirs(args.out, exist_ok=True)
     frame_dt = 1.0 / args.fps
+    # strips no longer than the image (the draws do not depend on the strip)
+    rcfg = RenderConfig(width=args.render_size, height=args.render_size, samples_per_pixel=args.spp,
+                        algorithm=args.algorithm, ray_batch=min(1 << 15, args.render_size ** 2))
+    render_gen = torch.Generator().manual_seed(args.seed + 1)
     t_start = time.time()
     for frame in range(args.frames):
         t0 = time.time()
@@ -68,14 +86,29 @@ def frame_loop(cfg, state, mesher_cfg, args) -> int:
             _log("*** ERROR: simulation diverged (NaN velocity); aborting")
             return 1
 
-        if args.mesh_every and (frame + 1) % args.mesh_every == 0:
+        want_mesh = args.mesh_every and (frame + 1) % args.mesh_every == 0
+        want_render = args.render_every and (frame + 1) % args.render_every == 0
+        if want_mesh or want_render:
             t0 = time.time()
             mesh = generate_mesh(state.position, state.active, mesher_cfg, mesher_cfg.particle_radius)
             _sync(device)
             _log(f"    mesh: {int(mesh.count)} triangles ({(time.time() - t0) * 1e3:.0f} ms)")
-            path = os.path.join(args.out, f"mesh_{frame:05d}.obj")
-            save_obj(path, mesh.vertices.cpu().numpy(), int(mesh.count))
-            _log(f"    wrote {path}")
+            if want_mesh:
+                path = os.path.join(args.out, f"mesh_{frame:05d}.obj")
+                save_obj(path, mesh.vertices.cpu().numpy(), int(mesh.count))
+                _log(f"    wrote {path}")
+            if want_render:
+                t0 = time.time()
+                scene, cam = fluid_render_scene(mesh, cfg, args.setup, tri_capacity=args.tri_capacity,
+                                                device=device)
+                img = render(scene, cam, rcfg, render_gen, device=device)
+                _sync(device)
+                if not bool(torch.isfinite(img).all()):
+                    _log("*** ERROR: the rendered frame holds non-finite values")
+                    return 1
+                path = os.path.join(args.out, f"frame_{frame:05d}.ppm")
+                save_ppm(path, img, gamma=2.2)
+                _log(f"    rendered {path} ({time.time() - t0:.2f} s, {rcfg.algorithm})")
         if args.points_every and (frame + 1) % args.points_every == 0:
             path = os.path.join(args.out, f"points_{frame:05d}.txt")
             save_points(path, state.position.cpu().numpy(), state.active.cpu().numpy())
@@ -86,25 +119,20 @@ def frame_loop(cfg, state, mesher_cfg, args) -> int:
     return 0
 
 
-def run_sim(args) -> int:
-    """Build testbed setup ``args.setup`` on the CUDA device and run the
-    frame loop."""
+def run_sim(args, device=None) -> int:
+    """Build testbed setup ``args.setup`` on `device` (None: the CUDA card;
+    ``"cpu"`` on request) and run the frame loop."""
     from libfluid_tpu_torch.testbed import SETUP_NAMES, build_setup, default_mesher_config
 
-    if args.render_every:
-        raise NotImplementedError(
-            "--render-every needs fluid_render_scene, which is not ported yet (ROADMAP §1 item 2: "
-            "BDPT, the fluid render scene and the pixel gradient)"
-        )
-    device = resolve_device(None)  # the card; raises where there is none
+    device = resolve_device(device)
     cfg, state = build_setup(args.setup, seed=args.seed, device=device)
     _log(f"setup {args.setup}: {SETUP_NAMES[args.setup]}")
     _log(
         f"grid {cfg.grid_size} cell {cfg.cell_size} scheme {cfg.scheme.value} "
         f"capacity {cfg.particle_capacity}"
     )
-    _log(f"device: {torch.cuda.get_device_name(device)}")
-    return frame_loop(cfg, state, default_mesher_config(), args)
+    _log(f"device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else device}")
+    return frame_loop(cfg, state, default_mesher_config(), args, device)
 
 
 SCENE_BUILDERS = ("redgreen", "cornell1", "cornell2", "glass")
@@ -116,10 +144,8 @@ def run_scene(args, device=None) -> int:
     from libfluid_tpu_torch.config import RenderConfig
     from libfluid_tpu_torch.io.ppm import save_ppm
     from libfluid_tpu_torch.renderer import scenes as scenes_mod
-    from libfluid_tpu_torch.renderer.render import BDPT_NOT_PORTED, render
+    from libfluid_tpu_torch.renderer.render import render
 
-    if args.algorithm == "bdpt":
-        raise NotImplementedError(BDPT_NOT_PORTED)
     device = resolve_device(device)
     builders = {
         "redgreen": scenes_mod.red_green_box,
@@ -131,7 +157,8 @@ def run_scene(args, device=None) -> int:
     scene = builder.finish(device=device)
     size = 800 if args.offline_render else args.render_size
     spp = 400 if args.offline_render else args.spp
-    rcfg = RenderConfig(width=size, height=size, samples_per_pixel=spp, algorithm=args.algorithm)
+    rcfg = RenderConfig(width=size, height=size, samples_per_pixel=spp, algorithm=args.algorithm,
+                        ray_batch=min(1 << 15, size * size))
     _log(f"rendering {args.scene}: {size}x{size} @ {spp} spp ({args.algorithm}) on {device}")
     t0 = time.time()
     img = render(scene, cam, rcfg, torch.Generator().manual_seed(args.seed), device=device)
@@ -159,17 +186,18 @@ def main(argv=None, device=None) -> int:
     p.add_argument("--out", default="testbed_out")
     p.add_argument("--mesh-every", type=int, default=0, help="export OBJ every N frames")
     p.add_argument("--points-every", type=int, default=0, help="export points every N frames")
-    p.add_argument("--render-every", type=int, default=0, help="render every N frames (not ported yet)")
+    p.add_argument("--render-every", type=int, default=0, help="render PPM every N frames")
     p.add_argument("--render-size", type=int, default=400)
     p.add_argument("--spp", type=int, default=16)
-    p.add_argument("--algorithm", choices=["pt", "bdpt"], default="pt",
-                   help="the path tracer; bdpt is not ported yet")
+    p.add_argument("--algorithm", choices=["pt", "bdpt"], default="pt")
+    p.add_argument("--tri-capacity", type=int, default=1 << 17,
+                   help="static triangle capacity for the fluid render scene")
     p.add_argument("--offline-render", action="store_true",
                    help="with --scene: 800x800 @ 400 spp like the reference's F5")
     args = p.parse_args(argv)
     if args.scene:
         return run_scene(args, device)
-    return run_sim(args)
+    return run_sim(args, device)
 
 
 if __name__ == "__main__":

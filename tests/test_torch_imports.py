@@ -29,8 +29,9 @@ def test_port_imports_without_jax():
         "import libfluid_tpu_torch.mesher, libfluid_tpu_torch.io, libfluid_tpu_torch.testbed\n"
         "import libfluid_tpu_torch.testbed.__main__, libfluid_tpu_torch.math, libfluid_tpu_torch.io.ppm\n"
         "import libfluid_tpu_torch.renderer\n"
-        "from libfluid_tpu_torch.renderer import (accel, camera, draws, intersect, loops, materials,\n"
+        "from libfluid_tpu_torch.renderer import (accel, bdpt, camera, draws, intersect, loops, materials,\n"
         "    pathtrace, render, scene, scenes)\n"
+        "from libfluid_tpu_torch import cache, checkpoint, dcc, native, profiling, voxelizer\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
     )
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
@@ -62,16 +63,17 @@ def _state(cfg):
 )
 def test_unported_options_raise(change):
     """FLIP and the bfloat16 V-cycle, once refused, now run (tests/
-    test_torch_flip.py holds them against the JAX package); what is still
-    unported, the renderer, raises."""
+    test_torch_flip.py holds them against the JAX package); so does the
+    fluid render scene, once refused: the state's mesh becomes a scene."""
     from libfluid_tpu_torch import testbed
 
     cfg = dataclasses.replace(_cfg(), **change)
     state, diag = sim.substep(_state(cfg), cfg, 0.01)
     assert bool(torch.isfinite(state.velocity).all())
     assert float(diag.pressure_residual) < cfg.solver.tolerance
-    with pytest.raises(NotImplementedError):
-        testbed.fluid_render_scene(state, cfg)
+    mesh = generate_mesh(state.position, state.active, MesherConfig(grid_size=(16, 16, 16)))
+    scene, cam = testbed.fluid_render_scene(mesh, cfg, 0, device="cpu")
+    assert scene.tri_p0.shape[0] == int(mesh.count) + 14 and scene.device == cam.device == torch.device("cpu")
 
 
 def test_default_options_run():
@@ -187,7 +189,8 @@ def _constructors():
 
     import importlib
 
-    from libfluid_tpu_torch import convert, grids, testbed
+    from libfluid_tpu_torch import convert, dcc, grids, testbed, voxelizer
+    from libfluid_tpu_torch.mesher.marching_cubes import MeshBuffers
     from libfluid_tpu_torch.config import RenderConfig
     from libfluid_tpu_torch.renderer import Camera, accel, scenes
     from libfluid_tpu_torch.sim import jitterhash, state as state_mod
@@ -207,6 +210,10 @@ def _constructors():
                 return self.thing
             dev = torch.device(device or "cuda")
             return type(self.thing)(*(_move(a, dev) for a in self.thing))
+
+    def _evaluated(node):
+        node.evaluate()
+        return node
 
     def _move(a, dev):
         if isinstance(a, torch.Tensor):
@@ -241,13 +248,24 @@ def _constructors():
             cornell.to_device(device), camera.to_device(device),
             RenderConfig(width=2, height=2, samples_per_pixel=1, ray_batch=4),
             torch.Generator().manual_seed(0), device=device),
+        "render bdpt": lambda device: render_mod.render(
+            cornell.to_device(device), camera.to_device(device),
+            RenderConfig(width=2, height=2, samples_per_pixel=1, ray_batch=4, algorithm="bdpt",
+                         max_camera_bounces=2, max_light_bounces=2),
+            torch.Generator().manual_seed(0), device=device),
+        "fluid_render_scene": lambda device: testbed.fluid_render_scene(
+            MeshBuffers(torch.zeros((4, 3, 3)), torch.tensor(0)), cfg, 0, device=device)[0].tri_p0,
+        "voxelize": lambda device: voxelizer.voxelize(
+            np.eye(3), np.array([0, 1, 2]), 1.0, device=device).surface,
+        "GridNode": lambda device: _evaluated(dcc.GridNode(grid_size=(8, 8, 8), particle_capacity=64,
+                                                           device=device)).state.position,
     }
 
 
 @pytest.mark.parametrize("name", [
     "new_state", "empty_sources", "grids.zeros", "state_from_numpy", "build_setup",
     "make_source_set", "jitter_field", "SceneBuilder.finish", "Camera.from_parameters",
-    "accel.build", "render",
+    "accel.build", "render", "render bdpt", "fluid_render_scene", "voxelize", "GridNode",
 ])
 def test_constructors_default_to_the_card(name):
     """``device=None`` is the CUDA card and never the CPU: without a card it
