@@ -92,7 +92,19 @@ Phases, one line of output each (or a few):
     |g|, a descent step);
 12. the small harness: the DCC pipeline at setup 0's scale (3 frames, a
     mesh, a scrub back), a checkpoint of the 128^3 state restored and
-    stepped beside the original, the native host library.
+    stepped beside the original, the native host library;
+13. BASELINE config 5 (``bench.py:236-268``): the 256^3 tide, ~7.7M
+    particles; two dense substeps (ms, peak memory), then ``substep_tiled``
+    with 16 slabs from the first one's state, a warm-up and 3 timed
+    substeps (ms, CG iterations, peak memory, the healthy-output checks),
+    the tiled warm-up against the second dense substep row by row, and the
+    launches of kernels A, B, E (16 a substep) and D;
+14. the sharded paths on one rank (NCCL, world size 1, rendezvous on
+    127.0.0.1): ``sharded_substep`` of the 128^3 main-path state (after one
+    substep) against the dense substep as a particle multiset, ``step_z(1/60)``, and
+    ``training_step`` at ``__graft_entry__.dryrun_multichip``'s scene scaled
+    to config 3's 64^3 dam-break (64^2 x 1 spp, 16 sphere proxies): the
+    loss finite, the gradient nonzero.
 
 Phase 3 also holds kernels B, E and E' at 40 slots a cell and F and F' with
 a support of 16 cells (where the slots take two words of an occupancy mask
@@ -114,12 +126,14 @@ import dataclasses
 import importlib
 import json
 import os
+import socket
 import subprocess
 import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile
 
 from libfluid_tpu_torch import _build, checkpoint, dcc, native, profiling, testbed, voxelizer
@@ -132,9 +146,12 @@ from libfluid_tpu_torch.renderer.render import render
 from libfluid_tpu_torch.renderer.scene import SceneBuilder, inject_mesh
 from libfluid_tpu_torch.io.obj import load_obj
 from libfluid_tpu_torch.mesher import generate_mesh, surface
-from libfluid_tpu_torch.sim import (correction, extrapolation, kernels, multigrid, pressure, slotsort,
-                                    sources, transfers)
-from libfluid_tpu_torch.sim.state import particle_count, set_solid
+from libfluid_tpu_torch.parallel import distributed as pdist
+from libfluid_tpu_torch.parallel import shard as pshard
+from libfluid_tpu_torch.parallel import zshard
+from libfluid_tpu_torch.sim import (bigstep, binning, correction, extrapolation, kernels, multigrid, pressure,
+                                    slotsort, sources, transfers)
+from libfluid_tpu_torch.sim.state import make_generator, particle_count, set_solid
 from libfluid_tpu_torch.testbed import __main__ as testbed_cli
 
 # name -> (CUDA source, the TPU kernel it replaces)
@@ -2401,6 +2418,235 @@ def harness(device) -> None:
         f"{pos.shape[0]} vertices, {idx.shape[0]} faces")
 
 
+# BASELINE config 5: the 256^3 tide of bench.py:236-268 (slab-tiled there)
+SLABS = 16
+
+
+def config5_state(device):
+    """bench.py's config 5: 256^3, h = 1, gravity -981, capacity 2^23,
+    APIC, no obstacles; a floor layer and a column seeded at 8 a cell."""
+    cfg = SimConfig(grid_size=(256, 256, 256), gravity=(0.0, -981.0, 0.0), particle_capacity=1 << 23,
+                    scheme=TransferScheme.APIC, has_obstacles=False)
+    state = sim.new_state(cfg, device)
+    state = sim.seed_box(state, cfg, (1.0, 1.0, 1.0), (254.0, 9.0, 254.0))
+    state = sim.seed_box(state, cfg, (1.0, 10.0, 1.0), (24.0, 63.0, 254.0))
+    return cfg, state
+
+
+def substep_peak(fn):
+    """(result, host ms, peak bytes above what was allocated before, the
+    absolute peak) of `fn`, synchronized."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    return out, ms, peak - base, peak
+
+
+def config5(device) -> dict:
+    """Config 5: a dense 256^3 substep from the seeded state (peak memory)
+    and a second one from its result (ms); then the tiled substep from that
+    same state with the same draws (a warm-up, held against the second
+    dense substep row by row: both sort into the same rank-major order)
+    and 3 timed tiled substeps. Returns the tiled run's launches."""
+    t0 = time.perf_counter()
+    cfg, state0 = config5_state(device)
+    n0 = int(particle_count(state0))
+    log(f"config 5 (256^3): seeded {n0} particles (capacity {cfg.particle_capacity}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    (dense1, ddiag), dense_ms, dense_above, dense_peak = substep_peak(
+        lambda: sim.substep(state0, cfg, DT, sim.Draws(make_generator(5))))
+    healthy(dense1, ddiag, cfg, n0, "config 5 dense substep")
+    del state0
+    (dense, ddiag), dense2_ms, _, dense2_peak = substep_peak(
+        lambda: sim.substep(dense1, cfg, DT, sim.Draws(make_generator(6))))
+    healthy(dense, ddiag, cfg, n0, "config 5 second dense substep")
+    log(f"config 5 dense substeps: {dense_ms:.1f} ms (the first at 256^3, from rest), then {dense2_ms:.1f} ms, CG "
+        f"{int(ddiag.pressure_iterations)} it res {float(ddiag.pressure_residual):.2e}, vmax "
+        f"{float(ddiag.max_velocity):.2f}, overflow {int(ddiag.overflow_count)}; peak memory "
+        f"{max(dense_peak, dense2_peak) / 2**30:.2f} GiB, the first {dense_above / 2**30:.2f} GiB above the "
+        f"state ({max(dense_peak, dense2_peak)} B)")
+
+    def tiled():
+        (first, fdiag), warm_ms, first_above, first_peak = substep_peak(
+            lambda: bigstep.substep_tiled(dense1, cfg, DT, SLABS, sim.Draws(make_generator(6))))
+        healthy(first, fdiag, cfg, n0, "config 5 tiled warm-up substep")
+        st, per, its, peaks = first, [], [], [first_peak]
+        for i in range(3):
+            (st, diag), ms, _, peak = substep_peak(lambda: bigstep.substep_tiled(st, cfg, DT, SLABS))
+            healthy(st, diag, cfg, n0, f"config 5 tiled substep {i}")
+            per.append(ms)
+            its.append(int(diag.pressure_iterations))
+            peaks.append(peak)
+            log(f"config 5 tiled substep {i}: {ms:.1f} ms, CG {its[-1]} it res {float(diag.pressure_residual):.2e}, "
+                f"vmax {float(diag.max_velocity):.2f}, n {int(diag.particle_count)}, overflow "
+                f"{int(diag.overflow_count)}, uncorrected {int(diag.correction_uncorrected)}")
+        log(f"config 5 tiled ({SLABS} slabs): warm-up {warm_ms:.1f} ms, {np.mean(per):.1f} ms/substep (mean of 3; "
+            f"median {np.median(per):.1f}), CG {its} it; peak memory {max(peaks) / 2**30:.2f} GiB, the warm-up "
+            f"{first_above / 2**30:.2f} GiB above the states it starts with ({max(peaks)} B)")
+        return first, fdiag
+
+    (first, fdiag), launches = drive("config 5 tiled path (4 substeps)", tiled, ("expand", "p2g", "correction", "g2p"))
+    for name in ("expand", "p2g", "correction"):
+        check(launches[name] == 4 * SLABS, f"config 5: {launches[name]} {name} launches, expected {4 * SLABS}")
+
+    # the tiled substep against the dense one from the same state
+    # (tests/test_bigstep.py's tolerances; rows in the same order)
+    check(torch.equal(first.active, dense.active), "config 5: tiled and dense active rows differ")
+    act = dense.active
+    pos_err = max_err(first.position[act], dense.position[act])
+    vel_ok = close(first.velocity[act], dense.velocity[act], 5e-3, 5e-3)
+    face_ok = all(close(getattr(first.grid, f), getattr(dense.grid, f), 2e-3, 2e-3) for f in ("u", "v", "w"))
+    ke = (float(fdiag.kinetic_energy), float(ddiag.kinetic_energy))
+    log(f"config 5 tiled against dense, the second substep: position max error {pos_err:.2e} (<= 5e-4), "
+        f"velocities within 5e-3 {vel_ok}, faces within 2e-3 {face_ok}, kinetic energy {ke[0]:.6e} / "
+        f"{ke[1]:.6e}, CG {int(fdiag.pressure_iterations)} / {int(ddiag.pressure_iterations)} it")
+    check(int(ddiag.pressure_iterations) > 0, "config 5: the compared substep's solve had no work")
+    check(pos_err <= 5e-4 and vel_ok and face_ok, "config 5: tiled substep differs from the dense one")
+    check(abs(ke[0] - ke[1]) <= 1e-3 * abs(ke[1]), "config 5: kinetic energies differ")
+    check(int(fdiag.particle_count) == int(ddiag.particle_count) == n0, "config 5: particle counts differ")
+    return launches
+
+
+def nearest_rows(pos_a: torch.Tensor, pos_b: torch.Tensor, act_b: torch.Tensor, cfg, chunk: int = 1 << 16):
+    """For each row of `pos_a`, the nearest active row of `pos_b` among its
+    3x3x3 cells (``binning.gather_neighbors`` over `pos_b`'s cell-sorted
+    runs, every particle of a cell): (index into `pos_b`, distance)."""
+    bins = binning.bin_particles(pos_b, act_b, cfg)
+    most = int(bins.cell_count.max())
+    idx, dist_ = [], []
+    for lo in range(0, pos_a.shape[0], chunk):
+        a = pos_a[lo:lo + chunk]
+        ids, valid = binning.gather_neighbors(bins, a, cfg, max_per_cell=most)
+        ids = ids.long()
+        d2 = ((pos_b[ids] - a[:, None, :]) ** 2).sum(-1)
+        d2 = torch.where(valid, d2, torch.full_like(d2, float("inf")))
+        best, j = d2.min(dim=1)
+        idx.append(torch.gather(ids, 1, j[:, None])[:, 0])
+        dist_.append(torch.sqrt(best))
+    return torch.cat(idx), torch.cat(dist_)
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+PROXY_CELLS = [(0, y, z) for y in (20, 28, 36, 44) for z in (16, 24, 32, 40)]
+
+
+def training_64(device, mesh):
+    """dryrun_multichip's training step scaled to config 3's 64^3 dam-break:
+    the box (1, 1, 1)-(31, 31, 31), and 16 proxy particles seeded one a cell
+    on the x = 0 column (the lowest cell indices, so the substep's sort puts
+    them first) in view on the left wall; the fluid box with 16 sphere
+    proxies of radius 2 that emit a ramp over uv (dryrun's glass proxies
+    give a zero gradient almost everywhere); 64^2 x 1 spp, 2 bounces, a
+    black target, dt 1/60."""
+    cfg = SimConfig(grid_size=(64, 64, 64), gravity=(0.0, -981.0, 0.0), particle_capacity=1 << 18,
+                    scheme=TransferScheme.APIC, has_obstacles=False)
+    state = sim.seed_box(sim.new_state(cfg, device), cfg, (1.0, 1.0, 1.0), (30.0, 30.0, 30.0))
+    for cell in PROXY_CELLS:
+        state = sim.seed_func(state, cfg, cell, (1, 1, 1), lambda p: np.ones(len(p), bool), density=1)
+    b, cam = scenes.fluid_box((0.0, 0.0, 0.0), (64.0, 64.0, 64.0), aspect=1.0, device=device)
+    # their emission a ramp over uv: the radiance depends on where a ray
+    # hits them, so the pixel gradient does not vanish
+    proxy = b.lambertian((0.8, 0.8, 0.8), emission=(4.0, 4.0, 4.0), emission_tex=b.add_texture(ramp_texels()))
+    for _ in PROXY_CELLS:
+        b.add_sphere(np.eye(3, 4), proxy)
+    scene = b.finish(device=device)
+    rcfg = RenderConfig(width=64, height=64, samples_per_pixel=1, max_bounces=2)
+    target = torch.zeros((64, 64, 3), device=device)
+    lr = 1e-2
+    (new, loss), ms, above, peak = substep_peak(
+        lambda: pshard.training_step(state, scene, cam, target, cfg, rcfg, mesh, 1.0 / 60.0, lr=lr,
+                                     sphere_radius=2.0))
+    grad = (state.velocity - new.velocity) / lr
+    rows = int((grad.abs().sum(dim=1) > 0).sum())
+    log(f"one-rank training step, 64^3 dam-break + 16 proxies, 64^2 x 1 spp: loss {float(loss):.6e}, |grad| "
+        f"{float(torch.linalg.norm(grad)):.3e} on {rows} rows, {ms:.1f} ms forward and backward, peak "
+        f"{peak / 2**30:.2f} GiB")
+    check(bool(torch.isfinite(loss)), "training step: loss not finite")
+    check(rows > 0 and bool(torch.isfinite(grad).all()), "training step: no gradient reached the velocities")
+
+
+def sharded_phases(device) -> None:
+    """The parallel layer on one rank: NCCL, world size 1, a rendezvous on
+    127.0.0.1. The sharded substep of the 128^3 main-path state after one
+    substep against the dense substep (a multiset: the sharded rows are in
+    cell order), then step_z(1/60) from its result, then the training
+    step."""
+    pdist.init_distributed(f"127.0.0.1:{free_port()}", 1, 0)
+    try:
+        mesh = pdist.global_mesh(("dp",))
+        log(f"process group: backend {dist.get_backend()}, {pdist.process_count()} rank, mesh on {mesh.device}")
+        cfg, state0 = dam_break(128, device, 1 << 21)
+        n0 = int(particle_count(state0))
+        # from the state after one substep, whose solve has work
+        state0, _ = sim.substep(state0, cfg, DT, sim.Draws(make_generator(6)))
+        dense, ddiag = sim.substep(state0, cfg, DT, sim.Draws(make_generator(7)))
+
+        def one():
+            t0 = time.perf_counter()
+            share, diag = pshard.sharded_substep(state0, cfg, DT, mesh, sim.Draws(make_generator(7)))
+            torch.cuda.synchronize()
+            return share, diag, (time.perf_counter() - t0) * 1e3
+
+        (share, zdiag, ms), _ = drive("one-rank sharded substep (128^3)", one,
+                                      ("p2g", "correction", "g2p", "mg_coarse"))
+        glob = zshard.gather_state(share, cfg, mesh)
+        pa, va = glob.position[glob.active], glob.velocity[glob.active]
+        pb, vb = dense.position, dense.velocity
+        j, d = nearest_rows(pa, pb, dense.active, cfg)
+        bijective = int(torch.unique(j).numel()) == pa.shape[0] == int(dense.active.sum())
+        vel_err = max_err(va, vb[j])
+        face_err = max(max_err(getattr(glob.grid, f), getattr(dense.grid, f)) for f in ("u", "v", "w"))
+        # faces: test_zshard.py's 5e-4 and 1e-4 of the face; the two solves
+        # stop at different iterates within the CG tolerance
+        faces_ok = all(close(getattr(glob.grid, f), getattr(dense.grid, f), 1e-4, 5e-4) for f in ("u", "v", "w"))
+        log(f"one-rank sharded substep: {ms:.1f} ms, CG {int(zdiag.pressure_iterations)} it (dense "
+            f"{int(ddiag.pressure_iterations)}), n {int(zdiag.particle_count)}, lost {int(zdiag.particles_lost)}; "
+            f"against the dense substep: nearest-row distance max {float(d.max()):.2e} (<= 2e-4), bijective "
+            f"{bijective}, velocity max error {vel_err:.2e} (<= 5e-3), faces max error {face_err:.2e} (within "
+            f"5e-4 + 1e-4 |face| {faces_ok})")
+        check(bijective and float(d.max()) <= 2e-4 and vel_err <= 5e-3 and faces_ok,
+              "one-rank sharded substep differs from the dense one")
+        check(torch.equal(glob.grid.cell_type, dense.grid.cell_type), "sharded substep: cell types differ")
+        # the sharded levels restrict and prolong piecewise constantly (the
+        # JAX package's zshard), the dense cycle trilinearly: the iteration
+        # counts need not agree, both solves must converge
+        check(int(ddiag.pressure_iterations) > 0 and float(zdiag.pressure_residual) < 1e-5
+              and int(zdiag.pressure_iterations) < 200, "sharded CG did not converge")
+        check(int(zdiag.particle_count) == n0 and int(zdiag.particles_lost) == 0, "sharded substep lost particles")
+
+        def cfl():
+            t0 = time.perf_counter()
+            st, diag = zshard.step_z(share, cfg, 1.0 / 60.0, mesh)
+            torch.cuda.synchronize()
+            return st, diag, (time.perf_counter() - t0) * 1e3
+
+        (st, sdiag, ms), _ = drive("one-rank step_z(1/60)", cfl, ("p2g", "correction", "g2p", "mg_coarse"))
+        log(f"one-rank step_z(1/60): {int(sdiag.substeps)} substeps in {ms:.1f} ms, CG "
+            f"{int(sdiag.pressure_iterations)} it res {float(sdiag.pressure_residual):.2e}, n "
+            f"{int(sdiag.particle_count)}, lost {int(sdiag.particles_lost)}")
+        check(float(sdiag.pressure_residual) < 1e-5 and int(sdiag.particle_count) == n0
+              and int(sdiag.particles_lost) == 0 and bool(torch.isfinite(st.position).all()), "step_z")
+        del share, st, glob, dense, state0
+        torch.cuda.empty_cache()
+        # one substep: the loss reads positions, so the gradient passes
+        # advection and the correction springs (E'), not P2G or G2P
+        drive("one-rank training step (64^3)", lambda: training_64(device, mesh),
+              ("expand", "p2g", "stencil", "g2p", "correction", "correction_bwd"))
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -2457,11 +2703,17 @@ def main() -> None:
     del mesh128
     torch.cuda.empty_cache()
     drive("harness (DCC pipeline, checkpoint, native)", lambda: harness(device), FORWARD_KERNELS)
+    torch.cuda.empty_cache()
+    c5_launches = config5(device)
+    torch.cuda.empty_cache()
+    sharded_phases(device)
 
-    # launches: each kernel's count on the path it belongs to (the main path
-    # for A-F, the gradient path for B' and D', the correction-on gradient
-    # path for E', the mesh gradient path for F', the FLIP + mg16 path for
-    # the bfloat16 stencil)
+    # launches: each kernel's count on the path it belongs to (config 5's
+    # tiled path, 4 substeps, for the kernels it launches: A, B, C and the
+    # fused cycle, D, E; the main path for F, the gradient path for B' and
+    # D', the correction-on gradient path for E', the mesh gradient path for
+    # F', the FLIP + mg16 path for the bfloat16 stencil)
+    launches.update({k: v for k, v in c5_launches.items() if v > 0})
     launches.update(p2g_bwd=grad_launches["p2g_bwd"], g2p_bwd=grad_launches["g2p_bwd"],
                     stencil16=flip_launches["stencil16"],
                     correction_bwd=corr_launches["correction_bwd"],

@@ -20,6 +20,7 @@ in a host-side cache for scrubbing backwards.
 
 from __future__ import annotations
 
+import abc
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -34,7 +35,7 @@ from libfluid_tpu_torch.sim.state import set_solid
 from libfluid_tpu_torch import voxelizer as vox_mod
 
 
-class Node:
+class Node(abc.ABC):
     """Minimal pull-based dependency-graph node (the Maya node's stand-in)."""
 
     def __init__(self, **attrs):
@@ -81,11 +82,13 @@ class Node:
             self._dirty = False
         return self._output()
 
+    @abc.abstractmethod
     def _compute(self):
-        raise NotImplementedError
+        """Recompute the node's output from its attributes and inputs."""
 
+    @abc.abstractmethod
     def _output(self):
-        raise NotImplementedError
+        """The node's output as it stands."""
 
 
 class GridNode(Node):

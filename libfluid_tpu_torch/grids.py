@@ -120,6 +120,16 @@ def flat_cell_index(idx3: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
     return (idx3[..., 0] * ny + idx3[..., 1]) * nz + idx3[..., 2]
 
 
+def unflatten_cell_index(raw: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
+    """Flat C-order cell index -> (..., 3) cell index; the inverse of
+    :func:`flat_cell_index`."""
+    _, ny, nz = cfg.grid_size
+    z = raw % nz
+    y = (raw // nz) % ny
+    x = raw // (ny * nz)
+    return torch.stack([x, y, z], dim=-1)
+
+
 def pad1(x: torch.Tensor, value) -> torch.Tensor:
     """Pad every axis of a 3D tensor by one layer of `value` (out-of-bounds
     cells as SOLID, zero pressure, ...)."""

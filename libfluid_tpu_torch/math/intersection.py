@@ -45,7 +45,11 @@ def ray_unit_sphere(origin, direction):
     c = torch.sum(origin * origin, dim=-1) - 1.0
     disc = b * b - 4.0 * a * c
     has_root = disc >= 0.0
-    sq = torch.where(has_root, torch.sqrt(torch.where(has_root, disc, torch.ones_like(disc))),
+    # sqrt takes disc > 0 only: at a tangent (disc == 0) sqrt'(0) is inf,
+    # and inf times the zero cotangent of an unchosen sphere is NaN (the JAX
+    # package's double where keeps disc == 0 and gives that NaN)
+    inside = disc > 0.0
+    sq = torch.where(inside, torch.sqrt(torch.where(inside, disc, torch.ones_like(disc))),
                      torch.zeros_like(disc))
     t_near = (-b - sq) / (2.0 * a)
     t_far = (-b + sq) / (2.0 * a)

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from libfluid_tpu_torch.config import SimConfig
+from libfluid_tpu_torch.sim.binning import Binning
 
 COL_POS = slice(0, 3)
 COL_MASK = 3
@@ -46,6 +47,39 @@ class SlotGrid(NamedTuple):
     def affine_row(self, axis: int) -> torch.Tensor:
         """(3, K, nx, ny, nz) APIC affine row `axis`."""
         return self.data[7 + 3 * axis : 10 + 3 * axis]
+
+
+def build(position: torch.Tensor, velocity: torch.Tensor, affine, bins: Binning,
+          cfg: SimConfig) -> SlotGrid:
+    """The slot grid of CELL-SORTED particle arrays (``binning.sort_by_cell``):
+    each cell's particles are a contiguous run, so a particle's slot
+    ``rank * num_cells + cell`` is unique and the build is one indexed write
+    of one payload row per particle. `affine` None writes zero affine rows."""
+    k = cfg.max_neighbors_per_cell
+    n = position.shape[0]
+    num_cells = cfg.num_cells
+    dev = position.device
+
+    cell = bins.cell_of  # sorted; sentinel num_cells for inactive
+    in_grid = cell < num_cells
+    rank = torch.arange(n, dtype=torch.int32, device=dev) - bins.cell_start[
+        torch.clamp(cell, max=num_cells - 1).long()
+    ]
+    ok = in_grid & (rank < k)
+    slot = torch.where(ok, rank * num_cells + cell, torch.full_like(cell, num_cells * k))
+
+    aff = affine.reshape(n, 9) if affine is not None else position.new_zeros((n, 9))
+    payload = torch.cat([position, position.new_ones((n, 1)), velocity, aff], dim=1)  # (N, 16)
+
+    # row num_cells * k takes the rows without a slot and is dropped
+    grid = position.new_zeros((num_cells * k + 1, WIDTH))
+    grid[slot.long()] = payload
+    nx, ny, nz = cfg.grid_size
+    return SlotGrid(
+        data=grid[:-1].t().reshape(WIDTH, k, nx, ny, nz),
+        slot_of=slot,
+        overflow=in_grid & (rank >= k),
+    )
 
 
 def gather_per_particle(values: torch.Tensor, slots: SlotGrid) -> torch.Tensor:

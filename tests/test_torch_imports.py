@@ -32,6 +32,9 @@ def test_port_imports_without_jax():
         "from libfluid_tpu_torch.renderer import (accel, bdpt, camera, draws, intersect, loops, materials,\n"
         "    pathtrace, render, scene, scenes)\n"
         "from libfluid_tpu_torch import cache, checkpoint, dcc, native, profiling, voxelizer\n"
+        "from libfluid_tpu_torch.sim import bigstep, binning, slots\n"
+        "import libfluid_tpu_torch.parallel\n"
+        "from libfluid_tpu_torch.parallel import distributed, halo, mesh, shard, zshard\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
     )
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
@@ -278,3 +281,55 @@ def test_constructors_default_to_the_card(name):
     else:
         with pytest.raises(RuntimeError, match="device=None"):
             make(None)
+
+
+@pytest.fixture
+def one_rank_gloo(tmp_path):
+    """A gloo group of one rank in this process, torn down after the test."""
+    import torch.distributed as dist
+
+    from libfluid_tpu_torch.parallel import distributed
+
+    distributed.init_distributed(backend="gloo", store=dist.FileStore(str(tmp_path / "store"), 1),
+                                 num_processes=1, process_id=0, timeout=30)
+    yield
+    dist.destroy_process_group()
+
+
+def test_parallel_and_tiled_paths_default_to_the_card(one_rank_gloo):
+    """The slab-tiled substep runs where its state lies and the state's
+    constructor defaults to the card; a mesh (and so ``zshard_state``'s
+    share) defaults to the card too, and a CUDA mesh on a gloo group raises
+    instead of moving the tensors to the CPU."""
+    from libfluid_tpu_torch.parallel import make_mesh, zshard
+    from libfluid_tpu_torch.sim import bigstep
+
+    cfg = _cfg(grid_size=(8, 8, 8))
+    state, diag = bigstep.substep_tiled(_state(cfg), cfg, 0.01, 2)
+    assert state.position.device.type == "cpu" and int(diag.particle_count) > 0
+    share = zshard.zshard_state(_state(cfg), cfg, make_mesh(device="cpu"))
+    assert share.position.device.type == "cpu"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device=None"):
+            make_mesh()
+        with pytest.raises(RuntimeError, match="device=None"):
+            bigstep.substep_tiled(_state_on(cfg, None), cfg, 0.01, 2)
+    with pytest.raises(RuntimeError, match="nccl"):
+        make_mesh(device=torch.device("cuda", 0))
+
+
+def _state_on(cfg, device):
+    return sim.seed_box(sim.new_state(cfg, device), cfg, (1.0, 1.0, 1.0), (3.0, 3.0, 3.0))
+
+
+def test_init_distributed_refuses_nccl_without_a_card(monkeypatch):
+    """NCCL is the default backend; without a CUDA card (or an NCCL build)
+    it raises and never falls back to gloo."""
+    import torch.distributed as dist
+
+    from libfluid_tpu_torch.parallel import distributed
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="NCCL"):
+        distributed.init_distributed("127.0.0.1:29511", 1, 0)
+    assert not dist.is_initialized()

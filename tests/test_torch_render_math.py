@@ -98,6 +98,23 @@ def test_ray_unit_sphere_matches_jax():
     assert bool(hit) and abs(float(t) - 1.0) < 1e-6  # from inside: the far root
 
 
+def test_ray_unit_sphere_gradient_finite_at_a_tangent():
+    """A ray that grazes the sphere (discriminant exactly 0) hits it, with
+    the JAX package's t, and its gradient is finite; JAX's is NaN there
+    (sqrt'(0) times a zero cotangent), so the port's takes the tangent's
+    square root as a constant 0."""
+    o = torch.tensor([[0.0, 1.0, -5.0], [0.3, 0.2, -5.0]], requires_grad=True)
+    d = torch.tensor([[0.0, 0.0, 1.0], [0.0, 0.0, 1.0]], requires_grad=True)
+    hit, t = t_intersection.ray_unit_sphere(o, d)
+    want_hit, want_t = intersection.ray_unit_sphere(jnp.asarray(o.detach().numpy()), jnp.asarray(d.detach().numpy()))
+    assert hit.tolist() == [True, True] == np.asarray(want_hit).tolist()
+    np.testing.assert_allclose(t.detach().numpy(), np.asarray(want_t), rtol=1e-6)
+    # the unchosen sphere's zero cotangent: a tangent hit under a where
+    torch.where(torch.tensor([False, True]), t, torch.zeros_like(t)).sum().backward()
+    assert torch.isfinite(o.grad).all() and torch.isfinite(d.grad).all()
+    assert float(o.grad[1].abs().sum()) > 0
+
+
 def test_aabb_triangle_matches_jax():
     rng = np.random.default_rng(5)
     c = rng.uniform(-1, 1, (400, 3)).astype(np.float32)
