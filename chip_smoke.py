@@ -20,9 +20,13 @@ Phases, one line of output each (or a few):
    the per-pass and the plain cycle and the launches of one cycle; the
    host-clock ms of one V-cycle and one operator call, the kernels of a CG
    iteration; CG iterations of a substep with the fused and with the
-   per-pass cycle; kernel E also at 16 and 32 slots a cell; kernels B and F
-   also on grids no tile divides (B at 5, 12 and 32 slots a cell, F with a
-   support of 1, 2 and 4 cells and a crammed bin), two launches bit-equal;
+   per-pass cycle; the same for the bfloat16 ("mg16") instance of the four
+   kernels on the 128^3 levels (each equal to its plain stage, the cycle
+   equal to the plain cycle) and the CG iterations of a FLIP + mg16 substep
+   with the fused and with the per-pass bfloat16 cycle; kernel E also at 16
+   and 32 slots a cell; kernels B and F also on grids no tile divides (B at
+   5, 12 and 32 slots a cell, F with a support of 1, 2 and 4 cells and a
+   crammed bin), two launches bit-equal;
    then the backward kernels B' (at 64^3: the plain autograd of P2G does
    not fit the card at 128^3; its time and bound also at 128^3; also on a
    grid no tile divides at 5, 12 and 32 slots a cell, APIC and PIC, two
@@ -42,6 +46,8 @@ Phases, one line of output each (or a few):
    a 128 x 64 x 8 dam-break, whose one multigrid level is too large for
    the one-block coarse kernel and takes its sweeps as stencil launches:
    the V-cycle against the plain cycle, three substeps against the CPU run;
+   then the same with the mg16 preconditioner, whose sweeps there are the
+   path that still launches kernel stencil16;
 4. a seeded 32^3 dam-break with position correction off, and a 32^3 scene
    with the default options (position correction, a solid block, a
    source), each run for 2 substeps on the card (kernels) and on the CPU
@@ -67,8 +73,9 @@ Phases, one line of output each (or a few):
    forward and adjoint solves, peak memory); one such step with position
    correction on (kernel E'); the gradient of a loss on the mesh of the
    260^3-cell mesher grid with respect to the 2.0M positions (kernel F');
-9. the 128^3 dam-break with FLIP and the bfloat16 V-cycle ("mg16"), 2
-   substeps;
+9. the 128^3 dam-break with FLIP and the bfloat16 V-cycle ("mg16"), 3
+   substeps and the stage split of 2 more, through the fused mg16_*
+   kernels and no stencil16;
 10. the testbed CLI, setup 4 (jet source + obstacle), 2 frames with an OBJ
     export every frame;
 11. the renderer (no kernel of its own: PyTorch loops): BASELINE configs 1
@@ -164,6 +171,11 @@ KERNELS = {
     "mg_restrict": ("libfluid_tpu_torch/csrc/vcycle.cu", "libfluid_tpu/sim/multigrid.py:127"),
     "mg_up": ("libfluid_tpu_torch/csrc/vcycle.cu", "libfluid_tpu/sim/multigrid.py:127"),
     "mg_coarse": ("libfluid_tpu_torch/csrc/vcycle.cu", "libfluid_tpu/sim/multigrid.py:127"),
+    # its bfloat16 instance, the "mg16" cycle
+    "mg16_pre": ("libfluid_tpu_torch/csrc/vcycle.cu", "libfluid_tpu/sim/multigrid.py:127"),
+    "mg16_restrict": ("libfluid_tpu_torch/csrc/vcycle.cu", "libfluid_tpu/sim/multigrid.py:127"),
+    "mg16_up": ("libfluid_tpu_torch/csrc/vcycle.cu", "libfluid_tpu/sim/multigrid.py:127"),
+    "mg16_coarse": ("libfluid_tpu_torch/csrc/vcycle.cu", "libfluid_tpu/sim/multigrid.py:127"),
     "g2p": ("libfluid_tpu_torch/csrc/g2p.cu", "libfluid_tpu/sim/transfers.py:177,508"),
     "correction": ("libfluid_tpu_torch/csrc/correction.cu", "libfluid_tpu/sim/kernels.py:284"),
     "surface": ("libfluid_tpu_torch/csrc/surface.cu", "libfluid_tpu/mesher/surface.py:164"),
@@ -176,6 +188,7 @@ KERNELS = {
     "surface_bwd": ("libfluid_tpu_torch/csrc/surface_bwd.cu", "libfluid_tpu/mesher/surface.py:164"),
 }
 VCYCLE_KERNELS = ("mg_pre", "mg_restrict", "mg_up", "mg_coarse")
+VCYCLE16_KERNELS = ("mg16_pre", "mg16_restrict", "mg16_up", "mg16_coarse")
 FORWARD_KERNELS = ("expand", "p2g", "stencil", *VCYCLE_KERNELS, "g2p", "correction", "surface")
 GRAD_KERNELS = ("expand", "p2g", "p2g_bwd", "stencil", *VCYCLE_KERNELS, "g2p", "g2p_bwd")
 MESH_GRAD_KERNELS = ("surface", "surface_bwd_nodes", "surface_bwd")
@@ -288,16 +301,27 @@ def wall_ms(fn, reps: int = 20) -> float:
 
 
 def vcycle_phases(levels, what: str, device_times: bool = False):
-    """The fused V-cycle's kernels on `levels`: each against its plain stage
-    function on the inputs the plain cycle gives that stage (rtol 1e-6 /
-    atol 1e-5), the coarse kernel on its own, then the whole cycle against
-    the plain one (1e-5 max|b|), with times and the launches of one cycle.
-    With `device_times`, also the device's own time of each kernel at its
-    first level. Returns the record of each kernel at its first (largest)
-    level, and the host-clock ms of one fused cycle."""
+    """The fused V-cycle's kernels on `levels`, in the hierarchy's dtype: each
+    against its plain stage function on the inputs the plain cycle gives
+    that stage (float32: rtol 1e-6 / atol 1e-5; bfloat16, "mg16_*": equal),
+    the coarse kernel on its own, then the whole cycle against the plain one
+    (float32: 1e-5 max|b|; bfloat16: equal) and beside the per-pass cycle,
+    with times and the launches of one cycle. With `device_times`, also the
+    device's own time of each kernel at its first level. Returns the record
+    of each kernel at its first (largest) level, and the host-clock ms of
+    one fused cycle."""
     dev = levels[0].fluid.device
+    dtype = levels[0].fluid.dtype
+    prefix = multigrid._VCYCLE[dtype]
+    exact = dtype == torch.bfloat16
+    names = [f"{prefix}_{stage}" for stage in ("pre", "restrict", "up", "coarse")]
+    held = "equal" if exact else "within rtol 1e-6/atol 1e-5"
+
+    def holds(got, want):
+        return torch.equal(got, want) if exact else close(got, want, 1e-6, 1e-5)
+
     gen = torch.Generator(device=dev).manual_seed(2)
-    b = 20.0 * torch.randn(levels[0].fluid.shape, generator=gen, device=dev) * levels[0].fluid
+    b = (20.0 * torch.randn(levels[0].fluid.shape, generator=gen, device=dev)).to(dtype) * levels[0].fluid
     first = multigrid.first_coarse_level(levels)
     shapes = [tuple(lv.fluid.shape) for lv in levels]
     out, bs = {}, [b]
@@ -309,38 +333,39 @@ def vcycle_phases(levels, what: str, device_times: bool = False):
         upw = multigrid._up_torch(lv, xw, ec, bl)
         bs.append(rcw)
         stages = {
-            "mg_pre": (lambda: multigrid.pre_smooth(lv, bl), lambda: multigrid._pre_torch(lv, bl), xw,
+            names[0]: (lambda: multigrid.pre_smooth(lv, bl), lambda: multigrid._pre_torch(lv, bl), xw,
                        bound(nbytes(bl, xw, *multigrid._level_args(lv)), 40.0 * bl.numel())),
-            "mg_restrict": (lambda: multigrid.restrict_residual(lv, lc, xw, bl),
-                            lambda: multigrid._restrict_residual_torch(lv, lc, xw, bl), rcw,
-                            bound(nbytes(xw, bl, lc.fluid, rcw, *multigrid._level_args(lv)),
-                                  40.0 * bl.numel())),
-            "mg_up": (lambda: multigrid.prolong_smooth(lv, xw, ec, bl),
-                      lambda: multigrid._up_torch(lv, xw, ec, bl), upw,
-                      bound(nbytes(xw, ec, bl, upw, *multigrid._level_args(lv)), 60.0 * bl.numel())),
+            names[1]: (lambda: multigrid.restrict_residual(lv, lc, xw, bl),
+                       lambda: multigrid._restrict_residual_torch(lv, lc, xw, bl), rcw,
+                       bound(nbytes(xw, bl, lc.fluid, rcw, *multigrid._level_args(lv)),
+                             40.0 * bl.numel())),
+            names[2]: (lambda: multigrid.prolong_smooth(lv, xw, ec, bl),
+                       lambda: multigrid._up_torch(lv, xw, ec, bl), upw,
+                       bound(nbytes(xw, ec, bl, upw, *multigrid._level_args(lv)), 60.0 * bl.numel())),
         }
         for name, (fused, plain, want, bnd) in stages.items():
             got = fused()
             err = max_err(got, want)
-            check(close(got, want, 1e-6, 1e-5), f"{name} at {shapes[l]} ({what}) error {err}")
+            check(holds(got, want), f"{name} at {shapes[l]} ({what}) error {err}")
             rec = dict(max_abs_err=err, ms=median_ms(fused), plain_ms=median_ms(plain), **bnd)
-            own = (f"; device time {device_ms(fused, name + '_kernel')} (torch.profiler)"
+            kernel = name.replace(prefix, "mg") + "_kernel"  # one template, two instances
+            own = (f"; device time {device_ms(fused, kernel)} (torch.profiler)"
                    if device_times and name not in out else "")
-            log(f"kernel {name} ({what}) level {shapes[l]}: within rtol 1e-6/atol 1e-5, {rec}{own}")
+            log(f"kernel {name} ({what}) level {shapes[l]}: {held}, {rec}{own}")
             out.setdefault(name, rec)
     bc = bs[first]
     lows = levels[first:]
     got = multigrid.coarse_cycle(levels, bc, first)
     want = multigrid._coarse_torch(levels, bc, first)
     err = max_err(got, want)
-    check(close(got, want, 1e-6, 1e-5), f"mg_coarse from {shapes[first]} ({what}) error {err}")
-    out["mg_coarse"] = dict(
+    check(holds(got, want), f"{names[3]} from {shapes[first]} ({what}) error {err}")
+    out[names[3]] = dict(
         max_abs_err=err, ms=median_ms(lambda: multigrid.coarse_cycle(levels, bc, first)),
         plain_ms=median_ms(lambda: multigrid._coarse_torch(levels, bc, first)),
         **bound(nbytes(bc, got, *(a for lv in lows for a in multigrid._level_args(lv))),
                 40.0 * sum(lv.fluid.numel() for lv in lows) * 6))
-    log(f"kernel mg_coarse ({what}) levels {shapes[first:]}: within rtol 1e-6/atol 1e-5 of max "
-        f"{float(want.abs().max()):.3e}, {out['mg_coarse']}"
+    log(f"kernel {names[3]} ({what}) levels {shapes[first:]}: {held} (max "
+        f"{float(want.abs().max()):.3e}), {out[names[3]]}"
         + (f"; device time {device_ms(lambda: multigrid.coarse_cycle(levels, bc, first), 'mg_coarse_kernel')} "
            f"(torch.profiler)" if device_times else ""))
 
@@ -350,15 +375,17 @@ def vcycle_phases(levels, what: str, device_times: bool = False):
     torch.cuda.synchronize()
     launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
     want = multigrid._coarse_torch(levels, b, 0)
-    err, tol = max_err(got, want), 1e-5 * float(b.abs().max())
-    check(err <= tol, f"fused V-cycle ({what}) differs from the plain cycle by {err} > {tol}")
-    check(set(launches) <= set(VCYCLE_KERNELS) and sum(launches.values()) <= 10,
+    err, tol = max_err(got, want), 0.0 if exact else 1e-5 * float(b.abs().max())
+    check(torch.equal(got, want) if exact else err <= tol,
+          f"fused V-cycle ({what}) differs from the plain cycle by {err} > {tol}")
+    check(set(launches) <= set(names) and sum(launches.values()) <= 10,
           f"fused V-cycle ({what}) launched {launches}")
     err_pp = max_err(got, multigrid.v_cycle_per_pass(levels, b))
     cyc = bound(nbytes(b, got, *(a for lv in levels for a in multigrid._level_args(lv))))
     fused_wall = wall_ms(lambda: multigrid.v_cycle(levels, b))
-    log(f"V-cycle ({what}) levels {shapes}: fused against plain max abs error {err:.3e} (<= 1e-5 max|b| = "
-        f"{tol:.3e}), against per-pass {err_pp:.3e}; {sum(launches.values())} launches a cycle {launches}; "
+    log(f"V-cycle ({what}) levels {shapes}: fused against plain max abs error {err:.3e} ("
+        f"{'equal' if exact else f'<= 1e-5 max|b| = {tol:.3e}'}), against per-pass {err_pp:.3e}; "
+        f"{sum(launches.values())} launches a cycle {launches}; "
         f"device ms fused {median_ms(lambda: multigrid.v_cycle(levels, b)):.4f}, per-pass "
         f"{median_ms(lambda: multigrid.v_cycle_per_pass(levels, b)):.4f}, plain "
         f"{median_ms(lambda: multigrid._coarse_torch(levels, b, 0), PLAIN_REPS_SLOW):.4f}; wall ms fused "
@@ -368,10 +395,24 @@ def vcycle_phases(levels, what: str, device_times: bool = False):
     return out, fused_wall
 
 
-def cg_parity(state, cfg) -> None:
+def bf16_levels(levels):
+    """The bfloat16 copy of a hierarchy that ``pressure._cg``'s mg16 branch
+    makes."""
+    return multigrid.Hierarchy(
+        multigrid.MGLevel(*[f.to(torch.bfloat16) for f in lv[:-1]], lv.scale) for lv in levels)
+
+
+def flip_mg16(cfg):
+    """`cfg` with FLIP and the bfloat16 V-cycle ("mg16"), correction off:
+    the FLIP + mg16 path's configuration."""
+    return dataclasses.replace(cfg, scheme=TransferScheme.FLIP, enable_position_correction=False,
+                               solver=SolverConfig(preconditioner_dtype="bfloat16"))
+
+
+def cg_parity(state, cfg, what: str = "128^3") -> None:
     """One substep from `state` with the fused cycle and one with the
-    per-pass cycle: the same preconditioner gives the same CG iterations
-    (within 1)."""
+    per-pass cycle (in the dtype of `cfg`'s preconditioner): the same
+    preconditioner gives the same CG iterations (within 1)."""
     runs = {}
     fused = multigrid.v_cycle
     for name, cycle in (("fused", fused), ("per-pass", multigrid.v_cycle_per_pass)):
@@ -387,7 +428,7 @@ def cg_parity(state, cfg) -> None:
         finally:
             multigrid.v_cycle = fused
             state.generator.set_state(draws)
-    log("CG parity on one 128^3 substep: " + ", ".join(
+    log(f"CG parity on one {what} substep: " + ", ".join(
         f"{name} cycle {ms:.1f} ms, {it} iterations, residual {res:.2e}"
         for name, (ms, it, res) in runs.items()))
     check(abs(runs["fused"][1] - runs["per-pass"][1]) <= 1, f"CG iterations differ by more than 1: {runs}")
@@ -599,20 +640,23 @@ def device_ms(fn, kernel: str, reps: int = 5) -> str:
     event median around a wrapper carries the launch path and whatever
     else the wrapper runs), as text. The profiler now and then misses
     launches of a window, or reports them twice: the median is over the
-    launches it reported, after up to three windows, and "not measured" if
-    it reported none."""
+    launches it reported, in windows of `reps`, 4 x and 16 x `reps` calls
+    until one reports the kernel, and "not measured" (with the device
+    items it did report) if none did."""
     fn()
-    for _ in range(3):
+    seen = set()
+    for calls in (reps, 4 * reps, 16 * reps):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        times = [e.device_time_total for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+        on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        times = [e.device_time_total for e in on_device if kernel in e.name]
         if times:
-            return f"{float(np.median(times)) / 1e3:.4f} ms"
-    return "not measured"
+            return f"{float(np.median(times)) / 1e3:.4f} ms ({len(times)} launches of {calls} calls)"
+        seen.update(e.name[:60] for e in on_device)
+    return f"not measured (the profiler reported {sorted(seen)[:6]})"
 
 
 def kernel_phases(cfg, state):
@@ -703,6 +747,14 @@ def kernel_phases(cfg, state):
     vcycle_phases(multigrid.build_levels(tstate.grid.cell_type), "50^3 testbed setup 4")
     del tstate
     cg_parity(state, cfg)
+    # the mg16 cycle: its four kernels and the cycle on the 128^3 levels in
+    # bfloat16, as pressure._cg copies them; CG parity on a FLIP + mg16
+    # substep of the same state
+    levels16 = bf16_levels(multigrid.build_levels(state.grid.cell_type))
+    records16, _ = vcycle_phases(levels16, "128^3 bfloat16", device_times=True)
+    out.update(records16)
+    del levels16
+    cg_parity(state, flip_mg16(cfg), "128^3 FLIP + mg16")
 
     grid, pos = state.grid, state.position
     vk, ak = transfers.g2p_pic(grid, pos, cfg)
@@ -1286,19 +1338,22 @@ def parity_scene(device):
     return cfg, state._replace(sources=src)
 
 
-def thin_grid(device) -> None:
-    """A 128 x 64 x 8 dam-break with the default preconditioner: an axis of
-    8 cells ends the coarsening at once, so the hierarchy is one level of
-    65,536 cells, more than the one-block coarse kernel takes; its sweeps
-    run as stencil launches. The V-cycle against the plain cycle, then three
-    substeps on the card and on the CPU (the block falls freely through the
-    first, which needs no CG iteration): healthy output, and the same CG
-    iterations (within 1)."""
+def thin_grid(device, precond_dtype: str = "float32") -> None:
+    """A 128 x 64 x 8 dam-break with the multigrid preconditioner in
+    `precond_dtype`: an axis of 8 cells ends the coarsening at once, so the
+    hierarchy is one level of 65,536 cells, more than the one-block coarse
+    kernel takes; its sweeps run as "stencil" launches ("stencil16" in
+    bfloat16). The V-cycle against the plain cycle (bfloat16: equal), then
+    three substeps on the card and on the CPU (the block falls freely
+    through the first, which needs no CG iteration): healthy output, and
+    the same CG iterations (within 1)."""
     cpu = torch.device("cpu")
     its, levels = {}, None
+    bf16 = precond_dtype == "bfloat16"
     for dev in (device, cpu):
         cfg = SimConfig(grid_size=(128, 64, 8), cell_size=1.0, gravity=(0.0, -981.0, 0.0),
-                        particle_capacity=1 << 17, scheme=TransferScheme.APIC, has_obstacles=False)
+                        particle_capacity=1 << 17, scheme=TransferScheme.APIC, has_obstacles=False,
+                        solver=SolverConfig(preconditioner_dtype=precond_dtype))
         state = sim.seed_box(sim.new_state(cfg, dev), cfg, (1.0, 1.0, 1.0), (63.0, 40.0, 6.0))
         n0 = int(particle_count(state))
         its[dev.type] = []
@@ -1313,17 +1368,22 @@ def thin_grid(device) -> None:
           f"thin grid: levels of {cells} cells do not take the sweeps")
     gen = torch.Generator(device=device).manual_seed(3)
     b = 20.0 * torch.randn(levels[0].fluid.shape, generator=gen, device=device) * levels[0].fluid
+    if bf16:
+        levels, b = bf16_levels(levels), b.to(torch.bfloat16)
     torch.cuda.synchronize()
     before = dict(kernels.LAUNCHES)
     got = multigrid.v_cycle(levels, b)
     torch.cuda.synchronize()
     launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v != before[k]}
     want = multigrid._coarse_torch(levels, b, 0)
-    err, tol = max_err(got, want), 1e-5 * float(b.abs().max())
-    check(err <= tol, f"thin grid: V-cycle differs from the plain cycle by {err} > {tol}")
-    check(launched == {"stencil": multigrid._COARSE_ITERS}, f"thin grid: a V-cycle launched {launched}")
-    log(f"thin grid {tuple(levels[0].fluid.shape)}, one level of {cells[0]} cells: V-cycle against plain max "
-        f"abs error {err:.3e} (<= 1e-5 max|b| = {tol:.3e}), {launched} launches a cycle, "
+    err, tol = max_err(got, want), 0.0 if bf16 else 1e-5 * float(b.abs().max())
+    check(torch.equal(got, want) if bf16 else err <= tol,
+          f"thin grid: V-cycle differs from the plain cycle by {err} > {tol}")
+    sweeps = "stencil16" if bf16 else "stencil"
+    check(launched == {sweeps: multigrid._COARSE_ITERS}, f"thin grid: a V-cycle launched {launched}")
+    log(f"thin grid {tuple(levels[0].fluid.shape)} ({precond_dtype} preconditioner), one level of "
+        f"{cells[0]} cells: V-cycle against plain max abs error {err:.3e} (<= {tol:.3e}), {launched} "
+        f"launches a cycle, "
         f"{wall_ms(lambda: multigrid.v_cycle(levels, b)):.4f} ms on the host clock; CG iterations of three "
         f"substeps gpu {its[device.type]} cpu {its['cpu']}, {n0} particles, healthy")
     check(max(its["cpu"]) > 0 and all(abs(g - c) <= 1 for g, c in zip(its[device.type], its["cpu"])),
@@ -1607,12 +1667,13 @@ def mesh_grad_run(device) -> None:
 
 
 def flip_run(device) -> None:
-    """2 substeps of the 128^3 dam-break with FLIP and the mg16 V-cycle."""
+    """3 substeps of the 128^3 dam-break with FLIP and the mg16 V-cycle (the
+    first from rest needs no CG iteration), then the stage split of 2
+    more."""
     cfg, state = dam_break(128, device, 1 << 21, correct=False)
-    cfg = dataclasses.replace(cfg, scheme=TransferScheme.FLIP,
-                              solver=SolverConfig(preconditioner_dtype="bfloat16"))
+    cfg = flip_mg16(cfg)
     n0 = int(particle_count(state))
-    for i in range(2):
+    for i in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, diag = sim.substep(state, cfg, DT)
@@ -1621,6 +1682,7 @@ def flip_run(device) -> None:
         log(f"128^3 FLIP + mg16 substep {i}: {(time.perf_counter() - t0) * 1e3:.1f} ms, CG "
             f"{int(diag.pressure_iterations)} it res {float(diag.pressure_residual):.2e}, vmax "
             f"{float(diag.max_velocity):.2f}, n {int(diag.particle_count)}")
+    stage_split(state, cfg, n0, None, substeps=2, what="128^3 FLIP + mg16")
 
 
 def healthy(state, diag, cfg, n0: int, what: str) -> None:
@@ -1690,12 +1752,13 @@ def timed_stages(timer, stages, sync: bool):
             setattr(mod, name, fn)
 
 
-def stage_split(state, cfg, n0: int, cg_parts, substeps: int = 3):
+def stage_split(state, cfg, n0: int, cg_parts, substeps: int = 3, what: str = "128^3"):
     """`substeps` substeps with a synchronize around each stage: ms per
     stage (mean, ``profiling.StageTimer``'s CUDA events between the
     synchronizes), CG iterations and ms per CG iteration, held beside
-    `cg_parts`, the ms of one V-cycle and one operator call. The stages are
-    timed by wrapping the functions `substep` calls, for this run only."""
+    `cg_parts` (if given), the ms of one V-cycle and one operator call. The
+    stages are timed by wrapping the functions `substep` calls, for this
+    run only."""
     timer = profiling.StageTimer(state.position.device)
     total, iters = 0.0, 0
     with timed_stages(timer, STAGES, sync=True):
@@ -1711,10 +1774,12 @@ def stage_split(state, cfg, n0: int, cg_parts, substeps: int = 3):
     spent = {label: 1e3 * totals.get(label, 0.0) for label, _, _ in STAGES}
     rest = total - sum(spent.values())
     solve = spent[STAGES[2][0]]
-    log(f"128^3 stage split, mean of {substeps} staged substeps: total {total / substeps:.2f} ms, "
+    log(f"{what} stage split, mean of {substeps} staged substeps: total {total / substeps:.2f} ms, "
         f"CG {iters / substeps:.2f} iterations a substep, {solve / max(iters, 1):.3f} ms per CG iteration")
     for label, ms in (*spent.items(), ("advect, collisions, mark cells, gravity, diagnostics", rest)):
         log(f"  stage {label}: {ms / substeps:.2f} ms ({100.0 * ms / total:.1f} %)")
+    if cg_parts is None:
+        return state
     # what a CG iteration is made of: its V-cycle and its operator as timed
     # alone in phase 3 (outside this path, whose launch counts are its own);
     # the rest is the loop's vector operations and its host read of the
@@ -2673,6 +2738,10 @@ def main() -> None:
 
     drive("thin-grid path (128 x 64 x 8)", lambda: thin_grid(device),
           ("expand", "p2g", "stencil", "g2p", "correction"))
+    # the path that still runs kernel stencil16: the mg16 cycle's bottom on
+    # a level too large for one block
+    _, thin16_launches = drive("thin-grid mg16 path (128 x 64 x 8)", lambda: thin_grid(device, "bfloat16"),
+                               ("expand", "p2g", "stencil", "stencil16", "g2p", "correction"))
     slice_parity(device)
     scene_parity(device)
     drive("32^3 gradient parity (both scenes and the mesh)", lambda: grad_parity(device),
@@ -2695,7 +2764,11 @@ def main() -> None:
                              MESH_GRAD_KERNELS)
     torch.cuda.empty_cache()
     _, flip_launches = drive("128^3 FLIP + mg16 path", lambda: flip_run(device),
-                             ("expand", "p2g", "stencil", "stencil16"))
+                             ("expand", "p2g", "stencil", *VCYCLE16_KERNELS))
+    cycles = flip_launches["mg16_coarse"]
+    fused16 = sum(flip_launches[k] for k in VCYCLE16_KERNELS)
+    check(flip_launches["stencil16"] == 0 and fused16 <= 10 * cycles,
+          f"the FLIP + mg16 path launched stencil16 or more than 10 kernels a cycle: {flip_launches}")
     torch.cuda.empty_cache()
     drive("testbed path (setup 4)", testbed_run, FORWARD_KERNELS)
     torch.cuda.empty_cache()
@@ -2712,10 +2785,12 @@ def main() -> None:
     # tiled path, 4 substeps, for the kernels it launches: A, B, C and the
     # fused cycle, D, E; the main path for F, the gradient path for B' and
     # D', the correction-on gradient path for E', the mesh gradient path for
-    # F', the FLIP + mg16 path for the bfloat16 stencil)
+    # F', the FLIP + mg16 path for the fused bfloat16 cycle, the thin-grid
+    # mg16 path for the bfloat16 stencil)
     launches.update({k: v for k, v in c5_launches.items() if v > 0})
+    launches.update({k: flip_launches[k] for k in VCYCLE16_KERNELS})
     launches.update(p2g_bwd=grad_launches["p2g_bwd"], g2p_bwd=grad_launches["g2p_bwd"],
-                    stencil16=flip_launches["stencil16"],
+                    stencil16=thin16_launches["stencil16"],
                     correction_bwd=corr_launches["correction_bwd"],
                     surface_bwd_nodes=mesh_launches["surface_bwd_nodes"],
                     surface_bwd=mesh_launches["surface_bwd"])

@@ -57,7 +57,7 @@ class SolverConfig:
     tolerance: float = 1e-6  # max-norm residual threshold
     max_iterations: int = 200
     preconditioner: str = "mg"  # "mg" (geometric V-cycle) or "jacobi"
-    preconditioner_dtype: str = "float32"  # "bfloat16": the "mg16" per-pass V-cycle
+    preconditioner_dtype: str = "float32"  # "bfloat16": the "mg16" V-cycle
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,7 +1,7 @@
 """Dispatch to the hand-written CUDA kernels, and the wrappers of the P2G
 and correction kernels.
 
-Sixteen kernels carry the substep, the mesher and the gradients of both
+Twenty kernels carry the substep, the mesher and the gradients of both
 (sources in ``libfluid_tpu_torch/csrc``):
 
     "expand"      slotsort.expand         slot-grid expand     (csrc/expand.cu)
@@ -13,6 +13,8 @@ Sixteen kernels carry the substep, the mesher and the gradients of both
     "mg_restrict" multigrid.restrict_residual  residual + R    (csrc/vcycle.cu)
     "mg_up"       multigrid.prolong_smooth     P + post-sweeps (csrc/vcycle.cu)
     "mg_coarse"   multigrid.coarse_cycle  small levels' cycle  (csrc/vcycle.cu)
+    "mg16_pre", "mg16_restrict", "mg16_up", "mg16_coarse"
+                  the same four in bf16, the "mg16" cycle      (csrc/vcycle.cu)
     "g2p"         transfers.g2p_pic       G2P                  (csrc/g2p.cu)
     "g2p_bwd"     transfers.g2p_bwd       adjoint of G2P       (csrc/g2p_bwd.cu)
     "correction"  correction._springs     correction springs   (csrc/correction.cu)
@@ -59,7 +61,8 @@ from libfluid_tpu_torch.config import SimConfig, TransferScheme
 # Kernel launches since the last reset; a wrapper adds one where it launches.
 LAUNCHES = {
     "expand": 0, "p2g": 0, "p2g_bwd": 0, "stencil": 0, "stencil16": 0, "mg_pre": 0,
-    "mg_restrict": 0, "mg_up": 0, "mg_coarse": 0, "g2p": 0, "g2p_bwd": 0, "correction": 0,
+    "mg_restrict": 0, "mg_up": 0, "mg_coarse": 0, "mg16_pre": 0, "mg16_restrict": 0,
+    "mg16_up": 0, "mg16_coarse": 0, "g2p": 0, "g2p_bwd": 0, "correction": 0,
     "correction_bwd": 0, "surface": 0, "surface_bwd_nodes": 0, "surface_bwd": 0,
 }
 

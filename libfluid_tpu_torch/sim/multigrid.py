@@ -5,15 +5,17 @@ A matrix-free V-cycle: 2x coarsening with cell-type rediscretization,
 damped-Jacobi smoothing, cell-centred trilinear prolongation P and its exact
 transpose R = P^T / 8 as restriction, per-level operator scale 4^-l. One
 pass of the masked 7-point stencil (:func:`stencil`, kernel C) is the CG
-operator and, in bfloat16, every sweep of the "mg16" cycle
-(:func:`v_cycle_per_pass`). The float32 cycle (:func:`v_cycle`) is fused
-into four stage kernels (``csrc/vcycle.cu``), each with its plain version
-here; on CPU tensors the cycle is composed of exactly those plain stages.
+operator. The cycle (:func:`v_cycle`), in float32 and in the bfloat16 of
+"mg16", is fused into four stage kernels (``csrc/vcycle.cu``), each with
+its plain version here; on CPU tensors the cycle is composed of exactly
+those plain stages. :func:`v_cycle_per_pass`, one stencil pass a launch, is
+the yardstick the fused cycle is timed and held against.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
@@ -31,6 +33,16 @@ _MIN_SIZE = 8  # stop coarsening at <= this many cells per axis
 
 # stencil modes (csrc/stencil.cu)
 MODE_APPLY, MODE_JACOBI, MODE_RESIDUAL = 0, 1, 2
+
+
+@functools.lru_cache(maxsize=None)
+def _weak(value: float, dtype: torch.dtype) -> float:
+    """A scalar as an operation of `dtype` sees it in the JAX package, whose
+    Python scalars are weakly typed: in bfloat16 the nearest bfloat16
+    value (0.8 -> 0.80078125), else `value`."""
+    if dtype == torch.bfloat16:
+        return float(torch.tensor(value, dtype=torch.bfloat16))
+    return value
 
 
 class MGLevel(NamedTuple):
@@ -153,11 +165,9 @@ def stencil(level: MGLevel, x: torch.Tensor, b: torch.Tensor, mode: int,
     ``_stencil_pass``). CUDA: ``csrc/stencil.cu``, on every level, float32
     ("stencil") or bfloat16 ("stencil16", the dtype of the JAX package's
     "mg16" cycle); CPU: :func:`_stencil_torch`. In bfloat16 the damping
-    weight is taken as the bfloat16 value nearest to `damp`, as the JAX
-    package's weakly typed scalar is.
+    weight is taken as the bfloat16 value nearest to `damp` (:func:`_weak`).
     """
-    if x.dtype == torch.bfloat16:
-        damp = float(torch.tensor(damp, dtype=torch.bfloat16))
+    damp = _weak(damp, x.dtype)
     if not kernels.use_kernel(x, b, level.fluid):
         return _stencil_torch(level, x, b, mode, damp)
     if x.dtype not in _STENCIL_KERNELS:
@@ -266,8 +276,9 @@ def _prolong(e_c: torch.Tensor, fine_shape) -> torch.Tensor:
 
 def v_cycle_per_pass(levels: Tuple[MGLevel, ...], b: torch.Tensor, l: int = 0) -> torch.Tensor:
     """The V-cycle as one stencil pass per launch with PyTorch ops between
-    the passes: the bfloat16 ("mg16") cycle, whose passes are kernel
-    "stencil16", and the yardstick the fused float32 cycle is timed against."""
+    the passes ("stencil" in float32, "stencil16" in bfloat16): the
+    yardstick the fused cycle is timed against. In either dtype it is the
+    plain cycle, operation for operation."""
     level = levels[l]
     if l == len(levels) - 1:
         return _smooth(level, torch.zeros_like(b), b, _COARSE_ITERS)
@@ -281,22 +292,30 @@ def v_cycle_per_pass(levels: Tuple[MGLevel, ...], b: torch.Tensor, l: int = 0) -
 
 
 # ---------------------------------------------------------------------------
-# Kernel C, fused: the float32 V-cycle in stages (csrc/vcycle.cu)
+# Kernel C, fused: the V-cycle in stages (csrc/vcycle.cu)
 # ---------------------------------------------------------------------------
+
+# The instances of the fused kernels: dtype -> the prefix of their launch
+# names and C entry points ("mg_pre", "lf_mg_pre"; "mg16_pre", ...).
+_VCYCLE = {torch.float32: "mg", torch.bfloat16: "mg16"}
 
 # A level of at most this many cells, and every level below it, runs inside
 # the one-block kernel "mg_coarse"; the larger levels above take "mg_pre",
-# "mg_restrict" and "mg_up", one launch each. The last level is always
-# coarse; "mg_coarse" sweeps its levels out of device memory with one block,
-# and a level above _COARSE_CELLS_MAX cells is refused (a hierarchy that
-# ends so large: a thin slab, or more than _MAX_LEVELS halvings to go).
+# "mg_restrict" and "mg_up", one launch each ("mg16_*" in bfloat16). The
+# last level is always coarse; "mg_coarse" sweeps its levels out of device
+# memory with one block, and a level above _COARSE_CELLS_MAX cells is
+# refused (a hierarchy that ends so large: a thin slab, or more than
+# _MAX_LEVELS halvings to go).
 _COARSE_CELLS = 16 * 16 * 16
 _COARSE_CELLS_MAX = 32 * 32 * 32
 
 
 def _smooth_plain(level: MGLevel, x: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:
+    """:func:`_smooth` of the plain stages: the damping weight of b's dtype,
+    as :func:`stencil` takes it."""
+    damp = _weak(_SMOOTH_DAMP, b.dtype)
     for _ in range(iters):
-        x = _stencil_torch(level, x, b, MODE_JACOBI, _SMOOTH_DAMP)
+        x = _stencil_torch(level, x, b, MODE_JACOBI, damp)
     return x * level.fluid
 
 
@@ -333,28 +352,39 @@ def _coarse_shape(shape) -> Tuple[int, ...]:
     return tuple((n + 1) // 2 for n in shape)
 
 
-def _check_level(level: MGLevel, name: str = "level") -> Tuple[int, int, int]:
-    """Raise unless the level's arrays are what the fused kernels take."""
+def _dtype(levels: Sequence[MGLevel]) -> torch.dtype:
+    """The hierarchy's dtype, which the fused kernels have an instance of."""
+    dtype = levels[0].fluid.dtype
+    if dtype not in _VCYCLE:
+        raise TypeError(f"the fused V-cycle kernels take float32 or bfloat16, got {dtype}")
+    return dtype
+
+
+def _check_level(level: MGLevel, name: str = "level", dtype=None) -> Tuple[int, int, int]:
+    """Raise unless the level's arrays are what the fused kernels of `dtype`
+    (by default the level's own) take."""
+    dtype = dtype or _dtype([level])
     nx, ny, nz = cell = tuple(level.fluid.shape)
     if nx * ny * nz >= 1 << 30:
         raise ValueError(f"{name}: {cell} cells, the fused kernels index with 32 bits")
     for arg, t in (("diag", level.diag), ("inv_diag", level.inv_diag), ("fluid", level.fluid)):
-        kernels.check(t, torch.float32, cell, f"{name}.{arg}")
-    kernels.check(level.couple_u, torch.float32, (nx + 1, ny, nz), f"{name}.couple_u")
-    kernels.check(level.couple_v, torch.float32, (nx, ny + 1, nz), f"{name}.couple_v")
-    kernels.check(level.couple_w, torch.float32, (nx, ny, nz + 1), f"{name}.couple_w")
+        kernels.check(t, dtype, cell, f"{name}.{arg}")
+    kernels.check(level.couple_u, dtype, (nx + 1, ny, nz), f"{name}.couple_u")
+    kernels.check(level.couple_v, dtype, (nx, ny + 1, nz), f"{name}.couple_v")
+    kernels.check(level.couple_w, dtype, (nx, ny, nz + 1), f"{name}.couple_w")
     return cell
 
 
 def _check_hierarchy(levels: Tuple[MGLevel, ...]) -> None:
-    """Raise unless every level is what the fused kernels take and each is
-    the 2x coarsening of the one above. A :class:`Hierarchy` is checked
-    once."""
+    """Raise unless every level is what the fused kernels take, all in one
+    dtype, and each is the 2x coarsening of the one above. A
+    :class:`Hierarchy` is checked once."""
     if getattr(levels, "fused_checked", False):
         return
     if (_PRE_SMOOTH, _POST_SMOOTH) != (2, 2):
         raise RuntimeError("the fused V-cycle kernels are written for 2 pre- and 2 post-sweeps")
-    cells = [_check_level(lev, f"level {i}") for i, lev in enumerate(levels)]
+    dtype = _dtype(levels)
+    cells = [_check_level(lev, f"level {i}", dtype) for i, lev in enumerate(levels)]
     for fine, coarse in zip(cells, cells[1:]):
         if coarse != _coarse_shape(fine):
             raise ValueError(f"level {coarse} is not the 2x coarsening of {fine}")
@@ -365,9 +395,9 @@ def _check_hierarchy(levels: Tuple[MGLevel, ...]) -> None:
 def bottom_route(cells: Sequence[int], l: int) -> str:
     """How the bottom of the cycle, from level `l` of a hierarchy whose
     levels hold `cells` cells, runs on CUDA tensors: "block" is the
-    one-block kernel "mg_coarse" on levels `l` and below; "sweeps" is the
-    last level alone, too large for one block, as ``_COARSE_ITERS``
-    "stencil" launches."""
+    one-block kernel "mg_coarse" ("mg16_coarse") on levels `l` and below;
+    "sweeps" is the last level alone, too large for one block, as
+    ``_COARSE_ITERS`` "stencil" ("stencil16") launches."""
     if l == len(cells) - 1 and cells[l] > _COARSE_CELLS_MAX:
         return "sweeps"
     return "block"
@@ -388,27 +418,33 @@ def _level_args(level: MGLevel):
             level.couple_w)
 
 
-# The launchers: arguments already checked, outputs allocated here.
+# The launchers: arguments already checked, outputs allocated here; the
+# kernels' instance is b's dtype.
+
+
+def _launch(stage: str, dtype: torch.dtype, *args) -> None:
+    prefix = _VCYCLE[dtype]
+    kernels.launch(f"{prefix}_{stage}", f"lf_{prefix}_{stage}", *args)
 
 
 def _launch_pre(level: MGLevel, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(b)
-    kernels.launch("mg_pre", "lf_mg_pre", b, *_level_args(level), out, *b.shape,
-                   _SMOOTH_DAMP, level.scale)
+    damp = _weak(_SMOOTH_DAMP, b.dtype)
+    _launch("pre", b.dtype, b, *_level_args(level), out, *b.shape, damp, level.scale)
     return out
 
 
 def _launch_restrict(level: MGLevel, level_c: MGLevel, x, b) -> torch.Tensor:
     rc = torch.empty_like(level_c.fluid)
-    kernels.launch("mg_restrict", "lf_mg_restrict", x, b, *_level_args(level), level_c.fluid, rc,
-                   *b.shape, level.scale)
+    _launch("restrict", b.dtype, x, b, *_level_args(level), level_c.fluid, rc, *b.shape,
+            level.scale)
     return rc
 
 
 def _launch_up(level: MGLevel, x, ec, b) -> torch.Tensor:
     out = torch.empty_like(b)
-    kernels.launch("mg_up", "lf_mg_up", x, ec, b, *_level_args(level), out, *b.shape,
-                   _SMOOTH_DAMP, level.scale)
+    damp = _weak(_SMOOTH_DAMP, b.dtype)
+    _launch("up", b.dtype, x, ec, b, *_level_args(level), out, *b.shape, damp, level.scale)
     return out
 
 
@@ -419,64 +455,67 @@ def _launch_coarse(levels: Tuple[MGLevel, ...], b: torch.Tensor, l: int) -> torc
     _check_coarse(sub)
     sizes = [lev.fluid.numel() for lev in sub]
     # xa and xb of every level, and the right-hand sides below the first
-    scratch = torch.empty(3 * sum(sizes) - sizes[0], dtype=torch.float32, device=b.device)
+    scratch = torch.empty(3 * sum(sizes) - sizes[0], dtype=b.dtype, device=b.device)
     out = torch.empty_like(b)
     arrays = (ctypes.c_void_p * (6 * len(sub)))(
         *(t.data_ptr() for lev in sub for t in _level_args(lev)))
     dims = (ctypes.c_int * (3 * len(sub)))(*(n for lev in sub for n in lev.fluid.shape))
     scales = (ctypes.c_float * len(sub))(*(lev.scale for lev in sub))
-    kernels.launch("mg_coarse", "lf_mg_coarse", b, arrays, dims, scales, len(sub), scratch, out,
-                   _PRE_SMOOTH, _POST_SMOOTH, _COARSE_ITERS, _SMOOTH_DAMP)
+    _launch("coarse", b.dtype, b, arrays, dims, scales, len(sub), scratch, out, _PRE_SMOOTH,
+            _POST_SMOOTH, _COARSE_ITERS, _weak(_SMOOTH_DAMP, b.dtype))
     return out
 
 
 def pre_smooth(level: MGLevel, b: torch.Tensor) -> torch.Tensor:
     """Down leg, first half: the pre-sweeps from x = 0, masked
     (``_smooth(level, 0, b, _PRE_SMOOTH)`` of the JAX package). CUDA:
-    "mg_pre" of ``csrc/vcycle.cu``; CPU: :func:`_pre_torch`."""
+    "mg_pre" ("mg16_pre" in bfloat16) of ``csrc/vcycle.cu``; CPU:
+    :func:`_pre_torch`."""
     if not kernels.use_kernel(b, level.fluid):
         return _pre_torch(level, b)
     _check_hierarchy((level,))
-    kernels.check(b, torch.float32, level.fluid.shape, "b")
+    kernels.check(b, level.fluid.dtype, level.fluid.shape, "b")
     return _launch_pre(level, b)
 
 
 def restrict_residual(level: MGLevel, level_c: MGLevel, x: torch.Tensor,
                       b: torch.Tensor) -> torch.Tensor:
     """Down leg, second half: ``_restrict(level_c, residual(level, x, b))``
-    of the JAX package, the residual kept on the chip. CUDA: "mg_restrict";
-    CPU: :func:`_restrict_residual_torch`."""
+    of the JAX package, the residual kept on the chip. CUDA: "mg_restrict"
+    ("mg16_restrict"); CPU: :func:`_restrict_residual_torch`."""
     if not kernels.use_kernel(x, b, level.fluid, level_c.fluid):
         return _restrict_residual_torch(level, level_c, x, b)
     _check_hierarchy((level, level_c))
-    kernels.check(x, torch.float32, level.fluid.shape, "x")
-    kernels.check(b, torch.float32, level.fluid.shape, "b")
+    kernels.check(x, level.fluid.dtype, level.fluid.shape, "x")
+    kernels.check(b, level.fluid.dtype, level.fluid.shape, "b")
     return _launch_restrict(level, level_c, x, b)
 
 
 def prolong_smooth(level: MGLevel, x: torch.Tensor, ec: torch.Tensor,
                    b: torch.Tensor) -> torch.Tensor:
     """Up leg: ``_smooth(level, x + _prolong(ec) * fluid, b, _POST_SMOOTH)``
-    of the JAX package. CUDA: "mg_up"; CPU: :func:`_up_torch`."""
+    of the JAX package. CUDA: "mg_up" ("mg16_up"); CPU: :func:`_up_torch`."""
     if not kernels.use_kernel(x, ec, b, level.fluid):
         return _up_torch(level, x, ec, b)
     _check_hierarchy((level,))
-    kernels.check(x, torch.float32, level.fluid.shape, "x")
-    kernels.check(b, torch.float32, level.fluid.shape, "b")
-    kernels.check(ec, torch.float32, _coarse_shape(level.fluid.shape), "ec")
+    dtype = level.fluid.dtype
+    kernels.check(x, dtype, level.fluid.shape, "x")
+    kernels.check(b, dtype, level.fluid.shape, "b")
+    kernels.check(ec, dtype, _coarse_shape(level.fluid.shape), "ec")
     return _launch_up(level, x, ec, b)
 
 
 def coarse_cycle(levels: Tuple[MGLevel, ...], b: torch.Tensor, l: int) -> torch.Tensor:
     """``v_cycle(levels, b, l)`` of the JAX package for the small levels:
     the whole sub-cycle from level `l` down, the coarsest level's sweeps
-    included. CUDA: "mg_coarse", one launch of one block, or, for a last
-    level too large for one block, its sweeps as "stencil" launches
-    (:func:`bottom_route`); CPU: :func:`_coarse_torch`."""
+    included. CUDA: "mg_coarse" ("mg16_coarse"), one launch of one block,
+    or, for a last level too large for one block, its sweeps as "stencil"
+    ("stencil16") launches (:func:`bottom_route`); CPU:
+    :func:`_coarse_torch`."""
     if not kernels.use_kernel(b, *(lev.fluid for lev in levels[l:])):
         return _coarse_torch(levels, b, l)
     _check_hierarchy(levels)
-    kernels.check(b, torch.float32, levels[l].fluid.shape, "b")
+    kernels.check(b, levels[l].fluid.dtype, levels[l].fluid.shape, "b")
     return _launch_coarse(levels, b, l)
 
 
@@ -492,23 +531,22 @@ def v_cycle(levels: Tuple[MGLevel, ...], b: torch.Tensor, l: int = 0) -> torch.T
     """One V-cycle from x = 0: the preconditioner M^-1 b up to the operator
     scale (port of ``multigrid.v_cycle``).
 
-    In float32 the cycle is composed of the four stages :func:`pre_smooth`,
+    The cycle, in float32 or in the bfloat16 of "mg16" (the hierarchy's
+    dtype), is composed of the four stages :func:`pre_smooth`,
     :func:`restrict_residual`, :func:`coarse_cycle` and
     :func:`prolong_smooth`: on CUDA tensors these are the fused kernels of
-    ``csrc/vcycle.cu`` and nothing runs between them but the allocation of
-    their outputs (3 launches per large level and 1 for the small levels;
-    a last level above ``_COARSE_CELLS_MAX`` cells takes "stencil" launches
-    instead, :func:`bottom_route`);
-    on CPU tensors, their plain versions. The bfloat16 cycle of "mg16" runs
-    :func:`v_cycle_per_pass`.
+    ``csrc/vcycle.cu`` ("mg_*", "mg16_*") and nothing runs between them but
+    the allocation of their outputs (3 launches per large level and 1 for
+    the small levels; a last level above ``_COARSE_CELLS_MAX`` cells takes
+    "stencil" or "stencil16" launches instead, :func:`bottom_route`); on
+    CPU tensors, their plain versions. A hierarchy the kernels do not take
+    raises; nothing falls back to :func:`v_cycle_per_pass`.
     """
-    if b.dtype == torch.bfloat16:
-        return v_cycle_per_pass(levels, b, l)
     coarse = max(l, first_coarse_level(levels))
     if kernels.use_kernel(b, levels[l].fluid):
         # the hierarchy is checked once; below, the kernels' own outputs
         _check_hierarchy(levels)
-        kernels.check(b, torch.float32, levels[l].fluid.shape, "b")
+        kernels.check(b, levels[l].fluid.dtype, levels[l].fluid.shape, "b")
         pre, down, up, bottom = _launch_pre, _launch_restrict, _launch_up, _launch_coarse
     else:
         pre, down, up, bottom = _pre_torch, _restrict_residual_torch, _up_torch, _coarse_torch

@@ -12,8 +12,8 @@ grid (port of ``libfluid_tpu.sim.pressure``).
   theorem (:func:`solve_pressure_system`): A is symmetric, so the adjoint of
   p = A^-1 b is one more solve, b_bar = A^-1 p_bar, started cold. The warm
   start, the operator and a_scale get no gradient.
-- "mg16" runs the V-cycle on a bfloat16 copy of the level hierarchy (kernel
-  C's bf16 instance, "stencil16"); the outer CG stays in float32.
+- "mg16" runs the V-cycle on a bfloat16 copy of the level hierarchy (the
+  fused cycle's bfloat16 instance, "mg16_*"); the outer CG stays in float32.
 """
 
 from __future__ import annotations
@@ -93,9 +93,10 @@ def _cg(levels, b: torch.Tensor, a_scale, tol, max_iters, precond, x0=None) -> P
     once per iteration to test for exit."""
     lvl0 = levels[0]
     if precond == "mg16":
-        # bfloat16 copy of the hierarchy for the preconditioner sweeps; the
-        # outer CG iteration stays in b's dtype
-        levels16 = tuple(
+        # bfloat16 copy of the hierarchy for the preconditioner sweeps (a
+        # Hierarchy, which the fused kernels' wrappers check once a solve);
+        # the outer CG iteration stays in b's dtype
+        levels16 = multigrid.Hierarchy(
             multigrid.MGLevel(*[f.to(torch.bfloat16) for f in lev[:-1]], lev.scale)
             for lev in levels
         )

@@ -1,4 +1,4 @@
-"""Parity of the port's staged float32 V-cycle with the JAX package.
+"""Parity of the port's staged V-cycle with the JAX package.
 
 The port cuts ``multigrid.v_cycle`` into four stages, each a fused CUDA kernel
 with a plain PyTorch version beside it; on CPU tensors the cycle is composed of
@@ -6,8 +6,10 @@ the plain versions. Here numpy-seeded cell types and right-hand sides go
 through both packages: each plain stage against the JAX lines it covers
 (rtol 1e-6 / atol 1e-5), the composed cycle against JAX's (1e-5 max|b|), the
 stage composition against the per-pass composition, and the MG-PCG solve
-(iterations within 1, pressure within 1e-4 max|p|). The JAX functions take
-their jnp path on the CPU (grids below 2^18 cells)."""
+(iterations within 1, pressure within 1e-4 max|p|). The bfloat16 ("mg16")
+cycle, composed of the same stages, is held to the per-pass cycle bit for
+bit (its solve against JAX's: ``tests/test_torch_flip.py``). The JAX
+functions take their jnp path on the CPU (grids below 2^18 cells)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -194,13 +196,97 @@ def test_vcycle_from_a_lower_level():
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * float(np.max(np.abs(b))))
 
 
-def test_mg16_cycle_takes_the_per_pass_path():
-    """The bfloat16 cycle is the per-pass composition, pass for pass."""
-    _, tlevels = _levels("cube25")
-    l16 = tuple(
+def _bf16(tlevels):
+    """The bfloat16 copy of a hierarchy, as ``pressure._cg``'s mg16 branch
+    makes it."""
+    return t_multigrid.Hierarchy(
         t_multigrid.MGLevel(*(a.to(torch.bfloat16) for a in lv[:6]), lv.scale) for lv in tlevels)
+
+
+# the mg16 cycle's cases: three hierarchies of the float32 tests, and the
+# thin grid of F1 (one level of 36,864 cells, too large for one block)
+MG16_SHAPES = {name: SHAPES[name] for name in ("cube25", "two_fine", "odd")}
+MG16_SHAPES["thin"] = (72, 64, 8)
+
+
+@pytest.mark.parametrize("name", list(MG16_SHAPES))
+def test_mg16_cycle_takes_the_per_pass_path(name, monkeypatch):
+    """The bfloat16 cycle that v_cycle composes from the plain stages (the
+    functions the fused "mg16_*" kernels are held to) is the per-pass
+    cycle, bit for bit: every operation rounds to bfloat16 at the same
+    point, with the same bfloat16 damping weight. On the thin grid the
+    bottom's sweeps route (its "stencil16" passes on the card) is too."""
+    tlevels = t_multigrid.build_levels(torch.from_numpy(_cell_types(MG16_SHAPES[name])))
+    l16 = _bf16(tlevels)
     b = torch.from_numpy(_rhs(np.random.default_rng(9), tlevels[0])).to(torch.bfloat16)
-    assert torch.equal(t_multigrid.v_cycle(l16, b), t_multigrid.v_cycle_per_pass(l16, b))
+    t_kernels.reset_launches()
+    got = t_multigrid.v_cycle(l16, b)
+    assert not any(t_kernels.LAUNCHES.values())
+    assert got.dtype == torch.bfloat16 and float(got.float().abs().max()) > 0
+    assert torch.equal(got, t_multigrid.v_cycle_per_pass(l16, b))
+    if name == "thin":
+        assert len(l16) == 1
+        monkeypatch.setattr(t_multigrid, "_COARSE_CELLS_MAX", 1000)
+        assert t_multigrid.bottom_route([b.numel()], 0) == "sweeps"
+        assert torch.equal(t_multigrid._launch_coarse(l16, b, 0), got)
+
+
+def test_mg16_plain_stages_take_the_bfloat16_damp():
+    """The plain stages smooth with the damping weight rounded to bfloat16
+    (0.80078125), as ``stencil`` (and the JAX package's weakly typed
+    scalar) takes it. On a level whose inverse diagonal is not one of the
+    few values a hierarchy holds, the unrounded 0.8 gives other bits."""
+    assert t_multigrid._weak(t_multigrid._SMOOTH_DAMP, torch.bfloat16) == 0.80078125
+    assert t_multigrid._weak(t_multigrid._SMOOTH_DAMP, torch.float32) == t_multigrid._SMOOTH_DAMP
+    rng = np.random.default_rng(11)
+    lv = t_multigrid.build_levels(torch.from_numpy(_cell_types((12, 10, 9))))[0]
+    inv = torch.from_numpy(rng.uniform(0.1, 1.0, size=lv.fluid.shape).astype(np.float32))
+    b = torch.from_numpy(_rhs(rng, lv)).to(torch.bfloat16)
+    lv = _bf16([lv._replace(inv_diag=inv * lv.fluid)])[0]
+    want = t_multigrid._smooth(lv, torch.zeros_like(b), b, t_multigrid._PRE_SMOOTH)
+    assert torch.equal(t_multigrid._pre_torch(lv, b), want)
+    x = torch.zeros_like(b)
+    for _ in range(t_multigrid._PRE_SMOOTH):
+        x = t_multigrid._stencil_torch(lv, x, b, t_multigrid.MODE_JACOBI, t_multigrid._SMOOTH_DAMP)
+    assert not torch.equal(x * lv.fluid, want)
+
+
+def test_mg16_cycle_on_the_card_launches_its_kernels_or_raises(monkeypatch):
+    """On CUDA tensors a bfloat16 cycle runs the four "mg16_*" kernels (the
+    bfloat16 damping weight their argument), a thin grid's bottom its
+    "stencil16" sweeps, and nothing else; a launch that fails raises and a
+    hierarchy the kernels do not take is refused: no per-pass fallback.
+    Without a card the dispatch is made to see CUDA tensors and the
+    launches are recorded."""
+    launched, failing = [], []
+
+    def launch(kernel, entry, *args):
+        launched.append((kernel, args))
+        if kernel in failing:
+            raise RuntimeError(f"{kernel} kernel ({entry}) failed")
+
+    monkeypatch.setattr(t_kernels, "use_kernel", lambda *tensors: True)
+    monkeypatch.setattr(t_kernels, "launch", launch)
+    # 40 x 36 x 34 down to 5 x 5 x 5
+    tlevels = t_multigrid.build_levels(torch.from_numpy(_cell_types(SHAPES["two_fine"])))
+    l16 = _bf16(tlevels)
+    b = torch.zeros(SHAPES["two_fine"], dtype=torch.bfloat16)
+    t_multigrid.v_cycle(l16, b)
+    assert [k for k, _ in launched] == ["mg16_pre", "mg16_restrict"] * 2 + ["mg16_coarse"] + ["mg16_up"] * 2
+    assert launched[0][1][-2] == 0.80078125
+    launched.clear()
+    thin = _bf16(t_multigrid.build_levels(torch.from_numpy(_cell_types((72, 64, 8)))))
+    t_multigrid.v_cycle(thin, torch.zeros((72, 64, 8), dtype=torch.bfloat16))
+    assert [k for k, _ in launched] == ["stencil16"] * t_multigrid._COARSE_ITERS
+    failing.append("mg16_restrict")
+    with pytest.raises(RuntimeError, match="mg16_restrict"):
+        t_multigrid.v_cycle(l16, b)
+    f16 = t_multigrid.Hierarchy(lv._replace(**{k: getattr(lv, k).half() for k in lv._fields[:6]})
+                                for lv in tlevels)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        t_multigrid.v_cycle(f16, b.half())
+    with pytest.raises(TypeError):
+        t_multigrid.v_cycle((l16[0], *tlevels[1:]), b)
 
 
 @pytest.mark.parametrize("name", ["cube25", "two_fine"])
