@@ -31,7 +31,9 @@ Phases, one line of output each (or a few):
    not fit the card at 128^3; its time and bound also at 128^3; also on a
    grid no tile divides at 5, 12 and 32 slots a cell, APIC and PIC, two
    launches bit-equal) and D' (at 128^3) against the autograd of their
-   plain versions; E' and the two launches of F' against their plain closed
+   plain versions; F's keep form (the forward of a mesh that wants a
+   gradient: the values equal to F's, the node sums against the plain
+   ones); E' and F' (one launch on the kept sums) against their plain closed
    forms at the main path's shapes (128^3 slot grid, 261^3 nodes), against
    the autograd of the plain versions on CPU copies in float64 and float32
    at 32^3 / 66^3 (the kernel's error against float64 no more than 4 x the
@@ -72,7 +74,9 @@ Phases, one line of output each (or a few):
    (forward and backward ms, loss, gradient norm, CG iterations of the
    forward and adjoint solves, peak memory); one such step with position
    correction on (kernel E'); the gradient of a loss on the mesh of the
-   260^3-cell mesher grid with respect to the 2.0M positions (kernel F');
+   260^3-cell mesher grid with respect to the 2.0M positions (kernel F's
+   keep form, then kernel F': one launch each, no second node pass), and
+   the same mesh under no_grad (F alone);
 9. the 128^3 dam-break with FLIP and the bfloat16 V-cycle ("mg16"), 3
    substeps and the stage split of 2 more, through the fused mg16_*
    kernels and no stencil16;
@@ -184,15 +188,16 @@ KERNELS = {
     "g2p_bwd": ("libfluid_tpu_torch/csrc/g2p_bwd.cu", "libfluid_tpu/sim/transfers.py:177,508"),
     "stencil16": ("libfluid_tpu_torch/csrc/stencil.cu", "libfluid_tpu/sim/multigrid.py:127"),
     "correction_bwd": ("libfluid_tpu_torch/csrc/correction_bwd.cu", "libfluid_tpu/sim/kernels.py:284"),
-    "surface_bwd_nodes": ("libfluid_tpu_torch/csrc/surface.cu", "libfluid_tpu/mesher/surface.py:164"),
+    "surface_keep": ("libfluid_tpu_torch/csrc/surface.cu", "libfluid_tpu/mesher/surface.py:164"),
     "surface_bwd": ("libfluid_tpu_torch/csrc/surface_bwd.cu", "libfluid_tpu/mesher/surface.py:164"),
 }
 VCYCLE_KERNELS = ("mg_pre", "mg_restrict", "mg_up", "mg_coarse")
 VCYCLE16_KERNELS = ("mg16_pre", "mg16_restrict", "mg16_up", "mg16_coarse")
 FORWARD_KERNELS = ("expand", "p2g", "stencil", *VCYCLE_KERNELS, "g2p", "correction", "surface")
 GRAD_KERNELS = ("expand", "p2g", "p2g_bwd", "stencil", *VCYCLE_KERNELS, "g2p", "g2p_bwd")
-MESH_GRAD_KERNELS = ("surface", "surface_bwd_nodes", "surface_bwd")
-BACKWARD_KERNELS = ("p2g_bwd", "g2p_bwd", "correction_bwd", "surface_bwd_nodes", "surface_bwd")
+# the mesh gradient's kernels: F in the form that keeps the node sums, then F'
+MESH_GRAD_KERNELS = ("surface_keep", "surface_bwd")
+BACKWARD_KERNELS = ("p2g_bwd", "g2p_bwd", "correction_bwd", *MESH_GRAD_KERNELS)
 # Kernel F' against float64: the largest error of either float32 version sits
 # on a node that one far particle reaches (its words carry 1 / W, W the cube
 # of a kl of a few roundings) and varies severalfold with the order of the
@@ -622,9 +627,9 @@ def surface_wide_support(device) -> None:
     check(bool((want < 0).any()) and bool((want == 1.0).any()),
           "surface, support 16: no node inside the fluid, or none away from it")
     g = torch.randn(tuple(n + 1 for n in grid), generator=gen, device=device)
-    binned = surface._binned(pos, act, mcfg)
-    dp = surface.sample_surface_bwd(binned, g, mcfg)
-    check(torch.equal(dp, surface.sample_surface_bwd(binned, g, mcfg)),
+    binned, sums = kept_sums(pos, act, mcfg)
+    dp = surface.sample_surface_bwd(binned, sums, g, mcfg)
+    check(torch.equal(dp, surface.sample_surface_bwd(binned, sums, g, mcfg)),
           "surface_bwd, support 16: two launches differ")
     check(not bool(dp[~act].any()), "surface_bwd, support 16: an inactive particle got a cotangent")
     check(bool(dp.any()), "surface_bwd, support 16: no particle got a cotangent")
@@ -657,6 +662,16 @@ def device_ms(fn, kernel: str, reps: int = 5) -> str:
             return f"{float(np.median(times)) / 1e3:.4f} ms ({len(times)} launches of {calls} calls)"
         seen.update(e.name[:60] for e in on_device)
     return f"not measured (the profiler reported {sorted(seen)[:6]})"
+
+
+def device_or_event_ms(fn, kernel: str, alone) -> str:
+    """:func:`device_ms` of `fn`; where the profiler reports no launch of
+    `kernel`, also the CUDA-event median around `alone`, a call that
+    launches that kernel and nothing else (its outputs allocated once)."""
+    text = device_ms(fn, kernel)
+    if text.startswith("not measured"):
+        text += f"; the CUDA-event median around the kernel alone {median_ms(alone):.4f} ms"
+    return text
 
 
 def kernel_phases(cfg, state):
@@ -856,9 +871,16 @@ def held_to_float64(what: str, got: torch.Tensor, plain32: torch.Tensor, ref64: 
             f"{err_p:.3e} (kernel <= 4 x plain or {floor:.0e} max|ref|), cosine {cos:.8f} (>= 0.9999)")
 
 
+def kept_sums(pos: torch.Tensor, act: torch.Tensor, mcfg: MesherConfig):
+    """What a forward that wants a gradient keeps for kernel F': the bins and
+    the node sums of kernel F's keep form (``surface_keep``)."""
+    binned = surface._binned(pos, act, mcfg)
+    return binned, surface._sample_surface_keep_cuda(binned, mcfg, mcfg.particle_radius)[1]
+
+
 def held_on_sound_nodes(what: str, pos: torch.Tensor, act: torch.Tensor, g: torch.Tensor,
                         mcfg: MesherConfig, float64: bool) -> str:
-    """Kernel F' (both launches) at its maximum over every particle. F' is
+    """Kernel F' (on the kept node sums) at its maximum over every particle. F' is
     linear in the node cotangent `g`; a node's words carry 1 / W and the
     direction of avg - x_n, so a node of little weight, or one whose average
     sits on it, turns the roundings of any float32 version into errors far
@@ -874,7 +896,7 @@ def held_on_sound_nodes(what: str, pos: torch.Tensor, act: torch.Tensor, g: torc
     del sums, diff
     g_ref = g.to(ref_pos) * sound
     want = surface._sample_surface_vjp_torch(ref_pos, ref_act, g_ref, mcfg)
-    got = surface.sample_surface_bwd(surface._binned(pos, act, mcfg), g_ref.to(g), mcfg)
+    got = surface.sample_surface_bwd(*kept_sums(pos, act, mcfg), g_ref.to(g), mcfg)
     rel = float((got.to(want) - want).abs().max() / want.abs().max())
     against = "the closed form in float64 on CPU copies" if float64 else "the plain closed form"
     check(rel < 1e-4, f"surface_bwd, {what}, the cotangent of the sound nodes only: relative error {rel} >= 1e-4 "
@@ -965,20 +987,33 @@ def correction_bwd_phases(cfg, state, gen) -> dict:
     n_occ = int(occ.sum())
     per_cell = occ.sum(0, dtype=torch.float32)
     around = 27.0 * torch.nn.functional.avg_pool3d(per_cell[None, None], 3, 1, 1)[0, 0]
-    pairs = float((per_cell * (around - 1.0)).sum())  # the pairs inside the grid, ~45 operations each
+    pairs = float((per_cell * (around - 1.0)).sum())  # the ordered pairs inside the grid
+    # bytes: the masks read, d x and d m written, the positions and g of the
+    # occupied slots read (an empty slot's outputs are 0 whatever g is there).
+    # operations: the distance test every pair needs (3 differences, 3
+    # products, 2 sums); the terms of the pairs closer than re, the only ones
+    # that are not exact zeros, are left out, so the bound is never above the
+    # work (tools/kernel_ab.py counts those pairs: their float work is far
+    # below the bytes term)
+    moved = nbytes(dp, dm, res_mask) + 24 * n_occ
+
+    def springs_bwd():
+        return kernels.correction_springs_bwd(res_pos, res_mask, g, re2, seed)
+
     rec = dict(
-        **bound(nbytes(g, dp, dm, res_mask) + 12 * n_occ, 45.0 * pairs),
+        **bound(moved, 8.0 * pairs),
         max_abs_err=err,
-        ms=median_ms(lambda: kernels.correction_springs_bwd(res_pos, res_mask, g, re2, seed)),
+        ms=median_ms(springs_bwd),
         plain_ms=median_ms(lambda: correction._springs_vjp_torch(res_pos, res_mask, g, re2, seed, cfg),
                            PLAIN_REPS_SLOW),
     )
     log(f"kernel correction_bwd (E'): cotangents of {n_occ} resident slots at {tuple(res_pos.shape)}, "
-        f"{pairs:.4e} pairs, relative error against the plain closed form positions {rel_p:.3e} mask "
+        f"{pairs:.4e} ordered pairs in the 27 cells, relative error against the plain closed form positions {rel_p:.3e} mask "
         f"{rel_m:.3e} (< 1e-4), cosine {cos:.8f}, empty slots 0, two launches bit-equal, plain timed "
         f"over {PLAIN_REPS_SLOW} reps, {rec}; device time "
-        + device_ms(lambda: kernels.correction_springs_bwd(res_pos, res_mask, g, re2, seed),
-                    "correction_bwd_kernel") + " (torch.profiler)")
+        + device_or_event_ms(springs_bwd, "correction_bwd_kernel", lambda: kernels.launch(
+            "correction_bwd", "lf_correction_bwd", res_pos, res_mask, g, dp, dm, kc, *res_mask.shape[1:],
+            float(re2), seed, 0, 0, 0)) + " (torch.profiler)")
     del res_pos, res_mask, g, dp, dm, occ
     torch.cuda.empty_cache()
 
@@ -1048,100 +1083,118 @@ def correction_bwd_phases(cfg, state, gen) -> dict:
 
 
 def surface_bwd_phases(state, gen) -> dict:
-    """Kernel F', its node part (``surface_bwd_nodes``) and its particle part
-    (``surface_bwd``): each against its plain version on the card at the
-    261^3-node grid, timed with its bound; the two together against the
-    autograd of the scatter oracle on CPU copies in float64 and float32 at
-    the 66^3 grid of the 32^3 scene; with a support of 1, 2 and 4 cells on a
-    grid no tile divides with a crammed bin, two launches bit-equal."""
+    """Kernel F's keep form (``surface_keep``, the forward of a mesh that
+    wants a gradient) and kernel F' (``surface_bwd``, one launch on the kept
+    node sums) at the 261^3-node grid: the keep form's values equal to the
+    plain form's and its sums against the plain node sums on the card; F'
+    against the plain gather of the same node words and against the plain
+    closed form, each timed with its bound; F' against the autograd of the
+    scatter oracle on CPU copies in float64 and float32 at the 66^3 grid of
+    the 32^3 scene; with a support of 1, 2 and 4 cells on a grid no tile
+    divides with a crammed bin, two launches bit-equal."""
     device = state.position.device
     pos, act = state.position.contiguous(), state.active
     n_act = int(act.sum())
     nodes = tuple(n + 1 for n in MESH_128.grid_size)
+    radius = MESH_128.particle_radius
     g = torch.randn(nodes, generator=gen, device=device)
     binned = surface._binned(pos, act, MESH_128)
-    ab = surface.surface_bwd_nodes(binned, g, MESH_128)
-    want_ab = surface._node_cotangents_torch(pos, act, g, MESH_128)
-    # A node's words carry 1 / W. Where one far particle reaches a node, W is
-    # the cube of a kl of a few roundings (the kernel multiplies by 1 / ext^2,
-    # the plain version divides), so there the two versions' words differ by
-    # tens of per cent, and the particle part multiplies them by that kl
-    # again. The words are held where W > 1e-3, the pattern of zeros
-    # everywhere, and both launches together against the plain versions below.
-    weight = surface._node_sums(pos, act, MESH_128)[0]
-    well = weight > THIN_W
-    n_has = int((weight > 0).sum())
-    del weight
-    rel_ab = max_err(ab[well], want_ab[well]) / float(want_ab[well].abs().max())
-    check(rel_ab < 1e-3, f"surface_bwd_nodes: relative error {rel_ab} >= 1e-3 where W > 1e-3")
-    check(torch.equal(ab[..., :3].abs().sum(-1) == 0, want_ab[..., :3].abs().sum(-1) == 0),
-          "surface_bwd_nodes: other nodes are zero than in the plain version")
+    values, sums = surface._sample_surface_keep_cuda(binned, MESH_128, radius)
+    check(torch.equal(values, surface._sample_surface_cuda(binned, MESH_128, radius)),
+          "surface_keep: its values differ from the plain form's")
+    want_values, want_sums = surface._sample_surface_keep_torch(pos, act, MESH_128)
+    # W and X are float32 sums of up to ~270 terms in two orders (a node's
+    # particles in bin order here, the plain scatter's order there): each is
+    # held to 1e-5 of its largest value; the values to F's 2e-3
+    rel_w = max_err(sums[..., 0], want_sums[..., 0]) / float(want_sums[..., 0].abs().max())
+    rel_x = max_err(sums[..., 1:], want_sums[..., 1:]) / float(want_sums[..., 1:].abs().max())
+    err_values = max_err(values, want_values)
+    check(rel_w < 1e-5 and rel_x < 1e-5,
+          f"surface_keep: node sums W {rel_w}, X {rel_x} of their largest value >= 1e-5")
+    check(err_values < 2e-3, f"surface_keep: values max abs error {err_values} >= 2e-3")
+    check(torch.equal(sums[..., 0] == 0, want_sums[..., 0] == 0) and not bool(sums[sums[..., 0] == 0].any()),
+          "surface_keep: other nodes are empty than in the plain version, or an empty node's sums are not 0")
+    del want_values
     reach = 4.0 / 3.0 * np.pi * (MESH_128.particle_extent / MESH_128.cell_size) ** 3
-    # kernel F's pair loop (~21 operations a pair), then ~23 a node with W > 0
-    out = {"surface_bwd_nodes": dict(
-        **bound(nbytes(g, ab) + 12 * n_act, 21.0 * reach * n_act + 23.0 * n_has),
-        max_abs_err=max_err(ab[well], want_ab[well]),
-        ms=median_ms(lambda: surface.surface_bwd_nodes(binned, g, MESH_128)),
-        plain_ms=median_ms(lambda: surface._node_cotangents_torch(pos, act, g, MESH_128), PLAIN_REPS_SLOW),
+    weight = sums[..., 0]
+    n_has = int((weight > 0).sum())
+    out = {"surface_keep": dict(
+        # kernel F's bound with the sums written
+        **bound(nbytes(values, sums) + 12 * n_act, 21.0 * reach * n_act),
+        max_abs_err=max(err_values, max_err(sums, want_sums)),
+        ms=median_ms(lambda: surface._sample_surface_keep_cuda(binned, MESH_128, radius)),
+        plain_ms=median_ms(lambda: surface._sample_surface_keep_torch(pos, act, MESH_128), PLAIN_REPS_SLOW),
     )}
+    del want_sums
+    pos_s, starts, _ = binned
+    geometry = surface._geometry(MESH_128)
+    keep_out, keep_sums = torch.empty_like(values), torch.empty_like(sums)
+    plain_node = device_or_event_ms(
+        lambda: surface._sample_surface_cuda(binned, MESH_128, radius), "surface_kernel<false",
+        lambda: kernels.launch("surface", "lf_surface", pos_s, starts, keep_out, *geometry, radius))
+    keep_node = device_or_event_ms(
+        lambda: surface._sample_surface_keep_cuda(binned, MESH_128, radius), "surface_kernel<true",
+        lambda: kernels.launch("surface_keep", "lf_surface_keep", pos_s, starts, keep_out, keep_sums,
+                               *geometry, radius))
+    log(f"kernel surface_keep (F with the node sums kept): {nodes} nodes from {n_act} particles, values equal to "
+        f"the plain form's, node sums W {rel_w:.3e} and X {rel_x:.3e} of their largest value from the plain "
+        f"node sums (< 1e-5), values {err_values:.3e} (< 2e-3), the same nodes empty, plain timed over "
+        f"{PLAIN_REPS_SLOW} reps, ms on the bins, {out['surface_keep']}; device time {keep_node}, the plain "
+        f"form's {plain_node} (torch.profiler)")
+    del keep_out, keep_sums
+
+    # F' against the plain gather of the same node words (the kept sums),
+    # those of the nodes with W > 1e-3 (the others' cotangent 0): a node's
+    # words carry 1 / W, and where one far particle reaches a node W is the
+    # cube of a kl of a few roundings, which the two versions' words amplify
+    # differently
+    well = weight > THIN_W
     n_well = int(well.sum())
-
-    def back(d_sorted):
-        res = torch.empty_like(d_sorted)
-        res[binned[2]] = d_sorted
-        return res
-
-    # the particle part against the plain gather of the same words, those of
-    # the nodes with W > 1e-3 (the others as zeros, for the reason above)
-    ab_well = (ab * well[..., None]).contiguous()
-    del well
-    got = back(surface.surface_bwd_gather(binned, ab_well, MESH_128))
-    want = surface._gather_cotangents_torch(pos, act, ab_well, MESH_128)
+    g_well = (g * well).contiguous()
+    got = surface.sample_surface_bwd(binned, sums, g_well, MESH_128)
+    want = surface._gather_cotangents_torch(pos, act, surface._node_words_torch(sums, g_well, MESH_128), MESH_128)
     rel = max_err(got, want) / float(want.abs().max())
-    check(rel < 1e-4, f"surface_bwd: relative error {rel} >= 1e-4")
+    check(rel < 1e-4, f"surface_bwd: relative error {rel} >= 1e-4 against the plain gather")
     err_gather = max_err(got, want)
-    del ab_well, want
-    # both launches against both plain parts, every node: the bulk is held to
-    # 1e-4 of the largest component; the maximum is held on the sound nodes
-    got = back(surface.surface_bwd_gather(binned, ab, MESH_128))
+    del g_well, want, well
+    # every node, against the plain closed form: the bulk is held to 1e-4 of
+    # the largest component; the maximum is held on the sound nodes
+    got = surface.sample_surface_bwd(binned, sums, g, MESH_128)
     check(not bool(got[~act].any()), "surface_bwd: an inactive particle got a cotangent")
-    check(torch.equal(got, back(surface.surface_bwd_gather(binned, ab, MESH_128))),
-          "surface_bwd: two launches differ")
+    check(torch.equal(got, surface.sample_surface_bwd(binned, sums, g, MESH_128)), "surface_bwd: two launches differ")
     live = int((got != 0).any(dim=1).sum())
-    whole_want = surface._gather_cotangents_torch(pos, act, want_ab, MESH_128)
+    whole_want = surface._sample_surface_vjp_torch(pos, act, g, MESH_128)
     diff = (got - whole_want).abs().amax(dim=1) / float(whole_want.abs().max())
     rel_whole = float(diff.max())
     q_whole = float(torch.quantile(diff[torch.randint(0, diff.shape[0], (1 << 20,), generator=gen,
                                                      device=device)], 0.999))
     cos_whole = cosine(got, whole_want)
     check(q_whole < 1e-4 and cos_whole >= 0.9999,
-          f"surface_bwd, both launches: 99.9th percentile of the relative error {q_whole} >= 1e-4 or "
+          f"surface_bwd against the closed form: 99.9th percentile of the relative error {q_whole} >= 1e-4 or "
           f"cosine {cos_whole} < 0.9999")
-    del want_ab, whole_want, diff
+    del whole_want, diff
     sound_whole = held_on_sound_nodes("261^3 nodes", pos, act, g, MESH_128, False)
-    # ~29 operations a particle and node within its extent
+    # ~29 operations a particle and node within its extent, ~20 to form the
+    # words of a node with W > 0
     out["surface_bwd"] = dict(
-        **bound(nbytes(ab) + 24 * n_act, 29.0 * reach * n_act),
+        **bound(nbytes(sums, g) + 24 * n_act, 29.0 * reach * n_act + 20.0 * n_has),
         max_abs_err=err_gather,
-        ms=median_ms(lambda: surface.surface_bwd_gather(binned, ab, MESH_128)),
-        plain_ms=median_ms(lambda: surface._gather_cotangents_torch(pos, act, ab, MESH_128), PLAIN_REPS_SLOW),
+        ms=median_ms(lambda: surface.surface_bwd_gather(binned, sums, g, MESH_128)),
+        plain_ms=median_ms(lambda: surface._gather_cotangents_torch(
+            pos, act, surface._node_words_torch(sums, g, MESH_128), MESH_128), PLAIN_REPS_SLOW),
     )
-    whole = median_ms(lambda: surface.sample_surface_bwd(binned, g, MESH_128))
-    log(f"kernel surface_bwd_nodes (F', node part): {nodes} nodes from {n_act} particles, relative error "
-        f"{rel_ab:.3e} (< 1e-3) on the {n_well} nodes with W > 1e-3, the same nodes zero, plain timed over "
-        f"{PLAIN_REPS_SLOW} reps, {out['surface_bwd_nodes']}; device time "
-        f"{device_ms(lambda: surface.surface_bwd_nodes(binned, g, MESH_128), 'surface_kernel')} (torch.profiler)")
-    log(f"kernel surface_bwd (F', particle part): relative error {rel:.3e} (< 1e-4) against the plain gather "
-        f"of the same node words (those with W > 1e-3), both launches against both plain parts on every "
-        f"node: 99.9th percentile {q_whole:.3e} (< 1e-4), maximum {rel_whole:.3e}, cosine "
-        f"{cos_whole:.8f} (>= 0.9999), "
-        f"{sound_whole}; "
-        f"{live} particles with a cotangent, inactive 0, two launches bit-equal, "
-        f"ms includes the zero fill of the result, {out['surface_bwd']}; both launches and the write "
-        f"through the sort's order {whole:.3f} ms; device time of the particle part "
-        f"{device_ms(lambda: surface.surface_bwd_gather(binned, ab, MESH_128), 'surface_bwd_kernel')} "
-        f"(torch.profiler)")
-    del binned, ab, got, g
+    whole = median_ms(lambda: surface.sample_surface_bwd(binned, sums, g, MESH_128))
+    d_alone = torch.zeros_like(pos_s)
+    bwd_device = device_or_event_ms(
+        lambda: surface.surface_bwd_gather(binned, sums, g, MESH_128), "surface_bwd_kernel",
+        lambda: kernels.launch("surface_bwd", "lf_surface_bwd", pos_s, starts, sums, g, d_alone, *geometry))
+    log(f"kernel surface_bwd (F', one launch on the kept node sums): relative error {rel:.3e} (< 1e-4) against "
+        f"the plain gather of the same node words (the {n_well} nodes with W > 1e-3), against the plain closed "
+        f"form on every node: 99.9th percentile {q_whole:.3e} (< 1e-4), maximum {rel_whole:.3e}, cosine "
+        f"{cos_whole:.8f} (>= 0.9999), {sound_whole}; {live} particles with a cotangent, inactive 0, two "
+        f"launches bit-equal, ms includes the zero fill of the result, {out['surface_bwd']}; with the write "
+        f"through the sort's order {whole:.3f} ms; device time {bwd_device} (torch.profiler)")
+    del binned, sums, values, got, g, d_alone
     torch.cuda.empty_cache()
 
     # the 32^3 scene on the 66^3 grid: the scatter oracle's autograd on CPU
@@ -1150,7 +1203,7 @@ def surface_bwd_phases(state, gen) -> dict:
     st32, _ = sim.substep(st32, cfg32, DT)
     pos, act = st32.position.contiguous(), st32.active
     g = torch.randn(tuple(n + 1 for n in MESH_66.grid_size), generator=gen, device=device)
-    got = surface.sample_surface_bwd(surface._binned(pos, act, MESH_66), g, MESH_66)
+    got = surface.sample_surface_bwd(*kept_sums(pos, act, MESH_66), g, MESH_66)
     refs = {}
     for dtype in (torch.float64, torch.float32):
         leaf = pos.cpu().to(dtype).requires_grad_()
@@ -1177,9 +1230,9 @@ def surface_bwd_phases(state, gen) -> dict:
         mcfg = MesherConfig(grid_size=grid, cell_size=h, grid_offset=origin, particle_extent=extent,
                             particle_radius=extent / 4.0)
         g = torch.randn(tuple(n + 1 for n in grid), generator=gen, device=device)
-        binned = surface._binned(pos, act, mcfg)
-        got = surface.sample_surface_bwd(binned, g, mcfg)
-        check(torch.equal(got, surface.sample_surface_bwd(binned, g, mcfg)),
+        binned, sums = kept_sums(pos, act, mcfg)
+        got = surface.sample_surface_bwd(binned, sums, g, mcfg)
+        check(torch.equal(got, surface.sample_surface_bwd(binned, sums, g, mcfg)),
               f"surface_bwd with extent {extent}: two launches differ")
         check(not bool(got[~act].any()), f"surface_bwd with extent {extent}: an inactive particle moved")
         ref = surface._sample_surface_vjp_torch(pos.cpu().double(), act.cpu(), g.cpu().double(), mcfg)
@@ -1635,24 +1688,30 @@ def grad_run_correction(device) -> None:
 def mesh_grad_run(device) -> None:
     """The gradient of a loss on the mesh of the 260^3-cell mesher grid with
     respect to the 2.0M positions of the 128^3 dam-break after one substep
-    (kernels F and F'): finite, and non-zero on the particles near the
-    surface only."""
+    (kernel F in the form that keeps the node sums, then kernel F'): finite,
+    and non-zero on the particles near the surface only; the forward
+    launches ``surface_keep`` once and no ``surface``, the backward
+    ``surface_bwd`` once and no node pass. Then the same mesh under
+    ``no_grad``: ``surface`` alone, nothing kept (its peak memory beside)."""
     cfg, state = dam_break(128, device, 1 << 21)
     state, _ = sim.substep(state, cfg, DT)
     act = state.active
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     pos = state.position.detach().clone().requires_grad_()
+    before = dict(kernels.LAUNCHES)
     t0 = time.perf_counter()
     mesh = generate_mesh(pos, act, MESH_128)
     loss = mesh_loss(mesh)
     torch.cuda.synchronize()
     fwd = time.perf_counter() - t0
+    forward = {k: kernels.LAUNCHES[k] - before[k] for k in ("surface", *MESH_GRAD_KERNELS)}
     t0 = time.perf_counter()
     (g,) = torch.autograd.grad(loss, pos)
     torch.cuda.synchronize()
     bwd = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
+    both = {k: kernels.LAUNCHES[k] - before[k] for k in ("surface", *MESH_GRAD_KERNELS)}
     count = int(mesh.count)
     live = int((g != 0).any(dim=1).sum())
     gnorm = float(torch.linalg.vector_norm(g))
@@ -1660,10 +1719,29 @@ def mesh_grad_run(device) -> None:
         f"{fwd * 1e3:.1f} ms, backward {bwd * 1e3:.1f} ms, loss {float(loss.detach()):.6e}, |grad| "
         f"{gnorm:.6e}, {live} of {int(act.sum())} particles with a gradient, peak memory "
         f"{peak / 2**30:.2f} GiB ({peak} B)")
+    log(f"launches of the mesh gradient: forward {forward}, forward and backward {both} (no second node pass)")
     check(0 < count < MESH_128.max_triangles, f"mesh gradient: {count} triangles")
     check(bool(torch.isfinite(g).all()) and gnorm > 0, "mesh gradient: zero or non-finite")
     check(0 < live < int(act.sum()), f"mesh gradient: {live} particles with a gradient")
     check(not bool(g[~act].any()), "mesh gradient: an inactive particle has a gradient")
+    check(forward == {"surface": 0, "surface_keep": 1, "surface_bwd": 0}
+          and both == {"surface": 0, "surface_keep": 1, "surface_bwd": 1},
+          f"mesh gradient: launches {forward} in the forward, {both} in all")
+    del mesh, loss, g
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        mesh = generate_mesh(pos, act, MESH_128)
+    torch.cuda.synchronize()
+    plain = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launched = {k: kernels.LAUNCHES[k] - before[k] for k in ("surface", *MESH_GRAD_KERNELS)}
+    log(f"the same mesh under no_grad: {int(mesh.count)} triangles in {plain * 1e3:.1f} ms, launches {launched}, "
+        f"peak memory {peak / 2**30:.2f} GiB ({peak} B)")
+    check(launched == {"surface": 1, "surface_keep": 0, "surface_bwd": 0},
+          f"the mesh under no_grad launched {launched}")
 
 
 def flip_run(device) -> None:
@@ -2303,7 +2381,7 @@ def pixel_grad_parity(device) -> None:
             (grads[dev.type],) = torch.autograd.grad(loss, vel)
             losses[dev.type] = float(loss.detach())
         launches = dict(kernels.LAUNCHES)
-        need = ("p2g_bwd", "g2p_bwd", "surface_bwd_nodes", "surface_bwd") + (("correction_bwd",) if correct else ())
+        need = ("p2g_bwd", "g2p_bwd", *MESH_GRAD_KERNELS) + (("correction_bwd",) if correct else ())
         for k in need:
             check(launches[k] > 0, f"pixel gradient parity: kernel {k} was not launched")
         g_dev, g_cpu = grads[device.type].cpu().double().flatten(), grads["cpu"].double().flatten()
@@ -2311,7 +2389,7 @@ def pixel_grad_parity(device) -> None:
         what = "correction on" if correct else "correction off"
         log(f"pixel gradient parity 16^3 ({what}), 2 substeps, 16x16 x 2 spp, textured water: loss card "
             f"{losses['cuda']:.6f} / cpu {losses['cpu']:.6f}, max|g| card {float(g_dev.abs().max()):.4e} / cpu "
-            f"{float(g_cpu.abs().max()):.4e}, cosine {cos:.6f} (>= 0.99); backward launches "
+            f"{float(g_cpu.abs().max()):.4e}, cosine {cos:.6f} (>= 0.99); gradient kernels' launches "
             + ", ".join(f"{k} {launches[k]}" for k in need))
         check(float(g_cpu.abs().max()) > 0 and bool(torch.isfinite(g_dev).all()), f"parity {what}: gradient zero")
         check(cos >= 0.99, f"pixel gradient parity ({what}): cosine {cos} < 0.99")
@@ -2330,7 +2408,7 @@ def pixel_grad_full_width(device) -> None:
     no path weight depends on where a lambertian surface of constant albedo
     is hit), then with the water's albedo a ramp over the hit's uv: forward
     and backward ms, peak memory, |g|, the backward kernels' launches
-    (p2g_bwd, g2p_bwd, correction_bwd, surface_bwd_nodes, surface_bwd: each
+    (p2g_bwd, g2p_bwd, correction_bwd, surface_keep, surface_bwd: each
     at least once); g finite and nonzero, and a step of
     max|dv| = 0.01 along -g lowers the loss, beside its first-order
     prediction, the loss recomputed at the same velocities (the float
@@ -2369,7 +2447,7 @@ def pixel_grad_full_width(device) -> None:
                 f"the second) -> {int(mesh.count)} triangles -> 256^2 x 1 spp, 3 bounces, no accelerator: loss "
                 f"{float(loss.detach()):.6f}, "
                 f"forward {1e3 * (t1 - t0):.1f} ms, backward {1e3 * (t2 - t1):.1f} ms, peak memory "
-                f"{peak / 2**30:.2f} GiB ({peak} B), |g| {gnorm:.6e}, max|g| {gmax:.6e}; backward launches "
+                f"{peak / 2**30:.2f} GiB ({peak} B), |g| {gnorm:.6e}, max|g| {gmax:.6e}; gradient kernels' launches "
                 + ", ".join(f"{k} {n}" for k, n in launches.items()))
         if not textured:
             log(text)
@@ -2751,6 +2829,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     mesh128, launches = drive("main path (128^3, correction on, mesh)",
                               lambda: dam_break_run(device, True, 5, cg_parts), FORWARD_KERNELS)
+    check(launches["surface_keep"] == 0, "the main path's mesh (no gradient) kept the node sums")
     torch.cuda.empty_cache()
     drive("128^3 correction-off path", lambda: dam_break_run(device, False, 2),
           ("expand", "p2g", "stencil", *VCYCLE_KERNELS, "g2p"))
@@ -2785,14 +2864,14 @@ def main() -> None:
     # tiled path, 4 substeps, for the kernels it launches: A, B, C and the
     # fused cycle, D, E; the main path for F, the gradient path for B' and
     # D', the correction-on gradient path for E', the mesh gradient path for
-    # F', the FLIP + mg16 path for the fused bfloat16 cycle, the thin-grid
-    # mg16 path for the bfloat16 stencil)
+    # F's keep form and F', the FLIP + mg16 path for the fused bfloat16
+    # cycle, the thin-grid mg16 path for the bfloat16 stencil)
     launches.update({k: v for k, v in c5_launches.items() if v > 0})
     launches.update({k: flip_launches[k] for k in VCYCLE16_KERNELS})
     launches.update(p2g_bwd=grad_launches["p2g_bwd"], g2p_bwd=grad_launches["g2p_bwd"],
                     stencil16=thin16_launches["stencil16"],
                     correction_bwd=corr_launches["correction_bwd"],
-                    surface_bwd_nodes=mesh_launches["surface_bwd_nodes"],
+                    surface_keep=mesh_launches["surface_keep"],
                     surface_bwd=mesh_launches["surface_bwd"])
     record = {"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0], replaces=KERNELS[name][1],

@@ -66,8 +66,8 @@ SIGNATURES = {
     "lf_correction": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P],
     "lf_correction_bwd": [_P] * 5 + [_I, _I, _I, _I, _F, _I, _I, _I, _I, _P],
     "lf_surface": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P],
-    "lf_surface_bwd_nodes": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P],
-    "lf_surface_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P],
+    "lf_surface_keep": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P],
+    "lf_surface_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P],
 }
 
 _lib = None

@@ -24,37 +24,59 @@
 // grid's expand hands back the valid slots only, so it is dropped with the
 // slot). d m is skipped when its pointer is null.
 //
-// Bound: g read, d x and d m written over all 3 * KC * cells and KC * cells
-// slots (0.7 GB at 128^3, KC = 12: 0.21 ms), the mask and the occupied
-// positions read; the ~230 pairs of an occupied slot are ~45 float32
-// operations each, a little more than that at this card's peak.
+// Bound: the ~230 ordered pairs of an occupied slot's 27 cells are ~45
+// float32 operations each (4.16e8 pairs at the 128^3 main path: 0.28 ms at
+// this card's peak), but only the pairs closer than re have a term that is
+// not an exact 0, a few per cent of them. The bytes bound it: the masks
+// read and d x, d m written over all KC * cells slots, the positions and g
+// of the occupied slots read (g at an empty slot is never needed; 0.55 GB
+// at the main path's KC = 12 and 2.0M particles: 0.165 ms).
 //
-// Design: kernel E's tile (csrc/correction.cu): one block per tile of cells,
-// the occupied slots of the tile and its one-cell halo compacted per cell in
-// shared memory, a thread a slot of the tile's list, the pairs in E's order
-// (neighbour cells dx, dy, dz ascending, then slots ascending), both steps
-// in one place each (stage_word, pair_sums). Up to BIG_TILE_MAX_KC the
-// tile's and the halo's slots are staged once (correction_bwd_kernel);
-// above that a second kernel (correction_bwd_words_kernel) takes, as E does,
-// the tile's own slots and the neighbours' a word of 32 at a time, a slot
-// writing its cotangents after the first word of neighbours and adding the
-// others'. (One kernel for both cost the main path's KC = 12 7-10 % of its
-// time: 56 -> 64 registers and a second pass over the tile's masks, in two
-// runs of tools/kernel_ab.py on an NVIDIA H100 80GB HBM3 at 700 W.)
-// A slot is two 16-byte words in two planes, (x, y, z, m) and
-// (g_x, g_y, g_z, jitter . g):
-// the jitter of a neighbour, which needs its cell and slot number, is
-// hashed once where the slot is loaded, not per coincident pair. A tile
-// with no particle writes its zeros and returns.
-// Twice E's shared memory a slot: the 4 x 4 x 8 tile with 512 threads holds
-// up to BIG_TILE_MAX_KC = 18 slots a cell (360 cells x 19 x 32 B = 214 KB; at
-// the main path's KC = 12, 146 KB, one block an SM), the words kernel's 4 x 4
-// x 4 tile with 256 threads a word of 32 (216 cells x 33 x 32 B = 223 KB; at
-// KC = 12 that tile took 1.94 ms on the device for the larger tile's 1.78).
-// 1 / sqrt(s) is rsqrtf (2 ulp), as in E: with 1 / sqrtf the kernel took 2.44
-// ms for 1.78 at the 128^3 shapes and its results moved by 9.5e-6 of values
-// up to 1e2, under the error either has against float64 (one run of
-// tools/kernel_variants.py --backward on an NVIDIA H100 80GB HBM3 at 700 W).
+// Design: a warp a target cell, its slots (the i's) against the slots of
+// its 27 neighbour cells (the j's) spread over the lanes.
+//   1. One block per TILES = 4 tiles of 2 x 4 x 8 cells along z, 8 warps. A
+//      thread a (slot, cell) of the four reads the masks and writes the
+//      zeros of the empty slots (rows of 32 cells along z); a tile with no
+//      particle (most of a dam-break's domain) is done then. Four tiles a
+//      block pay that phase's latency once for the four (one and eight
+//      tiles a block: tools/kernel_variants.py --backward).
+//   2. The occupied slots of the tile and its one-cell halo are staged in
+//      shared memory, compacted in cell order (z fastest) and slot order,
+//      as two 16-byte words (x, y, z, m) and (g, jitter . g): a thread a
+//      halo cell reads its occupancy bits, a scan over the 240 cells' counts
+//      (a warp's, then the warps') gives their places, then a thread a
+//      (slot, cell) puts the slot in its place. The jitter of a slot, which
+//      needs its cell and slot number, is hashed once here, not per
+//      coincident pair. Only the occupied slots take room: 92 KB at KC = 12
+//      full, so two blocks share an SM.
+//   3. A warp takes the tile's cells in turn. The 27 neighbour cells are 9
+//      runs of three cells along z, each one contiguous range of the staged
+//      list (~200 j's at the main path's fill). A j farther than re from
+//      the box of the cell's i's (with a margin for the roundings of both
+//      distances) is farther than re from every i: each of its pairs adds
+//      an exact 0, and it is left out. The others (~a quarter) are
+//      compacted in order (dx, dy ascending, then z and slot: E's order)
+//      into the warp's list, a run's j's a lane each and a ballot. Lane l
+//      takes the kept j's l, l + 32, ...; for each it loops over the cell's
+//      i's, read as shared-memory broadcasts, IG at a time so that their
+//      pairs overlap, and accumulates (d x, d m) per i in registers, NI
+//      buckets (a template: 4, 8, 12, 16). The self-pair is skipped by its
+//      place in the list (it adds exact zeros to d x; only its
+//      coincident-pair term is left out).
+//   4. A transposed tree over the lanes sums each i's four values (the same
+//      pairs of lanes as a butterfly xor 16, 8, 4, 2, 1, so the same bits, at
+//      a quarter of the shuffles), and each lane writes the value it ends
+//      with. Same bits from run to run; the order differs from kernel E's (a
+//      lane's j's, then the tree).
+// Slots are staged a word of WORD = 16 at a time (the i's of a cell are
+// then at most 16, the largest register bucket): above 16 slots a cell the
+// block stages the neighbours' slots a word at a time, takes each cell's
+// own slots a word at a time (read into a small per-warp buffer where that
+// word is not the staged one), and a slot writes its cotangents after the
+// first word of neighbours and adds the others'. Any KC >= 1.
+// 1 / sqrt(s) is the rsqrt instruction without rsqrtf's fix-up for
+// denormal inputs (s >= 1e-12 wherever it is used), the same bits as
+// rsqrtf there.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,377 +85,363 @@
 
 namespace {
 
-constexpr int MASK_BITS = 32;  // slots an occupancy mask
-constexpr int BIG_TILE_MAX_KC = 18;  // the most slots a cell the 4 x 4 x 8 tile holds
+constexpr int TX = 2, TY = 4, TZ = 8;  // cells a tile
+constexpr int TILES = 4;  // tiles a block, along z
+constexpr int HY = TY + 2, HZ = TZ + 2;
+constexpr int CELLS = TX * TY * TZ;
+constexpr int HALO = (TX + 2) * HY * HZ;  // the tile with its one-cell halo
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int WORD = 16;  // slots a cell staged at a time
+constexpr int IG = 2;  // a cell's i's taken together (their pairs overlap)
+constexpr float BIG = 3.0e38f;
+static_assert(CELLS % WARPS == 0, "cells a warp");
+static_assert(HALO <= THREADS, "a thread a halo cell");
 
-// 32-byte slots between two cells' lists in shared memory (a word of slots
-// at most): odd
-__host__ __device__ constexpr int cell_stride(int KC) { return (KC < MASK_BITS ? KC : MASK_BITS) | 1; }
+__host__ __device__ constexpr int word_slots(int KC) { return KC < WORD ? KC : WORD; }
 
-// A block's tile of TX x TY x TZ cells (a power of two, at least 32, at most
-// THREADS) and the tile with its one-cell halo.
-template <int TX, int TY, int TZ, int THREADS>
-struct Tile {
-  static constexpr int HY = TY + 2, HZ = TZ + 2;
-  static constexpr int CELLS = TX * TY * TZ;
-  static constexpr int HALO_CELLS = (TX + 2) * HY * HZ;
-  static constexpr int GROUPS = CELLS / 32;  // for the scan over the cells' counts
-  static constexpr int BLOCK = THREADS;
-  static_assert((CELLS & (CELLS - 1)) == 0 && CELLS >= 32 && CELLS <= THREADS, "tile size");
-  // a tile cell's index among the cells of the tile with its halo
-  __device__ static int halo_of(int cl) {
-    return ((cl / (TY * TZ) + 1) * HY + ((cl / TZ) % TY + 1)) * HZ + (cl % TZ + 1);
-  }
-  static constexpr size_t slot_bytes(int KC) {
-    return (size_t)2 * HALO_CELLS * cell_stride(KC) * sizeof(float4);
-  }
-};
+// the staged list's room in each of its two planes: a word of slots of every
+// halo cell, and WORD more, which a cell's last group of i's may read past
+// its own (what it reads there is not used)
+__host__ __device__ constexpr int list_room(int KC) { return HALO * word_slots(KC) + WORD; }
 
-// Stages the slots wj ... wj + nj - 1 (nj <= 32) of every cell of the tile
-// and its halo, a thread a cell: the cell's occupancy bits from its masks,
-// then its occupied slots to their places in slot order, each with its
-// cotangent and jitter . g.
-template <class T>
-__device__ __forceinline__ void stage_word(const float* __restrict__ pos,
-                                           const float* __restrict__ mask,
-                                           const float* __restrict__ g, float4* slots,
-                                           float4* cots, uint32_t* occupied, int wj, int nj,
-                                           long long C, long long KCC, int stride, int t0x,
-                                           int t0y, int t0z, int nx, int ny, int nz,
-                                           uint32_t seed, int ox, int oy, int oz) {
-  constexpr int HY = T::HY, HZ = T::HZ;
-  for (int h = threadIdx.x; h < T::HALO_CELLS; h += T::BLOCK) {
-    const int i = t0x - 1 + h / (HY * HZ), j = t0y - 1 + (h / HZ) % HY, l = t0z - 1 + h % HZ;
-    uint32_t bits = 0;
-    if (i >= 0 && i < nx && j >= 0 && j < ny && l >= 0 && l < nz) {
-      const long long cell = ((long long)i * ny + j) * nz + l;
-#pragma unroll 4
-      for (int k = 0; k < nj; ++k) bits |= (mask[(wj + k) * C + cell] != 0.0f ? 1u : 0u) << k;
-      int place = 0;
-      for (uint32_t rest = bits; rest; rest &= rest - 1, ++place) {
-        const int k = wj + __ffs(rest) - 1;
-        const long long s = (long long)k * C + cell;
-        const float gx = g[s], gy = g[KCC + s], gz = g[2 * KCC + s];
-        const int cx = i + ox, cy = j + oy, cz = l + oz;
-        const float jg = jitter_value(seed, cx, cy, cz, k, 0) * gx +
-                         jitter_value(seed, cx, cy, cz, k, 1) * gy +
-                         jitter_value(seed, cx, cy, cz, k, 2) * gz;
-        slots[h * stride + place] = make_float4(pos[s], pos[KCC + s], pos[2 * KCC + s], mask[s]);
-        cots[h * stride + place] = make_float4(gx, gy, gz, jg);
-      }
-    }
-    occupied[h] = bits;
+// two 16-byte words a staged slot
+size_t shared_bytes(int KC) { return (size_t)2 * list_room(KC) * sizeof(float4); }
+
+// 1 / sqrt(x) for a normal x: rsqrtf without its fix-up for denormals
+__device__ __forceinline__ float rsqrt_normal(float x) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+#else
+  return rsqrtf(x);
+#endif
+}
+
+// a tile cell's index among the cells of the tile with its halo
+__device__ __forceinline__ int halo_of(int cl) {
+  return ((cl / (TY * TZ) + 1) * HY + ((cl / TZ) % TY + 1)) * HZ + (cl % TZ + 1);
+}
+
+// jitter . g of slot k of global cell (cx, cy, cz)
+__device__ __forceinline__ float jitter_dot(uint32_t seed, int cx, int cy, int cz, int k, float gx,
+                                            float gy, float gz) {
+  return jitter_value(seed, cx, cy, cz, k, 0) * gx + jitter_value(seed, cx, cy, cz, k, 1) * gy +
+         jitter_value(seed, cx, cy, cz, k, 2) * gz;
+}
+
+// One step of a transposed sum over the lanes: lanes l and l ^ o pair up,
+// the one with bit o clear keeps the sums of v[0, N/2), the other those of
+// v[N/2, N), in v[0, N/2). Each value is summed over the same pairs of lanes
+// as in a butterfly (xor 16, 8, 4, 2, 1), so with the same bits, at a
+// quarter of its shuffles.
+template <int N>
+__device__ __forceinline__ void halve(float* v, int lane, int o) {
+  const bool up = lane & o;
+#pragma unroll
+  for (int a = 0; a < N / 2; ++a) {
+    const float send = up ? v[a] : v[a + N / 2];
+    const float keep = up ? v[a + N / 2] : v[a];
+    v[a] = keep + __shfl_xor_sync(0xffffffffu, send, o);
   }
 }
 
-// The sums of one slot (me: position and mask, mine: cotangent and
-// jitter . g, at halo cell hc) over the staged slots of the 27 neighbour
-// cells, in E's order (dx, dy, dz ascending, then slots ascending); `self`
-// is its place in the centre cell's list, or -1 where it is not staged.
-// Returns (d x / m_i, d m). The pair loop has no branch: the slot itself
-// counts with mask 0, and a coincident pair adds 0 to the position sums.
-template <class T>
-__device__ __forceinline__ float4 pair_sums(const float4* slots, const float4* cots,
-                                            const uint32_t* occupied, int stride, int hc,
-                                            int self, float4 me, float4 mine, float inv_re2) {
-  constexpr int HY = T::HY, HZ = T::HZ;
-  float dx = 0.f, dy = 0.f, dz = 0.f, dm = 0.f;
-#pragma unroll 1
-  for (int n = 0; n < 27; ++n) {  // dx, dy, dz ascending
-    const int nb = hc + ((n / 9 - 1) * HY + (n / 3) % 3 - 1) * HZ + n % 3 - 1;
-    const int count = __popc(occupied[nb]);
-    const int skip = n == 13 ? self : -1;  // the centre cell holds the slot itself
-    const float4* list = &slots[nb * stride];
-    const float4* glist = &cots[nb * stride];
-#pragma unroll 1
-    for (int e = 0; e < count; ++e) {
-      const float4 q = list[e];
-      const float4 qg = glist[e];
-      const float mj = e == skip ? 0.0f : q.w;
-      const float ex = me.x - q.x, ey = me.y - q.y, ez = me.z - q.z;
-      const float sq = ex * ex + ey * ey + ez * ez;
-      const bool coincide = sq < 1e-12f;
-      const float kl = fmaxf(1.0f - sq * inv_re2, 0.0f);
-      const float rs = rsqrtf(sq);
-      const float kk = kl * kl * rs;
-      const float w = coincide ? 0.0f : kk * kl;
-      const float w2 = coincide ? 0.0f : -kk * (6.0f * inv_re2 + kl * rs * rs);  // 2 w'
-      const float Gx = mine.x - qg.x, Gy = mine.y - qg.y, Gz = mine.z - qg.z;
-      const float rG = ex * Gx + ey * Gy + ez * Gz;
-      const float c = w2 * rG;
-      dx += mj * (w * Gx + c * ex);
-      dy += mj * (w * Gy + c * ey);
-      dz += mj * (w * Gz + c * ez);
-      dm += mj * (w * rG + (coincide ? mine.w + qg.w : 0.0f));
-    }
-  }
-  return make_float4(dx, dy, dz, dm);
+// v[0, 32) summed over the lanes: lane l returns the sum of v[l]
+__device__ __forceinline__ float sum32(float* v, int lane) {
+  halve<32>(v, lane, 16);
+  halve<16>(v, lane, 8);
+  halve<8>(v, lane, 4);
+  halve<4>(v, lane, 2);
+  halve<2>(v, lane, 1);
+  return v[0];
 }
 
-// One word of slots (KC <= BIG_TILE_MAX_KC): the slots of the tile and its
-// halo staged once.
-template <int TX, int TY, int TZ, int THREADS>
-__global__ void __launch_bounds__(THREADS)
+// v[0, 16) summed over the lanes: lanes l and l ^ 1 return the sum of v[l / 2]
+__device__ __forceinline__ float sum16(float* v, int lane) {
+  halve<16>(v, lane, 16);
+  halve<8>(v, lane, 8);
+  halve<4>(v, lane, 4);
+  halve<2>(v, lane, 2);
+  return v[0] + __shfl_xor_sync(0xffffffffu, v[0], 1);
+}
+
+template <int NI>
+__global__ void __launch_bounds__(THREADS, 2)
 correction_bwd_kernel(const float* __restrict__ pos, const float* __restrict__ mask,
                       const float* __restrict__ g, float* __restrict__ dpos,
                       float* __restrict__ dmask, int KC, int nx, int ny, int nz, float re2,
                       uint32_t seed, int ox, int oy, int oz) {
-  using T = Tile<TX, TY, TZ, THREADS>;
-  constexpr int TILE_CELLS = T::CELLS, HALO_CELLS = T::HALO_CELLS;
-  extern __shared__ float4 slots[];  // two planes of HALO_CELLS * cell_stride(KC)
-  __shared__ uint32_t occupied[HALO_CELLS];  // a cell's occupied slots, bit k for slot k
-  __shared__ int first[TILE_CELLS + 1];
-  __shared__ int group_first[T::GROUPS];
+  extern __shared__ float4 staged[];   // (x, y, z, m) of every staged slot, then (g, jitter . g)
+  __shared__ uint32_t occupied[HALO];  // a halo cell's occupied slots of the staged word
+  __shared__ int first[HALO + 1];      // the place of its first slot in the staged list
+  __shared__ int warp_count[WARPS];
+  __shared__ float4 own_pos[WARPS][NI + IG], own_cot[WARPS][NI + IG];  // a cell's i's of another word
+  __shared__ int reach[WARPS][27 * NI];  // the places of a cell's j's in reach of its i's
   const long long C = (long long)nx * ny * nz;
   const long long KCC = (long long)KC * C;
-  const int t0x = blockIdx.z * TX, t0y = blockIdx.y * TY, t0z = blockIdx.x * TZ;
-  const int stride = cell_stride(KC);
-  float4* const cots = slots + HALO_CELLS * stride;  // the second plane
+  float4* const spos = staged;
+  float4* const scot = staged + list_room(KC);
   const float inv_re2 = 1.0f / re2;
+  const float six_re2 = 6.0f * inv_re2;
+  const float cut2 = re2 * 1.001f;  // a j this far from the box of a cell's i's reaches none of them
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
-  // 1. the tile's own masks, a thread a cell: is there any particle?
-  int any = 0;
-  for (int cl = threadIdx.x; cl < TILE_CELLS; cl += THREADS) {
-    const int i = t0x + cl / (TY * TZ), j = t0y + (cl / TZ) % TY, l = t0z + cl % TZ;
-    if (i >= nx || j >= ny || l >= nz) continue;
-    const float* m = mask + ((long long)i * ny + j) * nz + l;
+  const int t0x = blockIdx.z * TX, t0y = blockIdx.y * TY, z0 = blockIdx.x * TZ * TILES;
+
+  // 1. the masks of the block's TILES tiles: zeros for the empty slots;
+  // which tiles hold a particle? (A block for a few tiles: most of a
+  // dam-break's tiles hold none, and each block's latency is paid once.)
+  constexpr int ZS = TZ * TILES;  // the block's cells along z
+  uint32_t any = 0;  // bit q: tile q
 #pragma unroll 4
-    for (int k = 0; k < KC; ++k) any |= m[k * C] != 0.0f;
-  }
-  const bool live = __syncthreads_or(any);
-
-  // 2. the occupied slots of the tile and its halo
-  if (live) {
-    stage_word<T>(pos, mask, g, slots, cots, occupied, 0, KC, C, KCC, stride, t0x, t0y, t0z, nx,
-                  ny, nz, seed, ox, oy, oz);
-    __syncthreads();
-    // the tile's occupied slots in one list, cell after cell: first[cl] is
-    // the place of cell cl's first slot. A scan in two steps: the count of
-    // every group of 32 cells, then each cell's place in its group.
-    if (threadIdx.x < T::GROUPS) {
-      int count = 0;
-      for (int c = 0; c < 32; ++c) count += __popc(occupied[T::halo_of(32 * threadIdx.x + c)]);
-      group_first[threadIdx.x] = count;
-    }
-    __syncthreads();
-    if (threadIdx.x < TILE_CELLS) {
-      const int grp = threadIdx.x / 32;
-      int before = 0;
-      for (int q = 0; q < grp; ++q) before += group_first[q];
-      for (int c = 32 * grp; c < threadIdx.x; ++c) before += __popc(occupied[T::halo_of(c)]);
-      first[threadIdx.x] = before;
-      if (threadIdx.x == TILE_CELLS - 1)
-        first[TILE_CELLS] = before + __popc(occupied[T::halo_of(threadIdx.x)]);
-    }
-    __syncthreads();
-  }
-
-  // 3a. zeros for the tile's empty slots (all of them in a tile without a
-  // particle)
-  for (int t = threadIdx.x; t < KC * TILE_CELLS; t += THREADS) {
-    const int cl = t % TILE_CELLS, k = t / TILE_CELLS;
-    const int i = t0x + cl / (TY * TZ), j = t0y + (cl / TZ) % TY, l = t0z + cl % TZ;
+  for (int t = threadIdx.x; t < KC * CELLS * TILES; t += THREADS) {
+    const int cl = t % (CELLS * TILES), k = t / (CELLS * TILES);
+    const int i = t0x + cl / (TY * ZS), j = t0y + (cl / ZS) % TY, l = z0 + cl % ZS;
     if (i >= nx || j >= ny || l >= nz) continue;
-    if (live && (occupied[T::halo_of(cl)] >> k & 1u)) continue;
     const long long s = (long long)k * C + ((long long)i * ny + j) * nz + l;
+    if (mask[s] != 0.0f) {
+      any |= 1u << (cl % ZS / TZ);
+      continue;
+    }
     dpos[s] = 0.0f;
     dpos[KCC + s] = 0.0f;
     dpos[2 * KCC + s] = 0.0f;
     if (dmask) dmask[s] = 0.0f;
   }
-  if (!live) return;
+  uint32_t live = 0;
+#pragma unroll
+  for (int q = 0; q < TILES; ++q) live |= (uint32_t)(__syncthreads_or(any >> q & 1u) != 0) << q;
 
-  // 3b. one occupied slot of the tile at a time
-  const int total = first[TILE_CELLS];
-  for (int t = threadIdx.x; t < total; t += THREADS) {
-    int cl = 0;  // the last cell with first[cl] <= t
-    for (int step = TILE_CELLS / 2; step > 0; step >>= 1)
-      if (first[cl + step] <= t) cl += step;
-    const int self = t - first[cl];  // its place in its cell's list
-    const int hc = T::halo_of(cl);
-    uint32_t rest = occupied[hc];
-    for (int n = 0; n < self; ++n) rest &= rest - 1;
-    const int k = __ffs(rest) - 1;  // the slot of that place
-    const int i = t0x + cl / (TY * TZ), j = t0y + (cl / TZ) % TY, l = t0z + cl % TZ;
-    const long long s = (long long)k * C + ((long long)i * ny + j) * nz + l;
-    const float4 me = slots[hc * stride + self];
-    const float4 d = pair_sums<T>(slots, cots, occupied, stride, hc, self, me,
-                                  cots[hc * stride + self], inv_re2);
-    dpos[s] = me.w * d.x;
-    dpos[KCC + s] = me.w * d.y;
-    dpos[2 * KCC + s] = me.w * d.z;
-    if (dmask) dmask[s] = d.w;
-  }
-}
+  for (int tile = 0; tile < TILES; ++tile) {  // the block's tiles that hold a particle
+    if (!(live >> tile & 1u)) continue;
+    const int t0z = z0 + tile * TZ;
 
-// More than BIG_TILE_MAX_KC slots a cell: the tile's own slots a word (32)
-// at a time, and for each such word the neighbours' a word at a time; a slot
-// writes its cotangents after the first word of neighbours and adds the
-// others'.
-template <int TX, int TY, int TZ, int THREADS>
-__global__ void __launch_bounds__(THREADS)
-correction_bwd_words_kernel(const float* __restrict__ pos, const float* __restrict__ mask,
-                            const float* __restrict__ g, float* __restrict__ dpos,
-                            float* __restrict__ dmask, int KC, int nx, int ny, int nz, float re2,
-                            uint32_t seed, int ox, int oy, int oz) {
-  using T = Tile<TX, TY, TZ, THREADS>;
-  constexpr int TILE_CELLS = T::CELLS, HALO_CELLS = T::HALO_CELLS;
-  extern __shared__ float4 slots[];  // two planes of HALO_CELLS * cell_stride(KC)
-  __shared__ uint32_t occupied[HALO_CELLS];  // a cell's occupied slots of the neighbours' word
-  __shared__ uint32_t own[TILE_CELLS];       // a tile cell's occupied slots of its own word
-  __shared__ int first[TILE_CELLS + 1];
-  __shared__ int group_first[T::GROUPS];
-  const long long C = (long long)nx * ny * nz;
-  const long long KCC = (long long)KC * C;
-  const int t0x = blockIdx.z * TX, t0y = blockIdx.y * TY, t0z = blockIdx.x * TZ;
-  const int stride = cell_stride(KC);
-  float4* const cots = slots + HALO_CELLS * stride;  // the second plane
-  const float inv_re2 = 1.0f / re2;
-
-  // 1. the tile's own masks, a thread a cell: is there any particle?
-  int any = 0;
-  for (int cl = threadIdx.x; cl < TILE_CELLS; cl += THREADS) {
-    const int i = t0x + cl / (TY * TZ), j = t0y + (cl / TZ) % TY, l = t0z + cl % TZ;
-    if (i >= nx || j >= ny || l >= nz) continue;
-    const float* m = mask + ((long long)i * ny + j) * nz + l;
-#pragma unroll 4
-    for (int k = 0; k < KC; ++k) any |= m[k * C] != 0.0f;
-  }
-  const bool live = __syncthreads_or(any);
-
-  for (int wi = 0; wi < KC; wi += MASK_BITS) {  // the tile's own slots wi ... wi + 31
-    const int ni = min(KC - wi, MASK_BITS);
-    __syncthreads();  // the last word's lists are read
-    if (live) {
-      for (int cl = threadIdx.x; cl < TILE_CELLS; cl += THREADS) {
-        const int i = t0x + cl / (TY * TZ), j = t0y + (cl / TZ) % TY, l = t0z + cl % TZ;
+    for (int wj = 0; wj < KC; wj += WORD) {  // the neighbours' slots wj ... wj + WORD - 1
+      const int nj = min(KC - wj, WORD);
+      __syncthreads();  // the last word's list is read
+      // 2. the word's occupied slots of the tile and its halo: a thread a
+      // halo cell reads its bits, their places come from a scan over the
+      // cells' counts (each warp's, then the warps' totals), then a thread a
+      // (slot, cell) puts the slots in their places
+      {
+        const int h = threadIdx.x;
+        const int i = t0x - 1 + h / (HY * HZ), j = t0y - 1 + (h / HZ) % HY, l = t0z - 1 + h % HZ;
         uint32_t bits = 0;
-        if (i < nx && j < ny && l < nz) {
-          const float* m = mask + (long long)wi * C + ((long long)i * ny + j) * nz + l;
+        if (h < HALO && i >= 0 && i < nx && j >= 0 && j < ny && l >= 0 && l < nz) {
+          const float* m = mask + (long long)wj * C + ((long long)i * ny + j) * nz + l;
+#pragma unroll
+          for (int k = 0; k < WORD; ++k)
+            if (k < nj) bits |= (m[k * C] != 0.0f ? 1u : 0u) << k;
+        }
+        const int count = __popc(bits);
+        int upto = count;  // the counts of the warp's cells up to this one
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int below = __shfl_up_sync(0xffffffffu, upto, o);
+          if (lane >= o) upto += below;
+        }
+        if (lane == 31) warp_count[warp] = upto;
+        __syncthreads();
+        int before = upto - count;
+        for (int q = 0; q < warp; ++q) before += warp_count[q];
+        if (h < HALO) {
+          occupied[h] = bits;
+          first[h] = before;
+        }
+        if (h == HALO - 1) first[HALO] = before + count;
+      }
+      __syncthreads();
 #pragma unroll 4
-          for (int k = 0; k < ni; ++k) bits |= (m[k * C] != 0.0f ? 1u : 0u) << k;
-        }
-        own[cl] = bits;
+      for (int t = threadIdx.x; t < nj * HALO; t += THREADS) {
+        const int h = t % HALO, k = t / HALO;
+        const uint32_t bits = occupied[h];
+        if (!(bits >> k & 1u)) continue;
+        const int i = t0x - 1 + h / (HY * HZ), j = t0y - 1 + (h / HZ) % HY, l = t0z - 1 + h % HZ;
+        const long long s = (long long)(wj + k) * C + ((long long)i * ny + j) * nz + l;
+        const float gx = g[s], gy = g[KCC + s], gz = g[2 * KCC + s];
+        const int at = first[h] + __popc(bits & ((1u << k) - 1u));
+        spos[at] = make_float4(pos[s], pos[KCC + s], pos[2 * KCC + s], mask[s]);
+        scot[at] = make_float4(gx, gy, gz, jitter_dot(seed, i + ox, j + oy, l + oz, wj + k, gx, gy, gz));
       }
       __syncthreads();
-      // the tile's occupied slots of the word in one list, cell after cell:
-      // first[cl] is the place of cell cl's first slot. A scan in two steps:
-      // the count of every group of 32 cells, then each cell's place in its
-      // group.
-      if (threadIdx.x < T::GROUPS) {
-        int count = 0;
-        for (int c = 0; c < 32; ++c) count += __popc(own[32 * threadIdx.x + c]);
-        group_first[threadIdx.x] = count;
-      }
-      __syncthreads();
-      if (threadIdx.x < TILE_CELLS) {
-        const int grp = threadIdx.x / 32;
-        int before = 0;
-        for (int q = 0; q < grp; ++q) before += group_first[q];
-        for (int c = 32 * grp; c < threadIdx.x; ++c) before += __popc(own[c]);
-        first[threadIdx.x] = before;
-        if (threadIdx.x == TILE_CELLS - 1) first[TILE_CELLS] = before + __popc(own[threadIdx.x]);
-      }
-    }
 
-    // 3a. zeros for the tile's empty slots of the word (all of them in a
-    // tile without a particle)
-    for (int t = threadIdx.x; t < ni * TILE_CELLS; t += THREADS) {
-      const int cl = t % TILE_CELLS, k = t / TILE_CELLS;
-      const int i = t0x + cl / (TY * TZ), j = t0y + (cl / TZ) % TY, l = t0z + cl % TZ;
-      if (i >= nx || j >= ny || l >= nz) continue;
-      if (live && (own[cl] >> k & 1u)) continue;
-      const long long s = (long long)(wi + k) * C + ((long long)i * ny + j) * nz + l;
-      dpos[s] = 0.0f;
-      dpos[KCC + s] = 0.0f;
-      dpos[2 * KCC + s] = 0.0f;
-      if (dmask) dmask[s] = 0.0f;
-    }
-    if (!live) continue;
-    __syncthreads();
-    const int total = first[TILE_CELLS];
-    if (total == 0) continue;
-
-    for (int wj = 0; wj < KC; wj += MASK_BITS) {  // the neighbours' slots wj ... wj + 31
-      __syncthreads();  // the last word's slots are read
-      stage_word<T>(pos, mask, g, slots, cots, occupied, wj, min(KC - wj, MASK_BITS), C, KCC,
-                    stride, t0x, t0y, t0z, nx, ny, nz, seed, ox, oy, oz);
-      __syncthreads();
-
-      // 3b. one occupied slot of the tile at a time
-      for (int t = threadIdx.x; t < total; t += THREADS) {
-        int cl = 0;  // the last cell with first[cl] <= t
-        for (int step = TILE_CELLS / 2; step > 0; step >>= 1)
-          if (first[cl + step] <= t) cl += step;
-        const int self = t - first[cl];  // its place in its cell's list
-        const int hc = T::halo_of(cl);
-        uint32_t rest = own[cl];
-        for (int n = 0; n < self; ++n) rest &= rest - 1;
-        const int k = wi + __ffs(rest) - 1;  // the slot of that place
+      // 3. a warp a cell of the tile
+      for (int cl = warp; cl < CELLS; cl += WARPS) {
         const int i = t0x + cl / (TY * TZ), j = t0y + (cl / TZ) % TY, l = t0z + cl % TZ;
-        const long long s = (long long)k * C + ((long long)i * ny + j) * nz + l;
-        const bool same = wi == wj;
-        float4 me, mine;
-        if (same) {
-          me = slots[hc * stride + self];
-          mine = cots[hc * stride + self];
-        } else {
-          me = make_float4(pos[s], pos[KCC + s], pos[2 * KCC + s], mask[s]);
-          const float gx = g[s], gy = g[KCC + s], gz = g[2 * KCC + s];
-          const int cx = i + ox, cy = j + oy, cz = l + oz;
-          mine = make_float4(gx, gy, gz,
-                             jitter_value(seed, cx, cy, cz, k, 0) * gx +
-                                 jitter_value(seed, cx, cy, cz, k, 1) * gy +
-                                 jitter_value(seed, cx, cy, cz, k, 2) * gz);
-        }
+        if (i >= nx || j >= ny || l >= nz) continue;
+        const long long cell = ((long long)i * ny + j) * nz + l;
+        const int hc = halo_of(cl);
+        for (int wi = 0; wi < KC; wi += WORD) {  // the cell's own slots wi ... wi + WORD - 1
+          uint32_t bits;
+          const float4 *ip, *ic;
+          int self;  // the place of the cell's first i in the staged list (none: far below)
+          if (wi == wj) {
+            bits = occupied[hc];
+            self = first[hc];
+            ip = spos + self;
+            ic = scot + self;
+          } else {
+            const long long s = (long long)(wi + lane) * C + cell;
+            const bool occ = lane < min(KC - wi, WORD) && mask[s] != 0.0f;
+            bits = __ballot_sync(0xffffffffu, occ);
+            __syncwarp();  // the last cell's i's are read
+            if (occ) {
+              const float gx = g[s], gy = g[KCC + s], gz = g[2 * KCC + s];
+              const int at = __popc(bits & ((1u << lane) - 1u));
+              own_pos[warp][at] = make_float4(pos[s], pos[KCC + s], pos[2 * KCC + s], mask[s]);
+              own_cot[warp][at] =
+                  make_float4(gx, gy, gz, jitter_dot(seed, i + ox, j + oy, l + oz, wi + lane, gx, gy, gz));
+            }
+            __syncwarp();
+            self = -(1 << 30);
+            ip = own_pos[warp];
+            ic = own_cot[warp];
+          }
+          const int ni = __popc(bits);
+          if (ni == 0) continue;
 
-        // the slot itself is staged in its own word
-        const float4 d = pair_sums<T>(slots, cots, occupied, stride, hc, same ? self : -1, me, mine,
-                                      inv_re2);
-        if (wj == 0) {
-          dpos[s] = me.w * d.x;
-          dpos[KCC + s] = me.w * d.y;
-          dpos[2 * KCC + s] = me.w * d.z;
-          if (dmask) dmask[s] = d.w;
-        } else {
-          dpos[s] += me.w * d.x;
-          dpos[KCC + s] += me.w * d.y;
-          dpos[2 * KCC + s] += me.w * d.z;
-          if (dmask) dmask[s] += d.w;
+          // 3a. the box of the cell's i's (a lane an i, then the lanes' extremes)
+          float lox = BIG, loy = BIG, loz = BIG, hix = -BIG, hiy = -BIG, hiz = -BIG;
+          if (lane < ni) {
+            const float4 me = ip[lane];
+            lox = hix = me.x;
+            loy = hiy = me.y;
+            loz = hiz = me.z;
+          }
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1) {
+            lox = fminf(lox, __shfl_xor_sync(0xffffffffu, lox, o));
+            loy = fminf(loy, __shfl_xor_sync(0xffffffffu, loy, o));
+            loz = fminf(loz, __shfl_xor_sync(0xffffffffu, loz, o));
+            hix = fmaxf(hix, __shfl_xor_sync(0xffffffffu, hix, o));
+            hiy = fmaxf(hiy, __shfl_xor_sync(0xffffffffu, hiy, o));
+            hiz = fmaxf(hiz, __shfl_xor_sync(0xffffffffu, hiz, o));
+          }
+          // 3b. the j's in reach of that box, compacted in order into the
+          // warp's list: the 9 runs r = (dx, dy) of three cells along z (lane r
+          // reads run r's first place and count), each a lane a j. A j left out
+          // is farther than re from every i (with a margin for the roundings of
+          // both distances), so each of its pairs would add an exact 0.
+          int* const near = reach[warp];
+          int kept = 0;
+          {
+            int rlo = 0, rlen = 0;
+            if (lane < 9) {
+              const int nb = hc + ((lane / 3 - 1) * HY + lane % 3 - 1) * HZ;
+              rlo = first[nb - 1];
+              rlen = first[nb + 2] - rlo;
+            }
+            // a run holds three words of slots at most: 32 j's a lane's first
+            // pass, the rest (a second) where the run holds more
+#pragma unroll
+            for (int r = 0; r < 9; ++r) {
+              const int lo = __shfl_sync(0xffffffffu, rlo, r), len = __shfl_sync(0xffffffffu, rlen, r);
+#pragma unroll
+              for (int p = 0; p < 3 * WORD; p += 32) {
+                if (p == 0 || p < len) {  // no branch in a run's first pass: the loads go together
+                  const int v = p + lane;
+                  const float4 q = spos[lo + max(min(v, len - 1), 0)];
+                  const float dx = fmaxf(fmaxf(lox - q.x, q.x - hix), 0.0f);
+                  const float dy = fmaxf(fmaxf(loy - q.y, q.y - hiy), 0.0f);
+                  const float dz = fmaxf(fmaxf(loz - q.z, q.z - hiz), 0.0f);
+                  const bool in = v < len && dx * dx + dy * dy + dz * dz < cut2;
+                  const uint32_t ins = __ballot_sync(0xffffffffu, in);
+                  if (in) near[kept + __popc(ins & ((1u << lane) - 1u))] = lo + v;
+                  kept += __popc(ins);
+                }
+              }
+            }
+          }
+          __syncwarp();
+
+          float acc[NI][4];
+#pragma unroll
+          for (int ii = 0; ii < NI; ++ii) acc[ii][0] = acc[ii][1] = acc[ii][2] = acc[ii][3] = 0.0f;
+          // 3c. lane l takes the kept j's l, l + 32, ...; for each, the i's IG
+          // at a time (their pairs are independent, so they overlap)
+          for (int v = lane; v < kept; v += 32) {
+            const int e = near[v];
+            const float4 q = spos[e], qg = scot[e];
+            const int place = e - self;  // the j's place among the i's, if it is one
+#pragma unroll
+            for (int i0 = 0; i0 < NI; i0 += IG) {
+              if (i0 < ni) {
+#pragma unroll
+                for (int ii = i0; ii < i0 + IG; ++ii) {
+                  const float4 me = ip[ii], mine = ic[ii];
+                  const float ex = me.x - q.x, ey = me.y - q.y, ez = me.z - q.z;
+                  const float sq = ex * ex + ey * ey + ez * ez;
+                  const bool coincide = sq < 1e-12f;
+                  const float kl = fmaxf(1.0f - sq * inv_re2, 0.0f);
+                  const float rs = coincide ? 0.0f : rsqrt_normal(sq);
+                  const float kk = q.w * kl * kl * rs;                // m_j k^2 / sqrt(s)
+                  const float w = kk * kl;                            // m_j w
+                  const float w2 = -kk * (six_re2 + kl * rs * rs);    // m_j 2 w'
+                  const float Gx = mine.x - qg.x, Gy = mine.y - qg.y, Gz = mine.z - qg.z;
+                  const float rG = ex * Gx + ey * Gy + ez * Gz;
+                  const float c = w2 * rG;
+                  acc[ii][0] = fmaf(c, ex, fmaf(w, Gx, acc[ii][0]));
+                  acc[ii][1] = fmaf(c, ey, fmaf(w, Gy, acc[ii][1]));
+                  acc[ii][2] = fmaf(c, ez, fmaf(w, Gz, acc[ii][2]));
+                  acc[ii][3] = fmaf(w, rG, acc[ii][3]);
+                  if (coincide && place != ii) acc[ii][3] = fmaf(q.w, mine.w + qg.w, acc[ii][3]);
+                }
+              }
+            }
+          }
+
+          // 4. each i's sums over the lanes, 8 i's (32 values) at a time in a
+          // transposed tree, the last 4 (16 values) where NI is not a multiple
+          // of 8; each lane writes the sum it holds
+          float* const flat = &acc[0][0];
+#pragma unroll
+          for (int b = 0; b < NI; b += 8) {
+            if (b < ni) {
+              const bool whole = NI - b >= 8;
+              const float sum = whole ? sum32(flat + 4 * b, lane) : sum16(flat + 4 * b, lane);
+              const int at = whole ? lane : lane >> 1;  // the value it holds
+              const int ii = b + at / 4, c = at % 4;
+              if (ii < ni && (whole || !(lane & 1)) && (c < 3 || dmask)) {
+                uint32_t rest = bits;  // the slot of the ii-th i: its cell's ii-th occupied slot
+                for (int t = 0; t < ii; ++t) rest &= rest - 1;
+                const long long s = (long long)(wi + __ffs(rest) - 1) * C + cell;
+                float* const out = c < 3 ? dpos + c * KCC + s : dmask + s;
+                const float value = c < 3 ? ip[ii].w * sum : sum;
+                if (wj == 0)
+                  *out = value;
+                else
+                  *out += value;
+              }
+            }
+          }
+          __syncwarp();  // the lanes have read the i's and the list
         }
       }
     }
   }
 }
 
-// WORDS: the kernel that takes the slots a word at a time
-template <int TX, int TY, int TZ, int THREADS, bool WORDS>
+template <int NI>
 int launch(const float* pos, const float* mask, const float* g, float* dpos, float* dmask, int KC,
            int nx, int ny, int nz, float re2, int seed, int ox, int oy, int oz,
            cudaStream_t stream) {
-  using T = Tile<TX, TY, TZ, THREADS>;
-  const size_t smem = T::slot_bytes(KC);
-  const auto kernel = [] {
-    if constexpr (WORDS) return correction_bwd_words_kernel<TX, TY, TZ, THREADS>;
-    else return correction_bwd_kernel<TX, TY, TZ, THREADS>;
-  }();
+  const size_t smem = shared_bytes(KC);
   // above 48 KB a kernel has to ask for its dynamic shared memory
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(correction_bwd_kernel<NI>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((nz + TZ - 1) / TZ, (ny + TY - 1) / TY, (nx + TX - 1) / TX);
-  kernel<<<grid, THREADS, smem, stream>>>(pos, mask, g, dpos, dmask, KC, nx, ny, nz, re2,
-                                          (uint32_t)seed, ox, oy, oz);
+  const dim3 grid((nz + TZ * TILES - 1) / (TZ * TILES), (ny + TY - 1) / TY, (nx + TX - 1) / TX);
+  correction_bwd_kernel<NI><<<grid, THREADS, smem, stream>>>(pos, mask, g, dpos, dmask, KC, nx, ny,
+                                                             nz, re2, (uint32_t)seed, ox, oy, oz);
   return (int)cudaGetLastError();
 }
 
-// 32 bytes a slot of the tile and its halo, beside ~2.5 KB of static arrays,
-// inside the 227 KB a block may have
-static_assert(BIG_TILE_MAX_KC <= 0 ||
-                  Tile<4, 4, 8, 512>::slot_bytes(BIG_TILE_MAX_KC) <= 222 * 1024,
-              "the big tile's slots do not fit a block");
-static_assert(Tile<4, 4, 4, 256>::slot_bytes(MASK_BITS) <= 224 * 1024,
-              "the small tile's slots do not fit a block");
+// a word of slots staged, with the i buffers and the scan's arrays, inside
+// the 227 KB a block may have
+static_assert(2 * (HALO * WORD + WORD) * 16 + 2 * WARPS * (WORD + IG) * 16 + WARPS * 27 * WORD * 4 +
+                      8 * HALO <= 227 * 1024,
+              "a word of staged slots does not fit a block");
 
 }  // namespace
 
@@ -446,9 +454,9 @@ extern "C" int lf_correction_bwd(const float* pos, const float* mask, const floa
   if (KC < 1) return (int)cudaErrorInvalidValue;
   if ((long long)nx * ny * nz == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (KC <= BIG_TILE_MAX_KC)
-    return launch<4, 4, 8, 512, false>(pos, mask, g, dpos, dmask, KC, nx, ny, nz, re2, seed, ox, oy,
-                                       oz, st);
-  return launch<4, 4, 4, 256, true>(pos, mask, g, dpos, dmask, KC, nx, ny, nz, re2, seed, ox, oy, oz,
-                                    st);
+  if (KC <= 4) return launch<4>(pos, mask, g, dpos, dmask, KC, nx, ny, nz, re2, seed, ox, oy, oz, st);
+  if (KC <= 8) return launch<8>(pos, mask, g, dpos, dmask, KC, nx, ny, nz, re2, seed, ox, oy, oz, st);
+  if (KC <= 12)
+    return launch<12>(pos, mask, g, dpos, dmask, KC, nx, ny, nz, re2, seed, ox, oy, oz, st);
+  return launch<WORD>(pos, mask, g, dpos, dmask, KC, nx, ny, nz, re2, seed, ox, oy, oz, st);
 }

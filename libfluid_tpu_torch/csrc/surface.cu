@@ -55,18 +55,11 @@
 // start of a run of rows and ~12 B a row: 56 + 17 KB at cr = 4, three blocks
 // an SM; the whole box up to cr = 12 (56 + 132 KB), any cr in runs.
 //
-// The same pass with another last step is the node part of kernel F', the
-// vector-Jacobian product with respect to the particle positions
-// (libfluid_tpu/mesher/surface.py:_surface_bwd, jax.vjp of the scatter
-// oracle): for the cotangent g of the node values it writes, per node with
-// W > 0 and diff = X / W - x_n,
-//
-//   a_n = g_n diff / (sqrt(|diff|^2 + 1e-30) max(W, 1e-30)),   b_n = a_n . diff
-//
-// as one 16-byte word (zeros where W = 0), which csrc/surface_bwd.cu gathers
-// per particle. It sums W and X again (the same bits as the forward) rather
-// than have every forward keep 16 bytes a node for a gradient that may never
-// be asked for.
+// With KEEP (launch "surface_keep", for a forward whose positions want a
+// gradient) the pass also writes each node's sums (W, X) as one 16-byte
+// word, zeros where no particle is in reach: kernel F' (csrc/surface_bwd.cu)
+// forms its node words from them, so no second node pass runs. A mesh
+// without a gradient launches the plain form and keeps nothing.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -78,15 +71,14 @@ constexpr int THREADS = TX * TY * TZ;
 constexpr int CAP = 3584;  // particles a chunk
 constexpr size_t MAX_SHARED = 227 * 1024;  // a block's dynamic shared memory, at most
 
-// BWD: the node part of kernel F' (reads `cot`, writes `ab`), else kernel F
-// (writes `out`). RUNS: the box's rows in runs (cr > 12); without it the
-// whole box is one run and the code clips nothing to it.
-template <bool BWD, bool RUNS>
+// KEEP: also write each node's sums (W, X) to `sums`. RUNS: the box's rows
+// in runs (cr > 12); without it the whole box is one run and the code clips
+// nothing to it.
+template <bool KEEP, bool RUNS>
 __global__ void __launch_bounds__(THREADS)
 surface_kernel(const float* __restrict__ pos, const int* __restrict__ starts,
-               float* __restrict__ out, const float* __restrict__ cot, float4* __restrict__ ab,
-               int mx, int my, int mz, int cr, float h, float ox, float oy, float oz, float ext2,
-               float radius, int run) {
+               float* __restrict__ out, float4* __restrict__ sums, int mx, int my, int mz, int cr,
+               float h, float ox, float oy, float oz, float ext2, float radius, int run) {
   extern __shared__ float4 chunk[];  // CAP particles, then the arrays below
   const int n2 = 2 * cr;
   const int wx = TX + n2 - 1, wy = TY + n2 - 1, wz = TZ + n2 - 1;  // the box, in bins
@@ -103,10 +95,11 @@ surface_kernel(const float* __restrict__ pos, const int* __restrict__ starts,
   const int a = t0x + tx, b = t0y + ty, c = t0z + tz;  // the node; z fastest: stores coalesce
   const bool inside = a <= mx && b <= my && c <= mz;
   const long long at = ((long long)a * (my + 1) + b) * (mz + 1) + c;
-  // a node no particle reaches: outside (+1), no part in the gradient
+  // a node no particle reaches: outside (+1), sums 0
   auto write_empty = [&]() {
     if (!inside) return;
-    if (BWD) ab[at] = make_float4(0.f, 0.f, 0.f, 0.f); else out[at] = 1.0f;
+    out[at] = 1.0f;
+    if (KEEP) sums[at] = make_float4(0.f, 0.f, 0.f, 0.f);
   };
 
   // 1. is any particle in reach? First the box's (x, y) rows over all z,
@@ -221,20 +214,14 @@ surface_kernel(const float* __restrict__ pos, const int* __restrict__ starts,
   }
 
   if (!inside) return;
+  if (KEEP) sums[at] = make_float4(W, X, Y, Z);
   if (!(W > 0.0f)) {
-    write_empty();
+    out[at] = 1.0f;
     return;
   }
   const float Wc = fmaxf(W, 1e-30f);
   const float dx = X / Wc - nxp, dy = Y / Wc - nyp, dz = Z / Wc - nzp;
-  const float norm = sqrtf(dx * dx + dy * dy + dz * dz + 1e-30f);
-  if (BWD) {
-    const float s = cot[at] / (norm * Wc);
-    const float ax = s * dx, ay = s * dy, az = s * dz;
-    ab[at] = make_float4(ax, ay, az, ax * dx + ay * dy + az * dz);
-  } else {
-    out[at] = norm - radius;
-  }
+  out[at] = sqrtf(dx * dx + dy * dy + dz * dz + 1e-30f) - radius;
 }
 
 // a chunk of particles, and per row of a run its bins' places and three
@@ -252,22 +239,21 @@ int run_rows(int cr) {
   return run;
 }
 
-template <bool BWD>
-int launch(const float* pos, const int* starts, float* out, const float* cot, float4* ab, int mx,
-           int my, int mz, int cr, float h, float ox, float oy, float oz, float ext2, float radius,
-           void* stream) {
+template <bool KEEP>
+int launch(const float* pos, const int* starts, float* out, float4* sums, int mx, int my, int mz,
+           int cr, float h, float ox, float oy, float oz, float ext2, float radius, void* stream) {
   if (cr < 1) return (int)cudaErrorInvalidValue;
   const int run = run_rows(cr);
   const size_t smem = shared_bytes(cr, run);
-  auto kernel = run < (TX + 2 * cr - 1) * (TY + 2 * cr - 1) ? surface_kernel<BWD, true>
-                                                             : surface_kernel<BWD, false>;
+  auto kernel = run < (TX + 2 * cr - 1) * (TY + 2 * cr - 1) ? surface_kernel<KEEP, true>
+                                                             : surface_kernel<KEEP, false>;
   // above 48 KB a kernel has to ask for its dynamic shared memory
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((mz + TZ) / TZ, (my + TY) / TY, (mx + TX) / TX);  // m + 1 nodes an axis
   kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      pos, starts, out, cot, ab, mx, my, mz, cr, h, ox, oy, oz, ext2, radius, run);
+      pos, starts, out, sums, mx, my, mz, cr, h, ox, oy, oz, ext2, radius, run);
   return (int)cudaGetLastError();
 }
 
@@ -278,15 +264,15 @@ int launch(const float* pos, const int* starts, float* out, const float* cot, fl
 extern "C" int lf_surface(const float* pos, const int* starts, float* out, int mx, int my, int mz,
                           int cr, float h, float ox, float oy, float oz, float ext2,
                           float radius, void* stream) {
-  return launch<false>(pos, starts, out, nullptr, nullptr, mx, my, mz, cr, h, ox, oy, oz, ext2,
-                       radius, stream);
+  return launch<false>(pos, starts, out, nullptr, mx, my, mz, cr, h, ox, oy, oz, ext2, radius,
+                       stream);
 }
 
-// The node part of kernel F': cot (mx+1, my+1, mz+1) f32, the cotangent of the
-// node values; ab (mx+1, my+1, mz+1, 4) f32, 16-byte aligned: (a_n, b_n).
-extern "C" int lf_surface_bwd_nodes(const float* pos, const int* starts, const float* cot,
-                                    float* ab, int mx, int my, int mz, int cr, float h, float ox,
-                                    float oy, float oz, float ext2, void* stream) {
-  return launch<true>(pos, starts, nullptr, cot, reinterpret_cast<float4*>(ab), mx, my, mz, cr, h,
-                      ox, oy, oz, ext2, 0.0f, stream);
+// The same with the node sums kept: sums (mx+1, my+1, mz+1, 4) f32, 16-byte
+// aligned: (W, X, Y, Z) a node, zeros where no particle is in reach.
+extern "C" int lf_surface_keep(const float* pos, const int* starts, float* out, float* sums, int mx,
+                               int my, int mz, int cr, float h, float ox, float oy, float oz,
+                               float ext2, float radius, void* stream) {
+  return launch<true>(pos, starts, out, reinterpret_cast<float4*>(sums), mx, my, mz, cr, h, ox, oy,
+                      oz, ext2, radius, stream);
 }

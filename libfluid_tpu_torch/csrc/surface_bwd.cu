@@ -1,14 +1,19 @@
-// Kernel F', particle part: the vector-Jacobian product of the mesher's
-// surface node pass (kernel F, csrc/surface.cu) with respect to the particle
-// positions.
+// Kernel F': the vector-Jacobian product of the mesher's surface node pass
+// (kernel F, csrc/surface.cu) with respect to the particle positions.
 //
 // Stands in for libfluid_tpu/mesher/surface.py:_surface_bwd, which takes
-// jax.vjp of the scatter oracle around _surface_kernel. The node part
-// (lf_surface_bwd_nodes, kernel F's pass with another last step) has written
-// per node n a 16-byte word (a_n, b_n): the cotangent of X_n = sum_p w x_p
-// is a_n and that of W_n = sum_p w is -(a_n . x_n + b_n). Here every binned
-// particle p gathers, over the (2 cr)^3 nodes its bin reaches that lie in the
-// node grid, with d = x_p - x_n and kl = max(1 - |d|^2 / ext^2, 0),
+// jax.vjp of the scatter oracle around _surface_kernel. The forward that
+// wants a gradient (lf_surface_keep) kept each node's sums (W_n, X_n); from
+// them, the node values' cotangent g_n and the node position x_n this kernel
+// forms per node, where W_n > 0 (else zeros), with diff = X_n / W_n - x_n,
+//
+//   a_n = g_n diff / (sqrt(|diff|^2 + 1e-30) max(W_n, 1e-30)),  b_n = a_n . diff
+//
+// in kernel F's expression order (the same bits as F's node pass would give
+// them): the cotangent of X_n is a_n and that of W_n is -(a_n . x_n + b_n).
+// Then every binned particle p gathers, over the (2 cr)^3 nodes its bin
+// reaches that lie in the node grid, with d = x_p - x_n and
+// kl = max(1 - |d|^2 / ext^2, 0),
 //
 //   d x_p = sum_n (a_n . d - b_n) * 3 kl^2 * (-2 d / ext^2) + a_n kl^3.
 //
@@ -19,7 +24,7 @@
 //
 // Bound: operations, ~29 a particle and node within its extent (2.0M
 // particles x 268 nodes at the main path: 0.23 ms; the loop runs over the 512
-// nodes of the window); the bytes (16 B a node read, 24 B a particle) are less.
+// nodes of the window); the bytes (20 B a node read, 24 B a particle) are less.
 //
 // Design: one block per tile of TB^3 bins of the padded bin grid (the CSR
 // bins the forward sorted the particles into), a thread a particle.
@@ -31,12 +36,14 @@
 //      it its window of nodes, comes from the binning itself and not from a
 //      second rounding of its position.
 //   3. The nodes the tile reaches are a box of TB + 2 cr - 1 nodes an axis.
-//      Its (a, b) words go to shared memory, nodes outside the node grid as
-//      zeros: the whole box if it fits SLAB_NODES words (cr <= 4), else a slab
-//      of (x, y) lines along z at a time, in line order, the particle's sums
-//      staying in registers across the slabs. THREADS particles are in flight at a time; a tile with more
-//      (a crammed bin) takes its list in rounds, and with several slabs
-//      stages them again each round.
+//      Its (a, b) words are formed as they go to shared memory (~20
+//      operations a node, each node ~6.6 times at cr = 4: a few per cent of
+//      the pairs' work), nodes outside the node grid as zeros: the whole box
+//      if it fits SLAB_NODES words (cr <= 4), else a slab of (x, y) lines
+//      along z at a time, in line order, the particle's sums staying in
+//      registers across the slabs. THREADS particles are in flight at a
+//      time; a tile with more (a crammed bin) takes its list in rounds, and
+//      with several slabs stages them again each round.
 //   4. A particle walks its window x, y, z ascending, so its bits depend on
 //      neither the tile nor the slabs, and stores its three sums at its row
 //      of the sorted order; the wrapper puts them back through the sort's
@@ -58,8 +65,9 @@ constexpr int SLAB_NODES = 3584;  // 16-byte words of shared memory for the node
 template <bool ONE_SLAB>
 __global__ void __launch_bounds__(THREADS)
 surface_bwd_kernel(const float* __restrict__ pos, const int* __restrict__ starts,
-                   const float4* __restrict__ ab, float* __restrict__ out, int mx, int my, int mz,
-                   int cr, float h, float ox, float oy, float oz, float ext2) {
+                   const float4* __restrict__ sums, const float* __restrict__ cot,
+                   float* __restrict__ out, int mx, int my, int mz, int cr, float h, float ox,
+                   float oy, float oz, float ext2) {
   extern __shared__ float4 nodes[];  // SLAB_NODES
   __shared__ int glo[ROWS];          // a row's first particle in `pos`
   __shared__ int rb[ROWS + 1];       // its place in the tile's list
@@ -156,8 +164,19 @@ surface_bwd_kernel(const float* __restrict__ pos, const int* __restrict__ starts
           const int line = s0 + t / w, lz = t % w;
           const int a = n0x + line / w, b = n0y + line % w, c = n0z + lz;
           float4 word = make_float4(0.f, 0.f, 0.f, 0.f);
-          if (a >= 0 && a <= mx && b >= 0 && b <= my && c >= 0 && c <= mz)
-            word = ab[((long long)a * (my + 1) + b) * (mz + 1) + c];
+          if (a >= 0 && a <= mx && b >= 0 && b <= my && c >= 0 && c <= mz) {
+            const long long at = ((long long)a * (my + 1) + b) * (mz + 1) + c;
+            const float4 sum = sums[at];  // (W, X, Y, Z)
+            if (sum.x > 0.0f) {
+              const float nxp = ox + (float)a * h, nyp = oy + (float)b * h, nzp = oz + (float)c * h;
+              const float Wc = fmaxf(sum.x, 1e-30f);
+              const float dx = sum.y / Wc - nxp, dy = sum.z / Wc - nyp, dz = sum.w / Wc - nzp;
+              const float norm = sqrtf(dx * dx + dy * dy + dz * dz + 1e-30f);
+              const float s = cot[at] / (norm * Wc);
+              const float ax = s * dx, ay = s * dy, az = s * dz;
+              word = make_float4(ax, ay, az, ax * dx + ay * dy + az * dz);
+            }
+          }
           nodes[t] = word;
         }
         __syncthreads();
@@ -200,12 +219,13 @@ surface_bwd_kernel(const float* __restrict__ pos, const int* __restrict__ starts
 }  // namespace
 
 // pos: (M, 3) f32 particles sorted by padded bin; starts: ((mx+2cr)(my+2cr)(mz+2cr) + 1)
-// int32 CSR starts; ab: (mx+1, my+1, mz+1, 4) f32, 16-byte aligned, from
-// lf_surface_bwd_nodes; out: (M, 3) f32 in the sorted order, zero-filled by the
-// caller (rows of unbinned particles are not written); any cr >= 1.
-extern "C" int lf_surface_bwd(const float* pos, const int* starts, const float* ab, float* out,
-                              int mx, int my, int mz, int cr, float h, float ox, float oy,
-                              float oz, float ext2, void* stream) {
+// int32 CSR starts; sums: (mx+1, my+1, mz+1, 4) f32, 16-byte aligned, from
+// lf_surface_keep; cot: (mx+1, my+1, mz+1) f32, the node values' cotangent;
+// out: (M, 3) f32 in the sorted order, zero-filled by the caller (rows of
+// unbinned particles are not written); any cr >= 1.
+extern "C" int lf_surface_bwd(const float* pos, const int* starts, const float* sums,
+                              const float* cot, float* out, int mx, int my, int mz, int cr, float h,
+                              float ox, float oy, float oz, float ext2, void* stream) {
   if (cr < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = SLAB_NODES * sizeof(float4);
   const int n2 = 2 * cr, w = TB + n2 - 1;
@@ -216,6 +236,7 @@ extern "C" int lf_surface_bwd(const float* pos, const int* starts, const float* 
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((mz + n2 + TB - 1) / TB, (my + n2 + TB - 1) / TB, (mx + n2 + TB - 1) / TB);
   kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      pos, starts, reinterpret_cast<const float4*>(ab), out, mx, my, mz, cr, h, ox, oy, oz, ext2);
+      pos, starts, reinterpret_cast<const float4*>(sums), cot, out, mx, my, mz, cr, h, ox, oy, oz,
+      ext2);
   return (int)cudaGetLastError();
 }

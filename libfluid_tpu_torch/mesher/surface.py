@@ -16,14 +16,16 @@ the box is taken a run of rows at a time). On CPU tensors it is
 oracle.
 
 The gradient with respect to the positions (``surface._surface_bwd`` in the
-JAX package, ``jax.vjp`` of the oracle) is kernel F' on CUDA tensors, two
-launches over the forward's bins (:func:`sample_surface_bwd`): F's node pass
-with another last step (``surface_bwd_nodes``, ``csrc/surface.cu``) writes
-four floats a node, and a thread a particle gathers them (``surface_bwd``,
-``csrc/surface_bwd.cu``:
-a block per 8 x 8 x 8 tile of bins, the nodes in its reach in shared memory,
-all at once or a slab of x-planes at a time). No atomics. On CPU tensors it
-is the autograd of the plain version, recomputed in backward;
+JAX package, ``jax.vjp`` of the oracle) is kernel F' on CUDA tensors, one
+launch over the forward's bins (:func:`sample_surface_bwd`). A forward whose
+positions want a gradient launches F in a form that also keeps each node's
+sums (W, X), 16 bytes a node (``surface_keep``); F' (``surface_bwd``,
+``csrc/surface_bwd.cu``: a block per 8 x 8 x 8 tile of bins, a thread a
+particle) forms each node's cotangent words from them as it stages the
+nodes in its reach in shared memory, all at once or a slab of x-planes at a
+time, and gathers them. No atomics. A forward without a gradient (no_grad,
+or positions that do not require one) keeps nothing. On CPU tensors the
+gradient is the autograd of the plain version, recomputed in backward;
 :func:`_sample_surface_vjp_torch` is its closed form, the plain version of
 kernel F'.
 """
@@ -53,30 +55,35 @@ def sample_surface(
     """Sampled signed surface function on the (nx+1, ny+1, nz+1) node grid:
     kernel F on CUDA tensors, :func:`_sample_surface_torch` on CPU tensors."""
     r = cfg.particle_radius if particle_radius is None else particle_radius
-    return _SampleSurface.apply(position, active, cfg, float(r))
+    # (inside forward the grad mode is off, and needs_input_grad does not say
+    # whether a graph is recorded)
+    return _SampleSurface.apply(position, active, cfg, float(r), torch.is_grad_enabled())
 
 
 class _SampleSurface(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, position, active, cfg, radius):
+    def forward(ctx, position, active, cfg, radius, grad_enabled):
         ctx.args = (cfg, radius)
         ctx.save_for_backward(position, active)
         if not kernels.use_kernel(position, active):
             return _sample_surface_torch(position, active, cfg, radius)
         binned = _binned(position, active, cfg)
-        ctx.binned = binned  # kernel F' reads the same bins
-        return _sample_surface_cuda(binned, cfg, radius)
+        if not (grad_enabled and ctx.needs_input_grad[0]):
+            return _sample_surface_cuda(binned, cfg, radius)
+        out, sums = _sample_surface_keep_cuda(binned, cfg, radius)
+        ctx.kept = (binned, sums)  # kernel F' reads the same bins and the node sums
+        return out
 
     @staticmethod
     def backward(ctx, g):
         cfg, radius = ctx.args
         position, active = ctx.saved_tensors
         if kernels.use_kernel(position, active, g):
-            return sample_surface_bwd(ctx.binned, g, cfg), None, None, None
+            return sample_surface_bwd(*ctx.kept, g, cfg), None, None, None, None
         with torch.enable_grad():
             p = position.detach().requires_grad_()
             (dp,) = torch.autograd.grad(_sample_surface_torch(p, active, cfg, radius), p, g)
-        return dp, None, None, None
+        return dp, None, None, None, None
 
 
 def _node_offsets(cr: int, device) -> torch.Tensor:
@@ -137,27 +144,44 @@ def _sample_surface_torch(
     """Plain version of kernel F (port of ``surface._sample_surface_jnp``):
     each particle scatters (w, w*x) to the (2 cr)^3 nodes around its cell."""
     r = cfg.particle_radius if particle_radius is None else particle_radius
-    w_acc, wp_acc = _node_sums(position, active, cfg)
+    return _node_values(*_node_sums(position, active, cfg), cfg, r)
+
+
+def _node_values(w_acc: torch.Tensor, wp_acc: torch.Tensor, cfg: MesherConfig, r: float) -> torch.Tensor:
+    """|X / W - x_n| - r of each node, +1 where W = 0."""
     avg_pos = wp_acc / torch.clamp(w_acc, min=1e-30)[..., None]
-    diff = avg_pos - _node_positions(cfg, position.dtype, position.device)
+    diff = avg_pos - _node_positions(cfg, w_acc.dtype, w_acc.device)
     value = torch.sqrt(torch.sum(diff * diff, dim=-1) + 1e-30) - r
     return torch.where(w_acc > 0.0, value, torch.ones_like(value))
 
 
-def _node_cotangents_torch(
-    position: torch.Tensor, active: torch.Tensor, g: torch.Tensor, cfg: MesherConfig
-) -> torch.Tensor:
-    """Plain version of ``surface_bwd_nodes``, the node part of kernel F':
-    (nx+1, ny+1, nz+1, 4) words (a_n, b_n) for the cotangent ``g`` of the
-    node values. Per node with W > 0 (else zeros), diff = X / W - x_n and
+def _sample_surface_keep_torch(
+    position: torch.Tensor,
+    active: torch.Tensor,
+    cfg: MesherConfig,
+    particle_radius: Optional[float] = None,
+):
+    """Plain version of ``surface_keep``: the node values of
+    :func:`_sample_surface_torch` and the node sums (W, X) of
+    :func:`_node_sums` they come from, as (nx+1, ny+1, nz+1, 4)."""
+    r = cfg.particle_radius if particle_radius is None else particle_radius
+    w_acc, wp_acc = _node_sums(position, active, cfg)
+    return _node_values(w_acc, wp_acc, cfg, r), torch.cat([w_acc[..., None], wp_acc], dim=-1)
+
+
+def _node_words_torch(sums: torch.Tensor, g: torch.Tensor, cfg: MesherConfig) -> torch.Tensor:
+    """The node words of kernel F' from the node sums ``sums`` (W, X) of
+    :func:`_sample_surface_keep_torch`: (nx+1, ny+1, nz+1, 4) words
+    (a_n, b_n) for the cotangent ``g`` of the node values. Per node with
+    W > 0 (else zeros), diff = X / W - x_n and
 
         a_n = g_n diff / (sqrt(|diff|^2 + 1e-30) max(W, 1e-30)),  b_n = a_n . diff:
 
     the cotangents of the node sums are d X_n = a_n and
     d W_n = -a_n . avg_n = -(a_n . x_n + b_n)."""
-    w_acc, wp_acc = _node_sums(position, active, cfg)
+    w_acc, wp_acc = sums[..., 0], sums[..., 1:]
     w_safe = torch.clamp(w_acc, min=1e-30)
-    diff = wp_acc / w_safe[..., None] - _node_positions(cfg, position.dtype, position.device)
+    diff = wp_acc / w_safe[..., None] - _node_positions(cfg, sums.dtype, sums.device)
     scale = g / (torch.sqrt(torch.sum(diff * diff, dim=-1) + 1e-30) * w_safe)
     a = torch.where((w_acc > 0.0)[..., None], scale[..., None] * diff, torch.zeros_like(diff))
     # (a positive float32 W is a sum of cubes of at least 2^-24: the clamp at
@@ -165,10 +189,20 @@ def _node_cotangents_torch(
     return torch.cat([a, torch.sum(a * diff, dim=-1, keepdim=True)], dim=-1)
 
 
+def _node_cotangents_torch(
+    position: torch.Tensor, active: torch.Tensor, g: torch.Tensor, cfg: MesherConfig
+) -> torch.Tensor:
+    """The node words (a_n, b_n) of kernel F' for the cotangent ``g`` of the
+    node values, from the particles: :func:`_node_words_torch` of the node
+    sums."""
+    w_acc, wp_acc = _node_sums(position, active, cfg)
+    return _node_words_torch(torch.cat([w_acc[..., None], wp_acc], dim=-1), g, cfg)
+
+
 def _gather_cotangents_torch(
     position: torch.Tensor, active: torch.Tensor, ab: torch.Tensor, cfg: MesherConfig
 ) -> torch.Tensor:
-    """Plain version of ``surface_bwd``, the particle part of kernel F': per
+    """Plain version of the gather of kernel F' (``surface_bwd``): per
     particle over the (2 cr)^3 nodes around its cell that lie in the grid,
     with d = x_p - x_n, kl = 1 - |d|^2 / ext^2 and w = kl^3 where kl > 0,
 
@@ -211,8 +245,8 @@ def _sample_surface_vjp_torch(
     particle_radius: Optional[float] = None,
 ) -> torch.Tensor:
     """Cotangent (N, 3) of the positions for the cotangent ``g`` of the node
-    values, in closed form: the plain version of kernel F' (its node part,
-    then its particle part), equal to ``jax.vjp`` of
+    values, in closed form: the plain version of kernel F' (the node words,
+    then the gather), equal to ``jax.vjp`` of
     ``surface._sample_surface_jnp``. The radius shifts the values only and
     has no part in it."""
     ab = _node_cotangents_torch(position, active, g, cfg)
@@ -265,6 +299,20 @@ def _sample_surface_cuda(binned, cfg: MesherConfig, radius: float) -> torch.Tens
     return out
 
 
+def _sample_surface_keep_cuda(binned, cfg: MesherConfig, radius: float):
+    """Kernel F on the bins of :func:`_binned` (CUDA tensors) in the form
+    that also writes each node's sums (``surface_keep``): the node values and
+    the (nx+1, ny+1, nz+1, 4) sums (W, X) of
+    :func:`_sample_surface_keep_torch`, zeros where no particle is in reach.
+    Never falls back."""
+    nx, ny, nz = cfg.grid_size
+    pos_s, starts, _ = binned
+    out = torch.empty((nx + 1, ny + 1, nz + 1), dtype=torch.float32, device=pos_s.device)
+    sums = torch.empty((nx + 1, ny + 1, nz + 1, 4), dtype=torch.float32, device=pos_s.device)
+    kernels.launch("surface_keep", "lf_surface_keep", pos_s, starts, out, sums, *_geometry(cfg), radius)
+    return out, sums
+
+
 def _geometry(cfg: MesherConfig):
     """The grid arguments the surface kernels share."""
     ox, oy, oz = (float(o) for o in cfg.grid_offset)
@@ -272,46 +320,34 @@ def _geometry(cfg: MesherConfig):
             float(cfg.particle_extent) ** 2)
 
 
-def surface_bwd_nodes(binned, g: torch.Tensor, cfg: MesherConfig) -> torch.Tensor:
-    """The node part of kernel F' on the bins of :func:`_binned` (CUDA
-    tensors): kernel F's tile pass ending in the words (a_n, b_n) of
-    :func:`_node_cotangents_torch`, (nx+1, ny+1, nz+1, 4)."""
+def surface_bwd_gather(binned, sums: torch.Tensor, g: torch.Tensor, cfg: MesherConfig) -> torch.Tensor:
+    """Kernel F' on the bins of :func:`_binned` and the node sums of
+    :func:`_sample_surface_keep_cuda` (CUDA tensors): a thread a binned
+    particle gathers the node words (:func:`_node_words_torch`) of the nodes
+    in its reach (:func:`_gather_cotangents_torch`), formed from the sums and
+    the cotangent ``g`` (nx+1, ny+1, nz+1) as a tile's nodes are staged.
+    Returns (N, 3) in the sorted order; unbinned particles get 0."""
     nx, ny, nz = cfg.grid_size
+    nodes = (nx + 1, ny + 1, nz + 1)
     pos_s, starts, _ = binned
-    if not kernels.use_kernel(pos_s, starts, g):
-        raise ValueError(f"surface_bwd_nodes takes CUDA tensors, got {pos_s.device}")
-    g = g.contiguous()
-    kernels.check(g, torch.float32, (nx + 1, ny + 1, nz + 1), "node cotangent")
-    ab = torch.empty((nx + 1, ny + 1, nz + 1, 4), dtype=torch.float32, device=g.device)
-    kernels.launch("surface_bwd_nodes", "lf_surface_bwd_nodes", pos_s, starts, g, ab,
-                   *_geometry(cfg))
-    return ab
-
-
-def surface_bwd_gather(binned, ab: torch.Tensor, cfg: MesherConfig) -> torch.Tensor:
-    """The particle part of kernel F' on the bins of :func:`_binned` (CUDA
-    tensors): a thread a binned particle gathers the words of the nodes in
-    its reach (:func:`_gather_cotangents_torch`). Returns (N, 3) in the
-    sorted order; unbinned particles get 0."""
-    nx, ny, nz = cfg.grid_size
-    pos_s, starts, _ = binned
-    if not kernels.use_kernel(pos_s, starts, ab):
+    if not kernels.use_kernel(pos_s, starts, sums, g):
         raise ValueError(f"surface_bwd_gather takes CUDA tensors, got {pos_s.device}")
-    kernels.check(ab, torch.float32, (nx + 1, ny + 1, nz + 1, 4), "node words")
+    g = g.contiguous()
+    kernels.check(sums, torch.float32, (*nodes, 4), "node sums")
+    kernels.check(g, torch.float32, nodes, "node cotangent")
     d_sorted = torch.zeros_like(pos_s)
-    kernels.launch("surface_bwd", "lf_surface_bwd", pos_s, starts, ab, d_sorted, *_geometry(cfg))
+    kernels.launch("surface_bwd", "lf_surface_bwd", pos_s, starts, sums, g, d_sorted, *_geometry(cfg))
     return d_sorted
 
 
-def sample_surface_bwd(binned, g: torch.Tensor, cfg: MesherConfig) -> torch.Tensor:
-    """Kernel F' on the bins of :func:`_binned` (CUDA tensors): the cotangent
-    (N, 3) of the positions from the cotangent ``g`` (nx+1, ny+1, nz+1) of
-    the node values. Stands in for
-    ``libfluid_tpu/mesher/surface.py:_surface_bwd``. Two launches,
-    :func:`surface_bwd_nodes` and :func:`surface_bwd_gather`; the result goes
-    back through the sort's order. No atomics: the same bits from run to
-    run."""
-    d_sorted = surface_bwd_gather(binned, surface_bwd_nodes(binned, g, cfg), cfg)
+def sample_surface_bwd(binned, sums: torch.Tensor, g: torch.Tensor, cfg: MesherConfig) -> torch.Tensor:
+    """Kernel F' on the bins of :func:`_binned` and the node sums the forward
+    kept (CUDA tensors): the cotangent (N, 3) of the positions from the
+    cotangent ``g`` (nx+1, ny+1, nz+1) of the node values. Stands in for
+    ``libfluid_tpu/mesher/surface.py:_surface_bwd``. One launch,
+    :func:`surface_bwd_gather`; the result goes back through the sort's
+    order. No atomics: the same bits from run to run."""
+    d_sorted = surface_bwd_gather(binned, sums, g, cfg)
     out = torch.empty_like(d_sorted)
     out[binned[2]] = d_sorted
     return out

@@ -20,8 +20,8 @@ Twenty kernels carry the substep, the mesher and the gradients of both
     "correction"  correction._springs     correction springs   (csrc/correction.cu)
     "correction_bwd"  kernels.correction_springs_bwd  their VJP  (csrc/correction_bwd.cu)
     "surface"     surface.sample_surface  mesher node pass     (csrc/surface.cu)
-    "surface_bwd_nodes"  surface.sample_surface_bwd  its VJP, node part  (csrc/surface.cu)
-    "surface_bwd"        surface.sample_surface_bwd  particle part  (csrc/surface_bwd.cu)
+    "surface_keep"  surface.sample_surface  the same, node sums kept for F'  (csrc/surface.cu)
+    "surface_bwd"   surface.sample_surface_bwd  its VJP        (csrc/surface_bwd.cu)
 
 "p2g", "correction" and "surface" are tile kernels: a block brings what its
 tile of lattice points, cells or nodes reaches into shared memory once (for
@@ -30,12 +30,15 @@ cell nor the particles a bin) and tiles away from the fluid return at once.
 Their backward kernels are gathers on tiles too, without atomics:
 "p2g_bwd" fills the cotangent with zeros and then visits the occupied slots
 of each tile of cells with the tile's face cotangents in shared memory;
-"correction_bwd" is "correction"'s tile with the springs' cotangent staged
-beside the positions; "surface_bwd_nodes" is "surface"'s pass with another
-last step (four floats a node), which "surface_bwd" gathers a thread a
-particle, a block a tile of bins, the nodes in reach in shared memory.
-"p2g", "correction" and "correction_bwd" take any number of slots a cell (32
-at a time: the width of a cell's occupancy mask), "surface" and its
+"correction_bwd" stages the occupied slots of a tile of cells and its halo
+with their cotangents, and a warp takes a cell: the neighbours' slots
+within reach of the cell's (the others add exact zeros) over the lanes, the
+cell's own slots' sums in registers, then a fixed tree over the lanes; "surface_keep" is "surface" that also writes
+each node's sums (W, X) for a forward that wants a gradient, from which
+"surface_bwd" forms each node's cotangent words as it stages the nodes in
+reach of a tile of bins, then gathers them a thread a particle.
+"p2g", "correction" and "correction_bwd" take any number of slots a cell (a
+word of 32, or of 16 for "correction_bwd", at a time), "surface" and its
 backward any support (the box's bin starts and nodes a run at a time where
 shared memory runs out). "g2p" and "g2p_bwd" run a thread a particle
 (any order of particles): per-axis weight tables, the 24 live face samples
@@ -63,7 +66,7 @@ LAUNCHES = {
     "expand": 0, "p2g": 0, "p2g_bwd": 0, "stencil": 0, "stencil16": 0, "mg_pre": 0,
     "mg_restrict": 0, "mg_up": 0, "mg_coarse": 0, "mg16_pre": 0, "mg16_restrict": 0,
     "mg16_up": 0, "mg16_coarse": 0, "g2p": 0, "g2p_bwd": 0, "correction": 0,
-    "correction_bwd": 0, "surface": 0, "surface_bwd_nodes": 0, "surface_bwd": 0,
+    "correction_bwd": 0, "surface": 0, "surface_keep": 0, "surface_bwd": 0,
 }
 
 
@@ -255,9 +258,11 @@ def correction_springs_bwd(
 
     Stands in for ``libfluid_tpu/sim/correction.py:_springs_bwd`` (``jax.vjp``
     of the jnp oracle around ``_correction_kernel``). CUDA:
-    ``csrc/correction_bwd.cu``, kernel E's tile with ``g`` staged beside the
-    positions, a gather over the symmetric pair set, no atomics, 32 slots a
-    cell at a time.
+    ``csrc/correction_bwd.cu``: a block per tile of cells stages the occupied
+    slots of the tile and its halo with their cotangents, and a warp takes a
+    cell: the neighbours' slots within reach of the cell's over the lanes,
+    the cell's own in registers, a fixed tree over the lanes. A gather over
+    the symmetric pair set, no atomics, 16 slots a cell staged at a time.
     """
     if not use_kernel(res_pos, res_mask, g):
         raise ValueError(f"correction_springs_bwd takes CUDA tensors, got {res_pos.device}")

@@ -128,7 +128,7 @@ def test_wrappers_dispatch_by_device():
                        torch.empty(4, dtype=torch.bool, device="meta"), MesherConfig())
 
 
-@pytest.mark.parametrize("name", ["p2g_bwd", "correction_bwd", "surface_bwd_nodes", "surface_bwd"])
+@pytest.mark.parametrize("name", ["p2g_bwd", "correction_bwd", "surface_bwd"])
 def test_backward_on_the_card_launches_its_kernel_or_raises(name, monkeypatch):
     """On a CUDA tensor every backward launches its kernel, and a launch that
     fails raises: nothing falls back to the plain version. Without a card the
@@ -165,6 +165,32 @@ def test_backward_on_the_card_launches_its_kernel_or_raises(name, monkeypatch):
     assert launched[-1] == name
 
 
+@pytest.mark.parametrize("mode", ["grad", "no_grad", "no_leaf"])
+def test_mesh_gradient_launches_the_keep_form_then_surface_bwd_alone(mode, monkeypatch):
+    """On "CUDA" tensors a forward whose positions want a gradient launches
+    kernel F in the form that keeps the node sums (``surface_keep``), and
+    its backward launches ``surface_bwd`` alone: no second node pass. A
+    forward under ``no_grad``, or on positions that want no gradient,
+    launches the plain ``surface`` and keeps nothing."""
+    from libfluid_tpu_torch.mesher import surface
+
+    launched = []
+    monkeypatch.setattr(kernels, "use_kernel", lambda *tensors: True)
+    monkeypatch.setattr(kernels, "launch", lambda kernel, entry, *args: launched.append(kernel))
+    pos = torch.rand((40, 3)) * 4.0
+    leaf = pos.clone().requires_grad_(mode != "no_leaf")
+    act = torch.ones(40, dtype=torch.bool)
+    mcfg = MesherConfig(grid_size=(8, 8, 8))
+    with torch.set_grad_enabled(mode != "no_grad"):
+        out = surface.sample_surface(leaf, act, mcfg)
+    if mode != "grad":
+        assert launched == ["surface"] and not out.requires_grad
+        return
+    assert launched == ["surface_keep"]
+    torch.autograd.grad(out.sum(), leaf)
+    assert launched == ["surface_keep", "surface_bwd"]
+
+
 def test_backward_wrappers_refuse_cpu_tensors():
     """The backward kernels' wrappers take CUDA tensors only: the dispatch to
     the plain versions is made by the autograd functions above them."""
@@ -179,10 +205,11 @@ def test_backward_wrappers_refuse_cpu_tensors():
         kernels.correction_springs_bwd(data[:3], data[3], data[:3], 0.5, 1)
     mcfg = MesherConfig(grid_size=(8, 8, 8))
     binned = surface.bin_particles(torch.rand((10, 3)), torch.ones(10, dtype=torch.bool), mcfg)
+    sums = torch.zeros((9, 9, 9, 4))
     with pytest.raises(ValueError):
-        surface.sample_surface_bwd(binned, torch.zeros((9, 9, 9)), mcfg)
+        surface.sample_surface_bwd(binned, sums, torch.zeros((9, 9, 9)), mcfg)
     with pytest.raises(ValueError):
-        surface.surface_bwd_gather(binned, torch.zeros((9, 9, 9, 4)), mcfg)
+        surface.surface_bwd_gather(binned, sums, torch.zeros((9, 9, 9)), mcfg)
 
 
 def _constructors():

@@ -2,8 +2,10 @@
 (``surface._sample_surface_vjp_torch``, the arithmetic kernel F' implements:
 a node pass, then a gather per particle) against ``jax.vjp`` of the JAX
 package's scatter oracle ``_sample_surface_jnp`` and against the port's own
-autograd of the plain version, on numpy-seeded particles; and a numpy model
-of the particle part's slab algorithm against ``jax.vjp`` of the oracle.
+autograd of the plain version, on numpy-seeded particles; a numpy model of
+the kernel's slab algorithm, node words formed from the kept node sums,
+against ``jax.vjp`` of the oracle; and the plain form of the forward that
+keeps those sums.
 
 Tolerances, as shares of the largest component of the reference cotangent:
 2e-4 against the two float32 references and 1e-5 against the plain autograd
@@ -90,7 +92,7 @@ def test_surface_vjp_closed_form_matches_jax_and_autograd(case, extent):
     t_kernels.reset_launches()
     leaf = tp.clone().requires_grad_()
     (auto,) = torch.autograd.grad(t_surface.sample_surface(leaf, ta, tcfg, extent / 4), leaf, tg)
-    assert not any(t_kernels.LAUNCHES[k] for k in ("surface", "surface_bwd_nodes", "surface_bwd"))
+    assert not any(t_kernels.LAUNCHES[k] for k in ("surface", "surface_keep", "surface_bwd"))
 
     leaf = tp.double().requires_grad_()
     (auto64,) = torch.autograd.grad(
@@ -116,16 +118,32 @@ def test_surface_vjp_closed_form_matches_jax_and_autograd(case, extent):
         assert np.float32(1.0) - np.float32(d @ d) / np.float32(extent * extent) == 0.0
 
 
-def _slab_gather(pos, active, ab, cfg, slab_nodes, tb=8):
-    """The particle part of kernel F' (``csrc/surface_bwd.cu``) in numpy,
-    float32 throughout: a block per tile of tb^3 bins of the padded bin
-    grid; the tile's rows of bins as one list of the sorted particles; the
-    box of tb + 2 cr - 1 nodes an axis that the tile reaches, staged whole
-    where it fits `slab_nodes` words, else a slab of (x, y) lines at a time
-    in line order, each particle's window clipped to the slab; a particle
-    summing its window x, y, z ascending. ``ab`` is the node part's words.
-    Returns the cotangents in the particles' order and the most slabs a tile
-    took."""
+def _node_words(sums, g, cfg):
+    """Kernel F''s node words (a_n, b_n) in numpy, float32, in its
+    expression order, from the kept node sums (W, X) and the cotangent g of
+    the node values: zeros where W = 0."""
+    f32 = np.float32
+    nodes = g.shape
+    idx = np.stack(np.meshgrid(*(np.arange(n) for n in nodes), indexing="ij"), -1).astype(f32)
+    x_n = np.asarray(cfg.grid_offset, f32) + idx * f32(cfg.cell_size)
+    w_c = np.maximum(sums[..., 0], f32(1e-30))
+    d = sums[..., 1:] / w_c[..., None] - x_n
+    norm = np.sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2] + f32(1e-30))
+    a = (g / (norm * w_c))[..., None] * d
+    ab = np.concatenate([a, (a[..., 0] * d[..., 0] + a[..., 1] * d[..., 1] + a[..., 2] * d[..., 2])[..., None]], -1)
+    return np.where((sums[..., 0] > 0)[..., None], ab, f32(0.0))
+
+
+def _slab_gather(pos, active, sums, g, cfg, slab_nodes, tb=8):
+    """Kernel F' (``csrc/surface_bwd.cu``) in numpy, float32 throughout: a
+    block per tile of tb^3 bins of the padded bin grid; the tile's rows of
+    bins as one list of the sorted particles; the box of tb + 2 cr - 1 nodes
+    an axis that the tile reaches, its node words formed from the kept sums
+    (:func:`_node_words`) as it is staged, whole where it fits `slab_nodes`
+    words, else a slab of (x, y) lines at a time in line order, each
+    particle's window clipped to the slab; a particle summing its window x,
+    y, z ascending. Returns the cotangents in the particles' order and the
+    most slabs a tile took."""
     f32 = np.float32
     pos_s, starts, order = (t.numpy() for t in t_surface.bin_particles(
         torch.from_numpy(pos), torch.from_numpy(active), cfg))
@@ -140,6 +158,7 @@ def _slab_gather(pos, active, ab, cfg, slab_nodes, tb=8):
     w = tb + n2 - 1
     lines = w * w
     sl = lines if w**3 <= slab_nodes else min(lines, slab_nodes // w)
+    ab = _node_words(sums, g, cfg)
     out = np.zeros_like(pos_s)
     most_slabs = 0
     for t0x in range(0, bx_n, tb):
@@ -212,16 +231,16 @@ def test_surface_bwd_slab_algorithm_matches_jax(extent, slab_nodes):
     """The particle part of kernel F' where the box of nodes does not fit
     shared memory and is staged a slab of lines at a time: at a support of 5
     cells with the kernel's own 3584 words (the first support that takes
-    slabs), and at 2 cells with slabs of 3 lines. Node words from the plain
-    node part; against ``jax.vjp`` of the scatter oracle, and the same bits
-    as the box staged whole."""
+    slabs), and at 2 cells with slabs of 3 lines. Node sums from the plain
+    form of the forward that keeps them; against ``jax.vjp`` of the scatter
+    oracle, and the same bits as the box staged whole."""
     cfg, tcfg = _cfgs(extent)
     pos, active, _ = _particles("inactive", extent)
     rng = np.random.default_rng(5)
     g = rng.normal(size=tuple(n + 1 for n in GRID)).astype(np.float32)
-    tp, ta, tg = torch.from_numpy(pos), torch.from_numpy(active), torch.from_numpy(g)
-    ab = t_surface._node_cotangents_torch(tp, ta, tg, tcfg).numpy()
-    got, slabs = _slab_gather(pos, active, ab, tcfg, slab_nodes)
+    tp, ta = torch.from_numpy(pos), torch.from_numpy(active)
+    sums = t_surface._sample_surface_keep_torch(tp, ta, tcfg, extent / 4)[1].numpy()
+    got, slabs = _slab_gather(pos, active, sums, g, tcfg, slab_nodes)
     assert slabs > 1
     # eager: compiling the oracle's unrolled scatters takes longer than running them
     _, vjp = jax.vjp(lambda p: surface._sample_surface_jnp(p, jnp.asarray(active), cfg, extent / 4),
@@ -231,9 +250,42 @@ def test_surface_bwd_slab_algorithm_matches_jax(extent, slab_nodes):
     assert scale > 0
     assert float(np.max(np.abs(got - want))) / scale < RTOL
     assert not got[~active].any()
-    whole, slabs = _slab_gather(pos, active, ab, tcfg, 1 << 30)
+    whole, slabs = _slab_gather(pos, active, sums, g, tcfg, 1 << 30)
     assert slabs == 1
     np.testing.assert_array_equal(got, whole)
+
+
+@pytest.mark.parametrize("extent", [0.5, 1.0], ids=["support-1", "support-2"])
+@pytest.mark.parametrize("case", ["random", "lone-on-a-node", "outside-in-padding", "no-particle"])
+def test_keep_form_returns_the_values_and_the_node_sums(case, extent):
+    """The plain form of ``surface_keep`` (the forward that wants a
+    gradient) returns the plain forward's values and :func:`_node_sums`'s
+    (W, X), zeros where no particle reaches; the node words formed from
+    those sums equal :func:`_node_cotangents_torch`'s, and the kernel's
+    expression order (:func:`_node_words`) gives them within 1e-5 where
+    W > 1e-3 (a node's words carry 1 / W)."""
+    _, tcfg = _cfgs(extent)
+    pos, active, _ = _particles(case, extent)
+    rng = np.random.default_rng(9)
+    g = rng.normal(size=tuple(n + 1 for n in GRID)).astype(np.float32)
+    tp, ta, tg = torch.from_numpy(pos), torch.from_numpy(active), torch.from_numpy(g)
+    values, sums = t_surface._sample_surface_keep_torch(tp, ta, tcfg, extent / 4)
+    assert torch.equal(values, t_surface._sample_surface_torch(tp, ta, tcfg, extent / 4))
+    weight, moments = t_surface._node_sums(tp, ta, tcfg)
+    assert sums.shape == weight.shape + (4,)
+    assert torch.equal(sums[..., 0], weight) and torch.equal(sums[..., 1:], moments)
+    assert not sums[weight == 0].any()
+    words = t_surface._node_words_torch(sums, tg, tcfg)
+    assert torch.equal(words, t_surface._node_cotangents_torch(tp, ta, tg, tcfg))
+    if case == "no-particle":
+        assert not words.any() and bool((values == 1.0).all())
+        return
+    well = (weight > 1e-3).numpy()
+    assert well.any()
+    model = _node_words(sums.numpy(), g, tcfg)
+    scale = float(np.abs(words.numpy()[well]).max())
+    assert float(np.abs(model[well] - words.numpy()[well]).max()) < 1e-5 * scale
+    assert not model[~(weight > 0).numpy()].any()
 
 
 def test_bin_order_puts_the_result_back():

@@ -18,9 +18,10 @@ them, and ``--parent <tree>`` does the same for the sources of another tree
 ``--backward`` does kernels B' (``csrc/p2g_bwd.cu``: its zero fill as a
 kernel or as cudaMemsetAsync, the pass over the occupied slots with all 54
 faces a slot or one part switched off at a time, other tiles and register
-budgets) and E'
-(``csrc/correction_bwd.cu``: 1 / sqrtf for rsqrtf, the smaller tile) and
-nothing else; ``--backward --parent <tree>`` times B' as another tree has it.
+budgets) and E' (``csrc/correction_bwd.cu``: ``rsqrtf``, no cull, one or
+four i's at a time, another tile, one or eight tiles a block, and the
+kernel cut short after its zeros and staging, or without its pair loop)
+and nothing else; ``--backward --parent <tree>`` times B' as another tree has it.
 
 Run from the repository root on a machine with an H100:
 
@@ -253,8 +254,18 @@ BB_PARTS = {
 # kernel E'
 EB_PARTS = {
     "as built": [],
-    "1 / sqrtf for rsqrtf": [("const float rs = rsqrtf(sq);", "const float rs = 1.0f / sqrtf(sq);")],
-    "the 4 x 4 x 4 tile at every KC": [("constexpr int BIG_TILE_MAX_KC = 18;", "constexpr int BIG_TILE_MAX_KC = 0;")],
+    "rsqrtf (with its fix-up for denormals)": [("const float rs = coincide ? 0.0f : rsqrt_normal(sq);",
+                                                "const float rs = coincide ? 0.0f : rsqrtf(sq);")],
+    "every j kept (no cull)": [("dx * dx + dy * dy + dz * dz < cut2;",
+                                "(dx * dx + dy * dy + dz * dz < cut2 || re2 > 0.0f);")],
+    "the i's one at a time": [("constexpr int IG = 2;", "constexpr int IG = 1;")],
+    "the i's four at a time": [("constexpr int IG = 2;", "constexpr int IG = 4;")],
+    "the 4 x 4 x 4 tile": [("constexpr int TX = 2, TY = 4, TZ = 8;", "constexpr int TX = 4, TY = 4, TZ = 4;")],
+    "one tile a block": [("constexpr int TILES = 4;", "constexpr int TILES = 1;")],
+    "eight tiles a block": [("constexpr int TILES = 4;", "constexpr int TILES = 8;")],
+    "the zeros and the staging only": [("      // 3. a warp a cell of the tile\n", "      if (KC > 0) continue;\n")],
+    "no pair loop (the box, the cull, the tree, the writes)": [
+        ("for (int v = lane; v < kept; v += 32) {", "for (int v = lane; v < kept && re2 < 0.0f; v += 32) {")],
 }
 
 
