@@ -14,10 +14,14 @@ Phases, one line of output each (or a few):
    shapes the 128^3 main path gives it (the state after one substep with
    position correction on, meshed on the 261^3-node grid), with error,
    median time of both and the least time the card could take (its bound);
-   the fused V-cycle's four kernels each against its plain stage function,
+   the fused V-cycle's four kernels each against its plain stage function
+   at every level they run, with the device's own time of each and the
+   route the coarse kernel took (its levels in shared or in device memory),
    and the whole fused cycle against the plain cycle, on the 128^3 levels
-   and on the 50^3 levels of testbed setup 4, with the times of the fused,
-   the per-pass and the plain cycle and the launches of one cycle; the
+   and on the 50^3 levels of testbed setup 4 (float32 and bfloat16), with
+   the times of the fused, the per-pass and the plain cycle and the
+   launches of one cycle; the coarse kernel's two routes on the one level
+   of two thin slabs (80 x 72 x 16 shared, 128 x 128 x 16 device); the
    host-clock ms of one V-cycle and one operator call, the kernels of a CG
    iteration; CG iterations of a substep with the fused and with the
    per-pass cycle; the same for the bfloat16 ("mg16") instance of the four
@@ -66,8 +70,10 @@ Phases, one line of output each (or a few):
    ``step(1/60)``, then ``generate_mesh`` on the 260^3-cell mesher grid,
    with the healthy-output checks and the launch counts; then the stage
    split of a substep (a synchronize around each stage), ms per CG
-   iteration beside phase 3's times of its kernels, and the device's busy
-   share of one substep (torch.profiler);
+   iteration beside phase 3's times of its kernels, one CG iteration's
+   wall and device time split into the V-cycle's kernels, the operator,
+   the vector and reduction ops and the idle time after the host read
+   (torch.profiler), and the device's busy share of one substep;
 7. the same dam-break with position correction off, 2 substeps;
 8. the gradient paths: the 128^3 correction-off dam-break, 2 steps of
    gradient descent on the initial velocities through 2 unrolled substeps
@@ -148,7 +154,7 @@ import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile
 
 from libfluid_tpu_torch import _build, checkpoint, dcc, native, profiling, testbed, voxelizer
-from libfluid_tpu_torch.config import MesherConfig, RenderConfig, SimConfig, SolverConfig, TransferScheme
+from libfluid_tpu_torch.config import CellType, MesherConfig, RenderConfig, SimConfig, SolverConfig, TransferScheme
 from libfluid_tpu_torch import sim
 from libfluid_tpu_torch.renderer import accel, bdpt, intersect, loops, pathtrace, scenes
 from libfluid_tpu_torch.renderer.camera import Camera
@@ -305,16 +311,17 @@ def wall_ms(fn, reps: int = 20) -> float:
     return (time.perf_counter() - t0) / reps * 1e3
 
 
-def vcycle_phases(levels, what: str, device_times: bool = False):
+def vcycle_phases(levels, what: str):
     """The fused V-cycle's kernels on `levels`, in the hierarchy's dtype: each
     against its plain stage function on the inputs the plain cycle gives
     that stage (float32: rtol 1e-6 / atol 1e-5; bfloat16, "mg16_*": equal),
-    the coarse kernel on its own, then the whole cycle against the plain one
+    with the device's own time of each kernel at every level it runs, the
+    coarse kernel on its own with the route it took (its levels in shared
+    memory or in device memory), then the whole cycle against the plain one
     (float32: 1e-5 max|b|; bfloat16: equal) and beside the per-pass cycle,
-    with times and the launches of one cycle. With `device_times`, also the
-    device's own time of each kernel at its first level. Returns the record
-    of each kernel at its first (largest) level, and the host-clock ms of
-    one fused cycle."""
+    with times and the launches of one cycle. Returns the record of each
+    kernel at its first (largest) level, and the host-clock ms of one fused
+    cycle."""
     dev = levels[0].fluid.device
     dtype = levels[0].fluid.dtype
     prefix = multigrid._VCYCLE[dtype]
@@ -354,9 +361,8 @@ def vcycle_phases(levels, what: str, device_times: bool = False):
             check(holds(got, want), f"{name} at {shapes[l]} ({what}) error {err}")
             rec = dict(max_abs_err=err, ms=median_ms(fused), plain_ms=median_ms(plain), **bnd)
             kernel = name.replace(prefix, "mg") + "_kernel"  # one template, two instances
-            own = (f"; device time {device_ms(fused, kernel)} (torch.profiler)"
-                   if device_times and name not in out else "")
-            log(f"kernel {name} ({what}) level {shapes[l]}: {held}, {rec}{own}")
+            log(f"kernel {name} ({what}) level {shapes[l]}: {held}, {rec}; device time "
+                f"{device_ms(fused, kernel)} (torch.profiler)")
             out.setdefault(name, rec)
     bc = bs[first]
     lows = levels[first:]
@@ -369,10 +375,10 @@ def vcycle_phases(levels, what: str, device_times: bool = False):
         plain_ms=median_ms(lambda: multigrid._coarse_torch(levels, bc, first)),
         **bound(nbytes(bc, got, *(a for lv in lows for a in multigrid._level_args(lv))),
                 40.0 * sum(lv.fluid.numel() for lv in lows) * 6))
-    log(f"kernel {names[3]} ({what}) levels {shapes[first:]}: {held} (max "
-        f"{float(want.abs().max()):.3e}), {out[names[3]]}"
-        + (f"; device time {device_ms(lambda: multigrid.coarse_cycle(levels, bc, first), 'mg_coarse_kernel')} "
-           f"(torch.profiler)" if device_times else ""))
+    route = multigrid.coarse_route([lv.fluid.numel() for lv in lows], dtype)
+    log(f"kernel {names[3]} ({what}) levels {shapes[first:]}, route {route}: {held} (max "
+        f"{float(want.abs().max()):.3e}), {out[names[3]]}; device time "
+        f"{device_ms(lambda: multigrid.coarse_cycle(levels, bc, first), 'mg_coarse_kernel')} (torch.profiler)")
 
     torch.cuda.synchronize()
     kernels.reset_launches()
@@ -398,6 +404,40 @@ def vcycle_phases(levels, what: str, device_times: bool = False):
         f"{wall_ms(lambda: multigrid.v_cycle_per_pass(levels, b), 5):.4f}; bound {cyc['bound_ms']:.4f} ms "
         f"({cyc['bound_by']})")
     return out, fused_wall
+
+
+def coarse_routes(device) -> None:
+    """The coarse kernel on the last level of a thin slab, in both dtypes:
+    80 x 72 x 16 ends in one level of 11,520 cells, which stays in shared
+    memory; 128 x 128 x 16 in one of 32,768 cells, the most one block takes,
+    which runs in device memory. Each against its plain sub-cycle (float32:
+    rtol 1e-6 / atol 1e-5; bfloat16: equal), with its route and device
+    time."""
+    gen = torch.Generator(device=device).manual_seed(4)
+    for shape, route in (((80, 72, 16), "shared"), ((128, 128, 16), "device")):
+        ct = torch.full(shape, CellType.AIR, dtype=torch.int8, device=device)
+        ct[:, 0, :] = CellType.SOLID
+        fluid = torch.rand(shape, generator=gen, device=device) < 0.7
+        fluid[:, 2 * shape[1] // 3:, :] = False
+        ct[fluid & (ct == CellType.AIR)] = CellType.FLUID
+        for levels in (multigrid.build_levels(ct), bf16_levels(multigrid.build_levels(ct))):
+            dtype = levels[0].fluid.dtype
+            first = multigrid.first_coarse_level(levels)
+            cells = [lv.fluid.numel() for lv in levels[first:]]
+            check(first == len(levels) - 1 and multigrid.coarse_route(cells, dtype) == route,
+                  f"{shape}: levels of {cells} cells from level {first} do not take route {route}")
+            b = (20.0 * torch.randn(levels[first].fluid.shape, generator=gen, device=device)).to(dtype)
+            b = b * levels[first].fluid
+            got = multigrid.coarse_cycle(levels, b, first)
+            want = multigrid._coarse_torch(levels, b, first)
+            exact = dtype == torch.bfloat16
+            check(torch.equal(got, want) if exact else close(got, want, 1e-6, 1e-5),
+                  f"mg_coarse route {route} on {shape} ({dtype}) error {max_err(got, want)}")
+            log(f"kernel {multigrid._VCYCLE[dtype]}_coarse, route {route}, one level "
+                f"{tuple(levels[first].fluid.shape)} of a {shape} slab ({dtype}): "
+                f"{'equal' if exact else f'max abs error {max_err(got, want):.3e}'}; device time "
+                f"{device_ms(lambda: multigrid.coarse_cycle(levels, b, first), 'mg_coarse_kernel')} "
+                f"(torch.profiler)")
 
 
 def bf16_levels(levels):
@@ -751,7 +791,7 @@ def kernel_phases(cfg, state):
         f" (torch.profiler)")
     operator_wall = wall_ms(lambda: multigrid.apply_level(lvl, x))
     del lvl, x, b
-    records, cycle_wall = vcycle_phases(levels, "128^3", device_times=True)
+    records, cycle_wall = vcycle_phases(levels, "128^3")
     out.update(records)
     log(f"a 128^3 CG iteration's kernels on the host clock: V-cycle {cycle_wall:.4f} ms, operator "
         f"(apply_level) {operator_wall:.4f} ms")
@@ -759,14 +799,17 @@ def kernel_phases(cfg, state):
     tcfg, tstate = testbed.build_setup(4)
     for _ in range(2):
         tstate, _ = sim.substep(tstate, tcfg, 0.005)
-    vcycle_phases(multigrid.build_levels(tstate.grid.cell_type), "50^3 testbed setup 4")
-    del tstate
+    levels50 = multigrid.build_levels(tstate.grid.cell_type)
+    vcycle_phases(levels50, "50^3 testbed setup 4")
+    vcycle_phases(bf16_levels(levels50), "50^3 testbed setup 4, bfloat16")
+    del tstate, levels50
+    coarse_routes(state.position.device)
     cg_parity(state, cfg)
     # the mg16 cycle: its four kernels and the cycle on the 128^3 levels in
     # bfloat16, as pressure._cg copies them; CG parity on a FLIP + mg16
     # substep of the same state
     levels16 = bf16_levels(multigrid.build_levels(state.grid.cell_type))
-    records16, _ = vcycle_phases(levels16, "128^3 bfloat16", device_times=True)
+    records16, _ = vcycle_phases(levels16, "128^3 bfloat16")
     out.update(records16)
     del levels16
     cg_parity(state, flip_mg16(cfg), "128^3 FLIP + mg16")
@@ -1870,6 +1913,78 @@ def stage_split(state, cfg, n0: int, cg_parts, substeps: int = 3, what: str = "1
     return state
 
 
+def solve_inputs(state, cfg):
+    """The arguments ``substep`` gives ``pressure.solve`` from `state` (one
+    substep run to capture them; the state's draws are restored)."""
+    captured, solve = [], pressure.solve
+
+    def grab(*args, **kwargs):
+        captured.append((args, kwargs))
+        return solve(*args, **kwargs)
+
+    draws = state.generator.get_state()
+    pressure.solve = grab
+    try:
+        sim.substep(state, cfg, DT)
+    finally:
+        pressure.solve = solve
+        state.generator.set_state(draws)
+    return captured[0]
+
+
+def profiled_solve(args, kwargs, cfg):
+    """One ``pressure.solve`` under torch.profiler: (CG iterations, wall ms,
+    device ms by part: the V-cycle's kernels, the operator, the rest; the
+    device's idle ms after each host read of the residual, from the end of
+    its copy to the host to the start of the next device item)."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = pressure.solve(*args[:1], cfg, *args[2:], **kwargs)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    items = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                   key=lambda e: e.time_range.start)
+    parts = {"V-cycle kernels": 0.0, "operator": 0.0, "vector and reduction ops": 0.0}
+    read_gap = 0.0
+    for e, after in zip(items, items[1:] + [None]):
+        name = e.name
+        part = ("V-cycle kernels" if "mg_" in name and "_kernel" in name
+                else "operator" if "stencil_kernel" in name else "vector and reduction ops")
+        parts[part] += e.device_time_total / 1e3
+        if "DtoH" in name and after is not None:
+            read_gap += max(after.time_range.start - e.time_range.end, 0.0) / 1e3
+    return int(res.iterations), wall, parts, read_gap
+
+
+def cg_iteration_split(state, cfg, what: str = "128^3") -> None:
+    """What one CG iteration of the main path's solve is made of, on the
+    solve that a substep from `state` makes: the solve run to convergence
+    and with 2 iterations, each on the host clock (mean of 3) and once under
+    torch.profiler; their difference over the iterations between is one
+    iteration's wall time, its device busy time split into the V-cycle's
+    kernels, the operator and PyTorch's vector and reduction ops, and the
+    device's idle time after the host read of the residual."""
+    args, kwargs = solve_inputs(state, cfg)
+    short = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, max_iterations=2))
+    runs = {}
+    for name, c in (("full", cfg), ("short", short)):
+        plain_wall = wall_ms(lambda: pressure.solve(*args[:1], c, *args[2:], **kwargs), 3)
+        runs[name] = (plain_wall, *profiled_solve(args, kwargs, c))
+    (w_full, it_full, pw_full, parts_full, gap_full), (w_short, it_short, pw_short, parts_short, gap_short) = (
+        runs["full"], runs["short"])
+    check(it_short == 2 and it_full > 2, f"{what} CG split: iterations {it_full} and {it_short}")
+    k = it_full - it_short
+    parts = {name: (parts_full[name] - parts_short[name]) / k for name in parts_full}
+    busy = sum(parts.values())
+    wall, pwall, gap = (w_full - w_short) / k, (pw_full - pw_short) / k, (gap_full - gap_short) / k
+    log(f"{what} CG iteration split ({it_full} iterations against {it_short}): wall {wall:.4f} ms "
+        f"(under the profiler {pwall:.4f}); device busy {busy:.4f} ms = "
+        + ", ".join(f"{name} {ms:.4f}" for name, ms in parts.items())
+        + f"; device idle {pwall - busy:.4f} ms under the profiler, of it {gap:.4f} ms from the end of "
+        f"the residual's copy to the host to the next device item (the host read)")
+
+
 def busy_share(state, cfg, n0: int):
     """One substep under torch.profiler: the device's busy share of the
     wall time and the largest device items."""
@@ -1925,6 +2040,7 @@ def dam_break_run(device, correct: bool, substeps: int, cg_parts=None):
 
     if cg_parts is not None:
         state = stage_split(state, cfg, n0, cg_parts)
+        cg_iteration_split(state, cfg)
         state = busy_share(state, cfg, n0)
         t0 = time.perf_counter()
         state, sdiag = sim.step(state, cfg, 1.0 / 60.0)

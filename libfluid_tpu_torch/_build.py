@@ -56,11 +56,11 @@ SIGNATURES = {
     "lf_mg_pre": [_P] * 8 + [_I, _I, _I, _F, _F, _P],
     "lf_mg_restrict": [_P] * 10 + [_I, _I, _I, _F, _P],
     "lf_mg_up": [_P] * 10 + [_I, _I, _I, _F, _F, _P],
-    "lf_mg_coarse": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _P],
+    "lf_mg_coarse": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _I, _P],
     "lf_mg16_pre": [_P] * 8 + [_I, _I, _I, _F, _F, _P],
     "lf_mg16_restrict": [_P] * 10 + [_I, _I, _I, _F, _P],
     "lf_mg16_up": [_P] * 10 + [_I, _I, _I, _F, _F, _P],
-    "lf_mg16_coarse": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _P],
+    "lf_mg16_coarse": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _I, _P],
     "lf_g2p": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _F, _F, _F, _F, _P],
     "lf_g2p_bwd": [_P] * 10 + [_LL, _I, _I, _I, _F, _F, _F, _F, _P],
     "lf_correction": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P],

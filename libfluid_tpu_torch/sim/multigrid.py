@@ -302,12 +302,15 @@ _VCYCLE = {torch.float32: "mg", torch.bfloat16: "mg16"}
 # A level of at most this many cells, and every level below it, runs inside
 # the one-block kernel "mg_coarse"; the larger levels above take "mg_pre",
 # "mg_restrict" and "mg_up", one launch each ("mg16_*" in bfloat16). The
-# last level is always coarse; "mg_coarse" sweeps its levels out of device
+# last level is always coarse; "mg_coarse" keeps its levels in shared memory
+# where they fit (:func:`coarse_route`), else sweeps them out of device
 # memory with one block, and a level above _COARSE_CELLS_MAX cells is
 # refused (a hierarchy that ends so large: a thin slab, or more than
 # _MAX_LEVELS halvings to go).
 _COARSE_CELLS = 16 * 16 * 16
 _COARSE_CELLS_MAX = 32 * 32 * 32
+# the shared memory one block may take on the H100 (227 KB)
+_BLOCK_SMEM_MAX = 232448
 
 
 def _smooth_plain(level: MGLevel, x: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:
@@ -403,6 +406,25 @@ def bottom_route(cells: Sequence[int], l: int) -> str:
     return "block"
 
 
+def coarse_smem_bytes(cells: Sequence[int], dtype: torch.dtype) -> int:
+    """The shared memory "mg_coarse" ("mg16_coarse") takes to keep levels of
+    `cells` cells resident: a cell's inv_diag, b and two x buffers in the
+    storage type, and a 16-bit word of its masks (fluid, six faces, diag)."""
+    return sum(cells) * (4 * dtype.itemsize + 2)
+
+
+def coarse_route(cells: Sequence[int], dtype: torch.dtype) -> str:
+    """Where "mg_coarse" runs the levels of `cells` cells (its sub-cycle,
+    finest first) in `dtype`: "shared", every level in the block's shared
+    memory for the whole cycle, where :func:`coarse_smem_bytes` fits one
+    block; else "device", the levels and their scratch in device memory
+    (only a last level of many cells: a thin slab). Either is a route of the
+    kernel; nothing falls back to the plain cycle. Route "shared" keeps the
+    masks as bits: it takes the 0/1 couplings and fluid and the integer
+    diagonal that :func:`build_levels` makes."""
+    return "shared" if coarse_smem_bytes(cells, dtype) <= _BLOCK_SMEM_MAX else "device"
+
+
 def _check_coarse(sub: Tuple[MGLevel, ...]) -> None:
     """Raise unless the one-block kernel takes these levels."""
     if len(sub) > _MAX_LEVELS:
@@ -454,15 +476,18 @@ def _launch_coarse(levels: Tuple[MGLevel, ...], b: torch.Tensor, l: int) -> torc
     sub = levels[l:]
     _check_coarse(sub)
     sizes = [lev.fluid.numel() for lev in sub]
-    # xa and xb of every level, and the right-hand sides below the first
-    scratch = torch.empty(3 * sum(sizes) - sizes[0], dtype=b.dtype, device=b.device)
+    smem, scratch = 0, None
+    if coarse_route(sizes, b.dtype) == "shared":
+        smem = coarse_smem_bytes(sizes, b.dtype)
+    else:  # xa and xb of every level, and the right-hand sides below the first
+        scratch = torch.empty(3 * sum(sizes) - sizes[0], dtype=b.dtype, device=b.device)
     out = torch.empty_like(b)
     arrays = (ctypes.c_void_p * (6 * len(sub)))(
         *(t.data_ptr() for lev in sub for t in _level_args(lev)))
     dims = (ctypes.c_int * (3 * len(sub)))(*(n for lev in sub for n in lev.fluid.shape))
     scales = (ctypes.c_float * len(sub))(*(lev.scale for lev in sub))
     _launch("coarse", b.dtype, b, arrays, dims, scales, len(sub), scratch, out, _PRE_SMOOTH,
-            _POST_SMOOTH, _COARSE_ITERS, _weak(_SMOOTH_DAMP, b.dtype))
+            _POST_SMOOTH, _COARSE_ITERS, _weak(_SMOOTH_DAMP, b.dtype), smem)
     return out
 
 
@@ -508,10 +533,11 @@ def prolong_smooth(level: MGLevel, x: torch.Tensor, ec: torch.Tensor,
 def coarse_cycle(levels: Tuple[MGLevel, ...], b: torch.Tensor, l: int) -> torch.Tensor:
     """``v_cycle(levels, b, l)`` of the JAX package for the small levels:
     the whole sub-cycle from level `l` down, the coarsest level's sweeps
-    included. CUDA: "mg_coarse" ("mg16_coarse"), one launch of one block,
-    or, for a last level too large for one block, its sweeps as "stencil"
-    ("stencil16") launches (:func:`bottom_route`); CPU:
-    :func:`_coarse_torch`."""
+    included. CUDA: "mg_coarse" ("mg16_coarse"), one launch of one block
+    with the levels in its shared memory or, where they do not fit, in
+    device memory (:func:`coarse_route`), or, for a last level too large for
+    one block, its sweeps as "stencil" ("stencil16") launches
+    (:func:`bottom_route`); CPU: :func:`_coarse_torch`."""
     if not kernels.use_kernel(b, *(lev.fluid for lev in levels[l:])):
         return _coarse_torch(levels, b, l)
     _check_hierarchy(levels)

@@ -1,5 +1,24 @@
-"""Two trees of the port on one card in one call: kernels B, F, D, D', B', E,
-E' and F', and the gradient runs that take E' and F'.
+"""Two trees of the port on one card in one call: the fused V-cycle's
+kernels, kernels B, F, D, D', B', E, E' and F', and the gradient runs that
+take E' and F'.
+
+The V-cycle part (``--vcycle`` runs it alone) comes first for each tree, in
+a process of its own: on the 128^3 main path's hierarchy (the state one
+substep from rest), on a 256^3 hierarchy (those cell types doubled along
+each axis, config 5's grid), on testbed setup 4's 50^3 one (two
+substeps from rest) and on two thin slabs whose last level the coarse
+kernel takes alone (80 x 72 x 16: in shared memory; 128 x 128 x 16: in
+device memory), in float32 and in the bfloat16 of "mg16"
+(``chip_smoke.bf16_levels``): the device's own ms (torch.profiler, median
+of 20 launches) of ``mg_up`` / ``mg16_up`` at every level that takes it and
+of ``mg_coarse`` / ``mg16_coarse`` on the small levels, on the inputs the
+plain cycle gives each stage; a whole cycle on the host clock and its
+device busy ms; then ``pressure.solve`` of the 128^3 APIC substep and of
+the FLIP + mg16 substep (the inputs ``substep`` gives it, captured once:
+host ms and CG iterations) and five substeps of each path (host ms and CG
+iterations a substep). Each stage's output, each cycle's and each solve's
+pressure are saved in a temporary directory, so that the last line says
+whether all four runs gave the same bits.
 
 Runs this file's measurement in a process of its own for each tree, in the
 order parent, change, change, parent (two calls may land on two cards, so
@@ -37,7 +56,7 @@ Run from the repository root on a machine with an H100, with the parent
 commit unpacked beside it (``git archive <commit> libfluid_tpu_torch
 chip_smoke.py | tar -x -C <dir>``):
 
-    python3 tools/kernel_ab.py <dir of the parent tree>
+    python3 tools/kernel_ab.py [--vcycle] <dir of the parent tree>
 """
 
 import os
@@ -74,6 +93,151 @@ def device_split(fn, match: str, calls: int = 20) -> dict:
             name = re.search(r"(\w+(<[^()]*>)?)\(", e.name)
             by.setdefault(name.group(1) if name else e.name[:60], []).append(e.device_time_total / 1e3)
     return {k: (round(float(np.median(v)), 4), len(v)) for k, v in by.items()}
+
+
+def vcycle_part(tag: str, out: str) -> None:
+    """The V-cycle part for the tree in the current directory (see the
+    module's docstring); the outputs go to the folder `out`."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+
+    import chip_smoke as cs
+    from libfluid_tpu_torch import _build, convert, sim, testbed
+    from libfluid_tpu_torch.sim import multigrid as mg
+    from libfluid_tpu_torch.sim import pressure
+
+    _build.load()
+    dev = torch.device("cuda")
+    cfg, state = cs.dam_break(128, dev, 1 << 21)
+    # the inputs of the first run, for all four: a substep's sums are not the
+    # same bits from run to run
+    inputs = os.path.join(out, "inputs.pt")
+    if os.path.exists(inputs):
+        arrays, ct50 = torch.load(inputs, weights_only=False)
+        state = convert.state_from_numpy(arrays, cfg, dev)
+        ct50 = ct50.to(dev)
+    else:
+        state, _ = sim.substep(state, cfg, cs.DT)
+        tcfg, tstate = testbed.build_setup(4, device=dev)
+        for _ in range(2):
+            tstate, _ = sim.substep(tstate, tcfg, 0.005)
+        ct50 = tstate.grid.cell_type
+        del tstate
+        torch.save((convert.state_to_numpy(state), ct50.cpu()), inputs)
+    ct = state.grid.cell_type
+    hierarchies = {
+        "128^3": ct,
+        "256^3": ct.repeat_interleave(2, 0).repeat_interleave(2, 1).repeat_interleave(2, 2),
+        "50^3": ct50,
+        "80x72x16 slab": slab((80, 72, 16), dev),
+        "128x128x16 slab": slab((128, 128, 16), dev),
+    }
+    saved = {}
+    for hname, cell_type in hierarchies.items():
+        for dname, levels in (("float32", mg.build_levels(cell_type)),
+                              ("bfloat16", cs.bf16_levels(mg.build_levels(cell_type)))):
+            dtype = levels[0].fluid.dtype
+            gen = torch.Generator(device=dev).manual_seed(2)
+            b = (20.0 * torch.randn(levels[0].fluid.shape, generator=gen, device=dev)).to(dtype) * levels[0].fluid
+            first = mg.first_coarse_level(levels)
+            parts, bs = [], [b]
+            for l in range(first):
+                lv, bl = levels[l], bs[l]
+                x = mg._pre_torch(lv, bl)
+                bs.append(mg._restrict_residual_torch(lv, levels[l + 1], x, bl))
+                ec = mg._coarse_torch(levels, bs[-1], l + 1)
+                got = mg.prolong_smooth(lv, x, ec, bl)
+                saved[f"{hname} {dname} up {l}"] = got.cpu()
+                equal = torch.equal(got, mg._up_torch(lv, x, ec, bl))
+                ms = device_split(lambda: mg.prolong_smooth(lv, x, ec, bl), "mg_up_kernel")
+                parts.append(f"up {tuple(lv.fluid.shape)} {fmt_device(ms)}{'' if equal else ' (not equal to plain)'}")
+                del x, ec, got
+            bc = bs[first]
+            got = mg.coarse_cycle(levels, bc, first)
+            saved[f"{hname} {dname} coarse"] = got.cpu()
+            equal = torch.equal(got, mg._coarse_torch(levels, bc, first))
+            ms = device_split(lambda: mg.coarse_cycle(levels, bc, first), "mg_coarse_kernel")
+            parts.append(f"coarse {[tuple(lv.fluid.shape) for lv in levels[first:]]} {fmt_device(ms)}"
+                         f"{'' if equal else ' (not equal to plain)'}")
+            saved[f"{hname} {dname} cycle"] = mg.v_cycle(levels, b).cpu()
+            wall = [cs.wall_ms(lambda: mg.v_cycle(levels, b)) for _ in range(3)]
+            busy = device_busy(lambda: mg.v_cycle(levels, b))
+            print(f"{tag}: V-cycle {hname} {dname}: " + " | ".join(parts)
+                  + f" | cycle wall ms {fmt(wall)}, device busy {busy:.4f} ms", flush=True)
+            del levels, bs, b, bc, got
+        torch.cuda.empty_cache()
+    del hierarchies
+    # the solve and five substeps of each 128^3 path, from the state one
+    # substep from rest
+    for pname, pcfg in (("APIC", cfg), ("FLIP + mg16", cs.flip_mg16(cfg))):
+        captured = []
+        solve = pressure.solve
+
+        def grab(*a, **k):
+            captured.append((a, k))
+            return solve(*a, **k)
+
+        draws = state.generator.get_state()
+        pressure.solve = grab
+        try:
+            sim.substep(state, pcfg, cs.DT)
+        finally:
+            pressure.solve = solve
+            state.generator.set_state(draws)
+        a, k = captured[0]
+        res = solve(*a, **k)
+        saved[f"{pname} solve"] = res.pressure.cpu()
+        solve_ms = [cs.wall_ms(lambda: solve(*a, **k), 3) for _ in range(3)]
+        del captured, a, k
+        steps, its, ahead = [], [], state
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ahead, diag = sim.substep(ahead, pcfg, cs.DT)
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0) * 1e3)
+            its.append(int(diag.pressure_iterations))
+        saved[f"{pname} substeps"] = ahead.position.cpu()
+        del ahead
+        print(f"{tag}: 128^3 {pname}: pressure.solve wall ms {fmt(solve_ms)} at {int(res.iterations)} CG "
+              f"iterations | five substeps ms {fmt(steps)}, CG iterations {its}", flush=True)
+    torch.save(saved, os.path.join(out, f"vcycle_{tag}_{os.getpid()}.pt"))
+
+
+def slab(shape, device):
+    """Cell types of a thin slab, made from a seed: a solid floor, fluid at
+    random in the lower two thirds, air above."""
+    import torch
+
+    from libfluid_tpu_torch.config import CellType
+
+    rng = np.random.default_rng(4)
+    ct = np.full(shape, int(CellType.AIR), np.int8)
+    ct[:, 0, :] = int(CellType.SOLID)
+    fluid = rng.uniform(size=shape) < 0.7
+    fluid[:, 2 * shape[1] // 3:, :] = False
+    ct[fluid & (ct == int(CellType.AIR))] = int(CellType.FLUID)
+    return torch.from_numpy(ct).to(device)
+
+
+def fmt_device(by: dict) -> str:
+    return ", ".join(f"device {ms:.4f} ms ({n} launches)" for ms, n in by.values()) or "device not measured"
+
+
+def device_busy(fn, calls: int = 20) -> float:
+    """The device's busy ms a call of `fn` (the sum of its kernels' and
+    copies' times, torch.profiler, over `calls` calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / calls
 
 
 def measure(tag: str, out: str) -> None:
@@ -332,9 +496,11 @@ def mesh_gradients(tag: str, cs, state, reps: int = 5) -> None:
 
 def main() -> None:
     args = sys.argv[1:]
-    if len(args) == 3 and args[0] == "--measure":
-        measure(args[1], args[2])
+    if len(args) == 3 and args[0] in ("--measure", "--measure-vcycle"):
+        (measure if args[0] == "--measure" else vcycle_part)(args[1], args[2])
         return
+    vcycle_only = args[:1] == ["--vcycle"]
+    args = args[1:] if vcycle_only else args
     if len(args) != 1:
         raise SystemExit(__doc__)
     parent = args[0]
@@ -342,15 +508,26 @@ def main() -> None:
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     me = os.path.abspath(__file__)
     out = tempfile.mkdtemp()
+    modes = ["--measure-vcycle"] if vcycle_only else ["--measure-vcycle", "--measure"]
     for tag, cwd in (("parent", parent), ("change", "."), ("change", "."), ("parent", parent)):
-        subprocess.run([sys.executable, me, "--measure", tag, out], cwd=cwd, check=True)
+        for mode in modes:
+            subprocess.run([sys.executable, me, mode, tag, out], cwd=cwd, check=True)
     import torch
 
-    runs = [torch.load(os.path.join(out, name)) for name in sorted(os.listdir(out))]
+    saved = {name: torch.load(os.path.join(out, name)) for name in sorted(os.listdir(out)) if name != "inputs.pt"}
     shutil.rmtree(out)
-    print(f"F' of the 261^3 mesh: {len(runs)} runs, their positions all the same bits: "
-          f"{all(torch.equal(runs[0][0], x) for x, _ in runs)}, their results all the same bits: "
-          f"{all(torch.equal(runs[0][1], dx) for _, dx in runs)}", flush=True)
+    cycles = [v for k, v in saved.items() if k.startswith("vcycle_")]
+    first = [k for k in cycles[0] if not k.endswith("substeps")]
+    print(f"V-cycle part: {len(cycles)} runs from the same inputs, their {len(first)} stage, cycle and "
+          f"solve outputs all the same bits: {all(torch.equal(c[k], cycles[0][k]) for c in cycles for k in first)}; "
+          f"the states after five substeps: "
+          f"{[all(torch.equal(c[k], cycles[0][k]) for c in cycles) for k in cycles[0] if k.endswith('substeps')]}",
+          flush=True)
+    runs = [v for k, v in saved.items() if not k.startswith("vcycle_")]
+    if runs:
+        print(f"F' of the 261^3 mesh: {len(runs)} runs, their positions all the same bits: "
+              f"{all(torch.equal(runs[0][0], x) for x, _ in runs)}, their results all the same bits: "
+              f"{all(torch.equal(runs[0][1], dx) for _, dx in runs)}", flush=True)
 
 
 if __name__ == "__main__":
