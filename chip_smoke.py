@@ -9,7 +9,11 @@ Phases, one line of output each (or a few):
 
 1. the card's name and power limit (nvidia-smi);
 2. build of the CUDA kernels from ``libfluid_tpu_torch/csrc`` (one nvcc per
-   source, in parallel, sm_90a);
+   source, in parallel, sm_90a); then the card's bfloat16 multiply, add and
+   subtract and their paired forms against one rounding of the float32
+   result over all 2^32 pairs of bfloat16 values (``csrc/bf16_check.cu``):
+   the mismatches of each, 0 for every operation that mg16_pre and
+   mg16_restrict use;
 3. each kernel (A-F) against its plain PyTorch version on the card, at the
    shapes the 128^3 main path gives it (the state after one substep with
    position correction on, meshed on the 261^3-node grid), with error,
@@ -22,6 +26,10 @@ Phases, one line of output each (or a few):
    the times of the fused, the per-pass and the plain cycle and the
    launches of one cycle; the coarse kernel's two routes on the one level
    of two thin slabs (80 x 72 x 16 shared, 128 x 128 x 16 device); the
+   four kernels and the cycle on a thin slab whose fine level runs
+   mg(16)_pre and mg(16)_restrict (96 x 81 x 15: odd y and z, zero-padded
+   by the restriction; its 48 x 41 x 8 bottom in shared memory in bfloat16,
+   in device memory in float32), both dtypes; the
    host-clock ms of one V-cycle and one operator call, the kernels of a CG
    iteration; CG iterations of a substep with the fused and with the
    per-pass cycle; the same for the bfloat16 ("mg16") instance of the four
@@ -84,8 +92,8 @@ Phases, one line of output each (or a few):
    keep form, then kernel F': one launch each, no second node pass), and
    the same mesh under no_grad (F alone);
 9. the 128^3 dam-break with FLIP and the bfloat16 V-cycle ("mg16"), 3
-   substeps and the stage split of 2 more, through the fused mg16_*
-   kernels and no stencil16;
+   substeps, the stage split of 2 more and a profiled one (device busy),
+   through the fused mg16_* kernels and no stencil16;
 10. the testbed CLI, setup 4 (jet source + obstacle), 2 frames with an OBJ
     export every frame;
 11. the renderer (no kernel of its own: PyTorch loops): BASELINE configs 1
@@ -153,7 +161,7 @@ import torch
 import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile
 
-from libfluid_tpu_torch import _build, checkpoint, dcc, native, profiling, testbed, voxelizer
+from libfluid_tpu_torch import _bf16_check, _build, checkpoint, dcc, native, profiling, testbed, voxelizer
 from libfluid_tpu_torch.config import CellType, MesherConfig, RenderConfig, SimConfig, SolverConfig, TransferScheme
 from libfluid_tpu_torch import sim
 from libfluid_tpu_torch.renderer import accel, bdpt, intersect, loops, pathtrace, scenes
@@ -349,8 +357,9 @@ def vcycle_phases(levels, what: str):
                        bound(nbytes(bl, xw, *multigrid._level_args(lv)), 40.0 * bl.numel())),
             names[1]: (lambda: multigrid.restrict_residual(lv, lc, xw, bl),
                        lambda: multigrid._restrict_residual_torch(lv, lc, xw, bl), rcw,
-                       bound(nbytes(xw, bl, lc.fluid, rcw, *multigrid._level_args(lv)),
-                             40.0 * bl.numel())),
+                       # the residual reads no inv_diag
+                       bound(nbytes(xw, bl, lv.diag, lv.fluid, lv.couple_u, lv.couple_v, lv.couple_w,
+                                    lc.fluid, rcw), 40.0 * bl.numel())),
             names[2]: (lambda: multigrid.prolong_smooth(lv, xw, ec, bl),
                        lambda: multigrid._up_torch(lv, xw, ec, bl), upw,
                        bound(nbytes(xw, ec, bl, upw, *multigrid._level_args(lv)), 60.0 * bl.numel())),
@@ -360,7 +369,8 @@ def vcycle_phases(levels, what: str):
             err = max_err(got, want)
             check(holds(got, want), f"{name} at {shapes[l]} ({what}) error {err}")
             rec = dict(max_abs_err=err, ms=median_ms(fused), plain_ms=median_ms(plain), **bnd)
-            kernel = name.replace(prefix, "mg") + "_kernel"  # one template, two instances
+            # one name a stage for both instances: mg_pre_kernel, mg_pre_march, ...
+            kernel = name.replace(prefix, "mg")
             log(f"kernel {name} ({what}) level {shapes[l]}: {held}, {rec}; device time "
                 f"{device_ms(fused, kernel)} (torch.profiler)")
             out.setdefault(name, rec)
@@ -406,6 +416,18 @@ def vcycle_phases(levels, what: str):
     return out, fused_wall
 
 
+def slab_types(shape, gen):
+    """Cell types of a thin slab: a solid floor, fluid at random in the
+    lower two thirds, air above."""
+    device = gen.device
+    ct = torch.full(shape, CellType.AIR, dtype=torch.int8, device=device)
+    ct[:, 0, :] = CellType.SOLID
+    fluid = torch.rand(shape, generator=gen, device=device) < 0.7
+    fluid[:, 2 * shape[1] // 3:, :] = False
+    ct[fluid & (ct == CellType.AIR)] = CellType.FLUID
+    return ct
+
+
 def coarse_routes(device) -> None:
     """The coarse kernel on the last level of a thin slab, in both dtypes:
     80 x 72 x 16 ends in one level of 11,520 cells, which stays in shared
@@ -415,11 +437,7 @@ def coarse_routes(device) -> None:
     time."""
     gen = torch.Generator(device=device).manual_seed(4)
     for shape, route in (((80, 72, 16), "shared"), ((128, 128, 16), "device")):
-        ct = torch.full(shape, CellType.AIR, dtype=torch.int8, device=device)
-        ct[:, 0, :] = CellType.SOLID
-        fluid = torch.rand(shape, generator=gen, device=device) < 0.7
-        fluid[:, 2 * shape[1] // 3:, :] = False
-        ct[fluid & (ct == CellType.AIR)] = CellType.FLUID
+        ct = slab_types(shape, gen)
         for levels in (multigrid.build_levels(ct), bf16_levels(multigrid.build_levels(ct))):
             dtype = levels[0].fluid.dtype
             first = multigrid.first_coarse_level(levels)
@@ -438,6 +456,37 @@ def coarse_routes(device) -> None:
                 f"{'equal' if exact else f'max abs error {max_err(got, want):.3e}'}; device time "
                 f"{device_ms(lambda: multigrid.coarse_cycle(levels, b, first), 'mg_coarse_kernel')} "
                 f"(torch.profiler)")
+
+
+def slab_cycle(device) -> None:
+    """The fused cycle on a thin slab whose fine level runs mg(16)_pre and
+    mg(16)_restrict: 96 x 81 x 15 (odd y and z, which the restriction pads
+    with zeros) over a 48 x 41 x 8 bottom, each kernel against its plain
+    stage with its device time, in float32 and bfloat16."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    shape = (96, 81, 15)
+    levels = multigrid.build_levels(slab_types(shape, gen))
+    check(len(levels) == 2 and multigrid.first_coarse_level(levels) == 1,
+          f"the {shape} slab's hierarchy {[tuple(lv.fluid.shape) for lv in levels]} does not run the fine "
+          "kernels")
+    vcycle_phases(levels, f"{shape} slab")
+    vcycle_phases(bf16_levels(levels), f"{shape} slab, bfloat16")
+
+
+def bf16_arithmetic(device) -> None:
+    """The card's bfloat16 multiply, add and subtract (and their paired
+    forms) against one rounding of the float32 result over all 2^32 pairs of
+    bfloat16 values: fails on a mismatch in an operation that mg16_pre and
+    mg16_restrict use."""
+    _bf16_check.rounding_check(device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    counts = _bf16_check.rounding_check(device)
+    torch.cuda.synchronize()
+    log(f"bfloat16 arithmetic over all 2^32 pairs against one rounding of the float32 result: "
+        f"mismatches {counts} ({(time.perf_counter() - t0) * 1e3:.1f} ms)")
+    for op in _bf16_check.KERNEL_OPS:
+        check(counts[op] == 0, f"the card's bfloat16 {op} differs from one rounding in {counts[op]} pairs")
 
 
 def bf16_levels(levels):
@@ -804,6 +853,7 @@ def kernel_phases(cfg, state):
     vcycle_phases(bf16_levels(levels50), "50^3 testbed setup 4, bfloat16")
     del tstate, levels50
     coarse_routes(state.position.device)
+    slab_cycle(state.position.device)
     cg_parity(state, cfg)
     # the mg16 cycle: its four kernels and the cycle on the 128^3 levels in
     # bfloat16, as pressure._cg copies them; CG parity on a FLIP + mg16
@@ -1790,7 +1840,7 @@ def mesh_grad_run(device) -> None:
 def flip_run(device) -> None:
     """3 substeps of the 128^3 dam-break with FLIP and the mg16 V-cycle (the
     first from rest needs no CG iteration), then the stage split of 2
-    more."""
+    more and one substep under the profiler (the device's busy share)."""
     cfg, state = dam_break(128, device, 1 << 21, correct=False)
     cfg = flip_mg16(cfg)
     n0 = int(particle_count(state))
@@ -1803,7 +1853,8 @@ def flip_run(device) -> None:
         log(f"128^3 FLIP + mg16 substep {i}: {(time.perf_counter() - t0) * 1e3:.1f} ms, CG "
             f"{int(diag.pressure_iterations)} it res {float(diag.pressure_residual):.2e}, vmax "
             f"{float(diag.max_velocity):.2f}, n {int(diag.particle_count)}")
-    stage_split(state, cfg, n0, None, substeps=2, what="128^3 FLIP + mg16")
+    state = stage_split(state, cfg, n0, None, substeps=2, what="128^3 FLIP + mg16")
+    busy_share(state, cfg, n0, "128^3 FLIP + mg16")
 
 
 def healthy(state, diag, cfg, n0: int, what: str) -> None:
@@ -1985,7 +2036,7 @@ def cg_iteration_split(state, cfg, what: str = "128^3") -> None:
         f"the residual's copy to the host to the next device item (the host read)")
 
 
-def busy_share(state, cfg, n0: int):
+def busy_share(state, cfg, n0: int, what: str = "128^3"):
     """One substep under torch.profiler: the device's busy share of the
     wall time and the largest device items."""
     torch.cuda.synchronize()
@@ -1998,7 +2049,7 @@ def busy_share(state, cfg, n0: int):
     on_device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.device_time_total for e in on_device) / 1e3
     check(busy > 0, "torch.profiler saw no device time")
-    log(f"128^3 profiled substep: wall {wall:.1f} ms with {int(diag.pressure_iterations)} CG iterations, "
+    log(f"{what} profiled substep: wall {wall:.1f} ms with {int(diag.pressure_iterations)} CG iterations, "
         f"device busy {busy:.2f} ms = {100.0 * busy / wall:.1f} % of the wall time; largest device items: "
         + "; ".join(f"{e.key[:48]} x{e.count} {e.device_time_total / 1e3:.2f} ms"
                     for e in sorted(on_device, key=lambda e: -e.device_time_total)[:8]))
@@ -2922,6 +2973,7 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.load()
     log(f"kernel build + load: {time.perf_counter() - t0:.1f} s ({_build.LIB_PATH.name})")
+    bf16_arithmetic(device)
 
     cfg, state = dam_break(128, device, 1 << 21)
     state, _ = sim.substep(state, cfg, DT)

@@ -24,7 +24,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 SOURCES = (
     "expand.cu", "p2g.cu", "p2g_bwd.cu", "stencil.cu", "vcycle.cu", "g2p.cu", "g2p_bwd.cu",
-    "correction.cu", "correction_bwd.cu", "surface.cu", "surface_bwd.cu",
+    "correction.cu", "correction_bwd.cu", "surface.cu", "surface_bwd.cu", "bf16_check.cu",
 )
 # staging.cuh: g2p.cu, g2p_bwd.cu, p2g_bwd.cu; jitter.cuh: correction.cu, correction_bwd.cu
 HEADERS = ("staging.cuh", "jitter.cuh")
@@ -68,6 +68,7 @@ SIGNATURES = {
     "lf_surface": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P],
     "lf_surface_keep": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P],
     "lf_surface_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P],
+    "lf_bf16_check": [_P, _P],
 }
 
 _lib = None

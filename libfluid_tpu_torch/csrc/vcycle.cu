@@ -13,13 +13,17 @@
 //   lf_mg_pre       fine level, down leg: the two pre-sweeps from x = 0,
 //                   masked. The first sweep is pointwise (damp * inv_diag *
 //                   b), so the second reads it off b and inv_diag of the six
-//                   neighbours and no intermediate is stored.
-//   lf_mg_restrict  fine level, down leg: the residual (b - A x) * fluid of
-//                   a tile of fine cells into shared memory, then R = P^T/8
-//                   in gather form, one thread per coarse cell over its
-//                   4x4x4 support with the separable weights (1/4, 3/4, 3/4,
-//                   1/4) and the edge fold, masked by the coarse fluid. The
-//                   residual never reaches device memory. No atomics.
+//                   neighbours and no intermediate is stored (float32; the
+//                   bfloat16 instance marches, below).
+//   lf_mg_restrict  fine level, down leg: the residual (b - A x) * fluid,
+//                   then R = P^T/8 with the separable weights (1/4, 3/4,
+//                   3/4, 1/4) and the edge fold, masked by the coarse fluid.
+//                   A block marches a column of coarse cells along x: x is
+//                   staged once into a ring of planes in shared memory, the
+//                   residual is formed once a point and kept in registers,
+//                   and R runs as three passes of rows (x, y, then z), each
+//                   row formed once. The residual never reaches device
+//                   memory. No atomics.
 //   lf_mg_up        fine level, up leg: x + P(ec) * fluid (trilinear,
 //                   edge-clamped), then both post-sweeps, masked. A block
 //                   marches a column of cells along x through rings of
@@ -35,12 +39,18 @@
 //                   in device memory (route "device").
 //
 // lf_mg16_pre, lf_mg16_restrict, lf_mg16_up and lf_mg16_coarse are the same
-// four kernels with bfloat16 storage: every array, the shared-memory tiles
+// four stages with bfloat16 storage: every array, the shared-memory tiles
 // and the coarse kernel's scratch hold bfloat16, and every arithmetic result
 // is rounded to bfloat16 (round to nearest even) where PyTorch's bfloat16
 // operations round it, in the plain version's order, as kernel "stencil16"
-// (csrc/stencil.cu) does for one pass. The two instances are one template
-// on the storage type; in float32 the rounding is the identity.
+// (csrc/stencil.cu) does for one pass. Each stage is one template in two
+// instances, except the pre-sweeps: lf_mg16_pre marches a column along x
+// as lf_mg_up does and forms the first sweep's x1 once a point
+// (mg_pre_march), where lf_mg_pre keeps a thread a cell (mg_pre_kernel,
+// float32 code only), which is faster in float32. mg_pre_march and
+// mg_restrict_march compute in the card's own
+// arithmetic of the storage type (Hw: in bfloat16 the bfloat16 multiply,
+// add and subtract); mg_up and mg_coarse in Ar (sums in float32).
 //
 // Bound: bytes. As a function a cycle reads b and each level's masks once
 // and writes x once (~76 MB at 128^3 in float32, half in bfloat16, plus 1/7
@@ -68,40 +78,19 @@
 
 namespace {
 
-// Storage of one instance: load to float, store from float, and the rounding
-// of an arithmetic result to the storage type.
+// A value of the storage type as float (the coarse kernel's mask words).
 template <class T>
 struct Num;
 
 template <>
 struct Num<float> {
   static __device__ __forceinline__ float ld(float v) { return v; }
-  static __device__ __forceinline__ float st(float v) { return v; }
-  static __device__ __forceinline__ float r(float v) { return v; }
 };
 
 template <>
 struct Num<__nv_bfloat16> {
   static __device__ __forceinline__ float ld(__nv_bfloat16 v) { return __bfloat162float(v); }
-  static __device__ __forceinline__ __nv_bfloat16 st(float v) { return __float2bfloat16_rn(v); }
-  static __device__ __forceinline__ float r(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  }
 };
-
-// One rounded operation of the storage type.
-template <class T>
-__device__ __forceinline__ float mul(float a, float b) {
-  return Num<T>::r(a * b);
-}
-template <class T>
-__device__ __forceinline__ float add(float a, float b) {
-  return Num<T>::r(a + b);
-}
-template <class T>
-__device__ __forceinline__ float sub(float a, float b) {
-  return Num<T>::r(a - b);
-}
 
 template <class T>
 struct Level {
@@ -115,22 +104,16 @@ struct Level {
   float scale;
 };
 
-template <class T>
-__device__ __forceinline__ float ld(const T* p, int i) {
-  return Num<T>::ld(p[i]);
-}
-
-template <class T>
-__device__ __forceinline__ int cell_index(const Level<T>& L, int i, int j, int k) {
+__device__ __forceinline__ int cell_index(const Level<float>& L, int i, int j, int k) {
   return (i * L.ny + j) * L.nz + k;
 }
 
-// A x at cell (i, j, k), inside the grid; xf(i, j, k) gives x at a cell
-// inside the grid, xc is x at the cell itself.
+// A x at cell (i, j, k) of a float32 level, inside the grid; xf(i, j, k)
+// gives x at a cell inside the grid, xc is x at the cell itself.
 // scale * (diag * (x * fluid) - nbr) * fluid, neighbours in the order of the
-// plain version's slice adds (nbr starts at 0, one rounded add each).
-template <class T, class XF>
-__device__ __forceinline__ float apply_at(const Level<T>& L, int i, int j, int k, float xc,
+// plain version's slice adds (nbr starts at 0).
+template <class XF>
+__device__ __forceinline__ float apply_at(const Level<float>& L, int i, int j, int k, float xc,
                                           float f, XF xf) {
   const int c = cell_index(L, i, j, k);
   const int syz = L.ny * L.nz;
@@ -138,37 +121,22 @@ __device__ __forceinline__ float apply_at(const Level<T>& L, int i, int j, int k
   const int fv = (i * (L.ny + 1) + j) * L.nz + k;    // v face j
   const int fw = (i * L.ny + j) * (L.nz + 1) + k;    // w face k
   float nbr = 0.0f;
-  if (i > 0) nbr = add<T>(nbr, mul<T>(ld(L.cu, fu), xf(i - 1, j, k)));
-  if (i < L.nx - 1) nbr = add<T>(nbr, mul<T>(ld(L.cu, fu + syz), xf(i + 1, j, k)));
-  if (j > 0) nbr = add<T>(nbr, mul<T>(ld(L.cv, fv), xf(i, j - 1, k)));
-  if (j < L.ny - 1) nbr = add<T>(nbr, mul<T>(ld(L.cv, fv + L.nz), xf(i, j + 1, k)));
-  if (k > 0) nbr = add<T>(nbr, mul<T>(ld(L.cw, fw), xf(i, j, k - 1)));
-  if (k < L.nz - 1) nbr = add<T>(nbr, mul<T>(ld(L.cw, fw + 1), xf(i, j, k + 1)));
-  return mul<T>(mul<T>(L.scale, sub<T>(mul<T>(ld(L.diag, c), mul<T>(xc, f)), nbr)), f);
+  if (i > 0) nbr = nbr + L.cu[fu] * xf(i - 1, j, k);
+  if (i < L.nx - 1) nbr = nbr + L.cu[fu + syz] * xf(i + 1, j, k);
+  if (j > 0) nbr = nbr + L.cv[fv] * xf(i, j - 1, k);
+  if (j < L.ny - 1) nbr = nbr + L.cv[fv + L.nz] * xf(i, j + 1, k);
+  if (k > 0) nbr = nbr + L.cw[fw] * xf(i, j, k - 1);
+  if (k < L.nz - 1) nbr = nbr + L.cw[fw + 1] * xf(i, j, k + 1);
+  return L.scale * (L.diag[c] * (xc * f) - nbr) * f;
 }
 
 // x + damp * inv_diag * (b - A x)
-template <class T, class XF>
-__device__ __forceinline__ float jacobi_at(const Level<T>& L, const T* b, int i, int j, int k,
-                                           float xc, float damp, XF xf) {
+template <class XF>
+__device__ __forceinline__ float jacobi_at(const Level<float>& L, const float* b, int i, int j,
+                                           int k, float xc, float damp, XF xf) {
   const int c = cell_index(L, i, j, k);
-  const float ax = apply_at(L, i, j, k, xc, ld(L.fluid, c), xf);
-  return add<T>(xc, mul<T>(mul<T>(damp, ld(L.inv_diag, c)), sub<T>(ld(b, c), ax)));
-}
-
-// One axis of R's transpose-of-prolongation: coarse row J of nc from the
-// fine rows f0 = F[2J-1], f1 = F[2J], f2 = F[2J+1], f3 = F[2J+2] (rows
-// outside the padded fine axis are not read), edge fold included, in the
-// plain version's order of adds.
-template <class T>
-__device__ __forceinline__ float restrict_row(float f0, float f1, float f2, float f3, int J,
-                                              int nc) {
-  float t = mul<T>(0.75f, add<T>(f1, f2));
-  if (J < nc - 1) t = add<T>(t, mul<T>(0.25f, f3));
-  if (J == 0) t = add<T>(t, mul<T>(0.25f, f1));
-  if (J > 0) t = add<T>(t, mul<T>(0.25f, f0));
-  if (J == nc - 1) t = add<T>(t, mul<T>(0.25f, f2));
-  return t;
+  const float ax = apply_at(L, i, j, k, xc, L.fluid[c], xf);
+  return xc + damp * L.inv_diag[c] * (b[c] - ax);
 }
 
 // One axis of P: fine row i from coarse rows; gives the two coarse indices
@@ -187,12 +155,11 @@ __device__ __forceinline__ int fold_row(int J, int q, int nc) {
 }
 
 // ---------------------------------------------------------------------------
-// lf_mg_pre: x = (two damped-Jacobi sweeps from 0) * fluid
+// lf_mg_pre: x = (two damped-Jacobi sweeps from 0) * fluid, float32
 // ---------------------------------------------------------------------------
 
-template <class T>
-__global__ void mg_pre_kernel(Level<T> L, const T* __restrict__ b, T* __restrict__ out,
-                              float damp) {
+__global__ void mg_pre_kernel(Level<float> L, const float* __restrict__ b,
+                              float* __restrict__ out, float damp) {
   const int total = L.nx * L.ny * L.nz;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= total) return;
@@ -202,57 +169,10 @@ __global__ void mg_pre_kernel(Level<T> L, const T* __restrict__ b, T* __restrict
   // the first sweep from x = 0: 0 + damp * inv_diag * (b - 0)
   auto x1 = [&](int a, int bb, int cc) {
     const int n = cell_index(L, a, bb, cc);
-    return mul<T>(mul<T>(damp, ld(L.inv_diag, n)), ld(b, n));
+    return damp * L.inv_diag[n] * b[n];
   };
   const float x1c = x1(i, j, k);
-  out[c] = Num<T>::st(mul<T>(jacobi_at(L, b, i, j, k, x1c, damp, x1), ld(L.fluid, c)));
-}
-
-// ---------------------------------------------------------------------------
-// lf_mg_restrict: rc = R((b - A x) * fluid) * fluid_c
-// ---------------------------------------------------------------------------
-
-constexpr int RCX = 4, RCY = 4, RCZ = 16;  // coarse cells of a block
-constexpr int RFX = 2 * RCX + 2, RFY = 2 * RCY + 2, RFZ = 2 * RCZ + 2;  // its fine support
-
-template <class T>
-__global__ void mg_restrict_kernel(Level<T> L, const T* __restrict__ x, const T* __restrict__ b,
-                                   const T* __restrict__ fluid_c, T* __restrict__ rc, int cx,
-                                   int cy, int cz) {
-  __shared__ T r[RFX * RFY * RFZ];
-  const int c0x = blockIdx.z * RCX, c0y = blockIdx.y * RCY, c0z = blockIdx.x * RCZ;
-  const int f0x = 2 * c0x - 1, f0y = 2 * c0y - 1, f0z = 2 * c0z - 1;
-  auto xg = [&](int a, int bb, int cc) { return ld(x, cell_index(L, a, bb, cc)); };
-  for (int t = threadIdx.x; t < RFX * RFY * RFZ; t += blockDim.x) {
-    const int lk = t % RFZ, lj = (t / RFZ) % RFY, li = t / (RFZ * RFY);
-    const int i = f0x + li, j = f0y + lj, k = f0z + lk;
-    float v = 0.0f;  // outside the grid, and the zero pad of an odd axis
-    if (i >= 0 && i < L.nx && j >= 0 && j < L.ny && k >= 0 && k < L.nz) {
-      const int c = cell_index(L, i, j, k);
-      const float f = ld(L.fluid, c);
-      v = mul<T>(sub<T>(ld(b, c), apply_at(L, i, j, k, ld(x, c), f, xg)), f);
-    }
-    r[t] = Num<T>::st(v);
-  }
-  __syncthreads();
-  const int lk = threadIdx.x % RCZ, lj = (threadIdx.x / RCZ) % RCY, li = threadIdx.x / (RCZ * RCY);
-  const int ci = c0x + li, cj = c0y + lj, ck = c0z + lk;
-  if (ci >= cx || cj >= cy || ck >= cz) return;
-  float w[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {  // fine z row 2 ck - 1 + a
-    float v[4];
-#pragma unroll
-    for (int bb = 0; bb < 4; ++bb) {  // fine y row 2 cj - 1 + bb
-      const T* p = &r[((2 * li) * RFY + (2 * lj + bb)) * RFZ + (2 * lk + a)];
-      v[bb] = restrict_row<T>(ld(p, 0), ld(p, RFY * RFZ), ld(p, 2 * RFY * RFZ),
-                              ld(p, 3 * RFY * RFZ), ci, cx);
-    }
-    w[a] = restrict_row<T>(v[0], v[1], v[2], v[3], cj, cy);
-  }
-  const int cc = (ci * cy + cj) * cz + ck;
-  rc[cc] = Num<T>::st(
-      mul<T>(mul<T>(restrict_row<T>(w[0], w[1], w[2], w[3], ck, cz), 0.125f), ld(fluid_c, cc)));
+  out[c] = jacobi_at(L, b, i, j, k, x1c, damp, x1) * L.fluid[c];
 }
 
 // ---------------------------------------------------------------------------
@@ -262,9 +182,11 @@ __global__ void mg_restrict_kernel(Level<T> L, const T* __restrict__ x, const T*
 // float for float32. For bfloat16 the values stay __nv_bfloat16: a product
 // of two bfloat16 values is exact in float32, so the card's bfloat16
 // multiply, which rounds once, gives PyTorch's product; a sum or difference
-// is formed in float32 and rounded once to bfloat16, as PyTorch does (no
-// bfloat16 add). Every constant used here (0.75, 0.25, 0.125, 4^-l, the
-// bfloat16 damping weight) is exact in the storage type.
+// is formed in float32 and rounded once to bfloat16, as PyTorch does (the
+// card's bfloat16 add gives the same bits, Hw below; lf_mg16_up and
+// lf_mg16_coarse have not moved to it). Every constant used here (0.75,
+// 0.25, 0.125, 4^-l, the bfloat16 damping weight) is exact in the storage
+// type.
 
 template <class T>
 struct Ar;
@@ -303,6 +225,25 @@ struct Ar<__nv_bfloat16> {
   }
 };
 
+// The card's own arithmetic of the storage type (mg_pre_march,
+// mg_restrict_march): for bfloat16 its bfloat16 multiply, add and subtract.
+// Each rounds the exact result once, as PyTorch's bfloat16 operations do: a
+// sum or difference of two bfloat16 values rounded to float32's 24 bits
+// (>= 2 * 8 + 2) and then to bfloat16 has the bits of one rounding.
+// chip_smoke.py holds the three and their paired forms against one rounding
+// of the float32 result over all 2^32 pairs (csrc/bf16_check.cu), and
+// tests/test_torch_bf16_rounding.py PyTorch's against one rounding of the
+// exact result. Not fused: the file is built with -fmad=false.
+template <class T>
+struct Hw : Ar<T> {};
+
+template <>
+struct Hw<__nv_bfloat16> : Ar<__nv_bfloat16> {
+  using B = __nv_bfloat16;
+  static __device__ __forceinline__ B add(B a, B b) { return __hadd(a, b); }
+  static __device__ __forceinline__ B sub(B a, B b) { return __hsub(a, b); }
+};
+
 // ---------------------------------------------------------------------------
 // lf_mg_up: x' = (two sweeps of (x + P(ec) * fluid)) * fluid
 // ---------------------------------------------------------------------------
@@ -326,12 +267,12 @@ struct Ar<__nv_bfloat16> {
 constexpr int UZ = 32;   // z cells of a block's column: a warp a row
 constexpr int UCX = 16;  // the most output planes a block marches over
 
-template <int TY>
+template <int TY, int TZ = UZ>
 struct UpTile {
-  static constexpr int NT = TY * UZ;                  // threads, one per cell of the column
-  static constexpr int R0Y = TY + 4, R0Z = UZ + 4;    // x0: the column + 2
-  static constexpr int R1Y = TY + 2, R1Z = UZ + 2;    // s1: the column + 1
-  static constexpr int EX = UCX / 2 + 5, EY = TY / 2 + 4, EZ = UZ / 2 + 4;  // the coarse region
+  static constexpr int NT = TY * TZ;                  // threads, one per cell of the column
+  static constexpr int R0Y = TY + 4, R0Z = TZ + 4;    // x0: the column + 2
+  static constexpr int R1Y = TY + 2, R1Z = TZ + 2;    // s1: the column + 1
+  static constexpr int EX = UCX / 2 + 5, EY = TY / 2 + 4, EZ = TZ / 2 + 4;  // the coarse region
   static constexpr int H0 = R0Y * R0Z - NT;           // x0 points of the halo ring
   static constexpr int H1 = R1Y * R1Z - NT;           // s1 points of the halo ring
   static_assert(H0 <= NT && H1 <= NT && R0Y * EZ <= NT, "one halo point a thread");
@@ -388,19 +329,25 @@ __device__ __forceinline__ CellOp<T> load_op(const Level<T>& L, const T* __restr
   return o;
 }
 
-// jacobi_at on a cell whose operator is `o`, x at the cell xc and at its
-// neighbours below and above along x, y and z.
-template <class T>
-__device__ __forceinline__ T sweep_at(const CellOp<T>& o, T xc, T xm, T xp, T ym, T yp, T zm,
-                                      T zp, T scale, T damp) {
-  using A = Ar<T>;
+// apply_at on a cell whose operator is `o`, x at the cell xc and at its
+// neighbours below and above along x, y and z, in the arithmetic A.
+template <class T, class A = Ar<T>>
+__device__ __forceinline__ T ax_at(const CellOp<T>& o, T xc, T xm, T xp, T ym, T yp, T zm, T zp,
+                                   T scale) {
   T nbr = A::add0(A::mul(o.cul, xm));
   nbr = A::add(nbr, A::mul(o.cuh, xp));
   nbr = A::add(nbr, A::mul(o.cvl, ym));
   nbr = A::add(nbr, A::mul(o.cvh, yp));
   nbr = A::add(nbr, A::mul(o.cwl, zm));
   nbr = A::add(nbr, A::mul(o.cwh, zp));
-  const T ax = A::mul(A::mul(scale, A::sub(A::mul(o.d, A::mul(xc, o.f)), nbr)), o.f);
+  return A::mul(A::mul(scale, A::sub(A::mul(o.d, A::mul(xc, o.f)), nbr)), o.f);
+}
+
+// jacobi_at on a cell whose operator is `o`, x as for ax_at.
+template <class T, class A = Ar<T>>
+__device__ __forceinline__ T sweep_at(const CellOp<T>& o, T xc, T xm, T xp, T ym, T yp, T zm,
+                                      T zp, T scale, T damp) {
+  const T ax = ax_at<T, A>(o, xc, xm, xp, ym, yp, zm, zp, scale);
   return A::add(xc, A::mul(A::mul(damp, o.inv), A::sub(o.b, ax)));
 }
 
@@ -794,10 +741,12 @@ __device__ T* coarse_sweeps(const CView<T, RES>& V, T* cur, int from, int iters,
   return cur;
 }
 
-// restrict_row in the storage type's arithmetic.
-template <class T>
-__device__ __forceinline__ T restrict_row_t(T f0, T f1, T f2, T f3, int J, int nc) {
-  using A = Ar<T>;
+// One axis of R's transpose-of-prolongation, in the arithmetic A: coarse
+// row J of nc from the fine rows f0 = F[2J-1], f1 = F[2J], f2 = F[2J+1], f3
+// = F[2J+2] (rows outside the padded fine axis are not read), edge fold
+// included, in the plain version's order of adds.
+template <class T, class A = Ar<T>>
+__device__ __forceinline__ T restrict_row(T f0, T f1, T f2, T f3, int J, int nc) {
   const T q = A::of(0.25f);
   T t = A::mul(A::of(0.75f), A::add(f1, f2));
   if (J < nc - 1) t = A::add(t, A::mul(q, f3));
@@ -907,8 +856,8 @@ __device__ void coarse_run(const CoarseArgs<T>& A, T* out, int pre, int post, in
       T v[4];
 #pragma unroll
       for (int bb = 0; bb < 4; ++bb)
-        v[bb] = restrict_row_t<T>(rf(0, bb), rf(1, bb), rf(2, bb), rf(3, bb), ci, cx);
-      rxy[t] = restrict_row_t<T>(v[0], v[1], v[2], v[3], cj, cy);
+        v[bb] = restrict_row<T>(rf(0, bb), rf(1, bb), rf(2, bb), rf(3, bb), ci, cx);
+      rxy[t] = restrict_row<T>(v[0], v[1], v[2], v[3], cj, cy);
     }
     __syncthreads();
     for (int cc = threadIdx.x; cc < N.cells(); cc += COARSE_THREADS<RES>) {
@@ -921,7 +870,7 @@ __device__ void coarse_run(const CoarseArgs<T>& A, T* out, int pre, int post, in
         const int k = fold_row(ck, q, cz);
         w[q] = k < L.nz ? row[k] : zero;
       }
-      N.b[cc] = R::mul(R::mul(restrict_row_t<T>(w[0], w[1], w[2], w[3], ck, cz), R::of(0.125f)),
+      N.b[cc] = R::mul(R::mul(restrict_row<T>(w[0], w[1], w[2], w[3], ck, cz), R::of(0.125f)),
                        N.fluid(cc));
     }
     __syncthreads();
@@ -988,6 +937,302 @@ __global__ void __launch_bounds__(COARSE_THREADS<RES>)
   coarse_run<T, RES>(A, out, pre, post, coarse_iters, Ar<T>::of(damp), coarse_smem);
 }
 
+// ---------------------------------------------------------------------------
+// lf_mg16_pre: x = (two damped-Jacobi sweeps from 0) * fluid, marching
+// ---------------------------------------------------------------------------
+//
+// A block owns a column of TY x TZ cells in (y, z) and marches along x over
+// `planes` planes. The first sweep from x = 0 is pointwise, x1 = damp *
+// inv_diag * b, and is formed once a point: on the column + 1, a plane at a
+// time, into a ring of three planes in shared memory. The second sweep of
+// plane q - 1 reads its neighbours' x1 along y and z from the ring and
+// along x from the thread's registers (x1 of its cell at planes q - 2, q -
+// 1, q). A thread loads b and inv_diag of its cell once, for x1, and keeps
+// them for the sweep of that plane; the face of cu between two planes is
+// loaded once; each iteration issues the next one's loads before it uses
+// its own. One barrier a plane: with three slots, plane q's x1 is written
+// while no thread can still read the slot it takes.
+
+// The loads of one iteration of mg_pre_march, q: b and inv_diag of plane q
+// at the thread's cell and ring point, the u face below plane q, and the
+// rest of the operator of the cell at plane q - 1.
+template <class T>
+struct PreLoads {
+  T b, inv, br, ir, cu, d, f, cvl, cvh, cwl, cwh;
+};
+
+template <class T, int TY, int TZ>
+__global__ void __launch_bounds__(TY * TZ, 2) mg_pre_march(Level<T> L, const T* __restrict__ b,
+                                                         T* __restrict__ out, int planes,
+                                                         float damp_f) {
+  using U = UpTile<TY, TZ>;
+  using A = Hw<T>;
+  __shared__ T s1[3][U::R1Y * U::R1Z];  // x1 on the column + 1, three planes
+  const int tid = threadIdx.x;
+  const int nx = L.nx, ny = L.ny, nz = L.nz, syz = ny * nz;
+  const int z0 = blockIdx.x * TZ, y0 = blockIdx.y * TY, xa = blockIdx.z * planes;
+  const int xe = min(xa + planes, nx);  // output planes [xa, xe)
+  const T zero = A::of(0.0f), scale = A::of(L.scale), damp = A::of(damp_f);
+  // the thread's cell of the column and, for the last H1 threads, a point of
+  // the ring around it
+  const int ty = tid / TZ, tz = tid - ty * TZ;
+  const bool has_ring = tid >= U::NT - U::H1;
+  SweepPoint sw[2];
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    int ly = ty + 1, lz = tz + 1;
+    if (a == 1) ring_point(has_ring ? tid - (U::NT - U::H1) : 0, U::R1Y, U::R1Z, 1, &ly, &lz);
+    const int j = y0 - 1 + ly, k = z0 - 1 + lz;
+    SweepPoint& S = sw[a];
+    S.in = j >= 0 && j < ny && k >= 0 && k < nz;
+    S.g = j * nz + k;
+    S.gw = j * (nz + 1) + k;
+    S.c0 = 0;
+    S.c1 = ly * U::R1Z + lz;
+  }
+  const SweepPoint& S = sw[0];
+  auto load = [&](int q) {  // 0 where a value is outside the grid or not needed
+    PreLoads<T> v;
+    v.b = v.inv = v.br = v.ir = v.cu = v.d = v.f = v.cvl = v.cvh = v.cwl = v.cwh = zero;
+    const bool q_in = q >= 0 && q < nx;
+    const int p = q - 1;
+    if (q_in && S.in) {
+      v.b = b[q * syz + S.g];
+      v.inv = L.inv_diag[q * syz + S.g];
+    }
+    if (q >= 0 && q <= nx && S.in) v.cu = L.cu[q * syz + S.g];
+    if (has_ring && q_in && sw[1].in) {
+      v.br = b[q * syz + sw[1].g];
+      v.ir = L.inv_diag[q * syz + sw[1].g];
+    }
+    if (p >= xa && S.in) {
+      const int fv = p * (syz + nz) + S.g;
+      const int fw = p * (syz + ny) + S.gw;
+      v.d = L.diag[p * syz + S.g];
+      v.f = L.fluid[p * syz + S.g];
+      v.cvl = L.cv[fv];
+      v.cvh = L.cv[fv + nz];
+      v.cwl = L.cw[fw];
+      v.cwh = L.cw[fw + 1];
+    }
+    return v;
+  };
+  CellOp<T> o;  // the cell's operator at plane q - 1
+  o.b = o.inv = o.d = o.f = o.cul = o.cuh = o.cvl = o.cvh = o.cwl = o.cwh = zero;
+  T x1m = zero, x1c = zero;  // the cell's x1 at planes q - 2, q - 1
+  int sm = 0, sc = 1, sq = 2;  // ring slots of planes q - 2, q - 1, q
+  PreLoads<T> next = load(xa - 1);
+  for (int q = xa - 1; q <= xe; ++q) {
+    {  // the slot of plane q - 3 takes plane q
+      const int t = sm;
+      sm = sc;
+      sc = sq;
+      sq = t;
+    }
+    const PreLoads<T> v = next;
+    if (q < xe) next = load(q + 1);
+    const bool sweep = q - 1 >= xa && S.in;  // the sweep of plane p = q - 1
+    o.cul = o.cuh;
+    o.cuh = v.cu;
+    o.d = v.d;
+    o.f = v.f;
+    o.cvl = v.cvl;
+    o.cvh = v.cvh;
+    o.cwl = v.cwl;
+    o.cwh = v.cwh;
+    // x1 of plane q (0 outside the grid)
+    const T x1q = A::mul(A::mul(damp, v.inv), v.b);
+    s1[sq][S.c1] = x1q;
+    if (has_ring) s1[sq][sw[1].c1] = A::mul(A::mul(damp, v.ir), v.br);
+    __syncthreads();
+    // the second sweep of plane p, masked, out
+    if (sweep) {
+      const T* m = s1[sc];
+      const T w = sweep_at<T, A>(o, x1c, x1m, x1q, m[S.c1 - U::R1Z], m[S.c1 + U::R1Z], m[S.c1 - 1],
+                                 m[S.c1 + 1], scale, damp);
+      out[(q - 1) * syz + S.g] = A::mul(w, o.f);
+    }
+    x1m = x1c;
+    x1c = x1q;
+    o.b = v.b;
+    o.inv = v.inv;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// lf_mg_restrict, lf_mg16_restrict: rc = R((b - A x) * fluid) * fluid_c,
+// marching
+// ---------------------------------------------------------------------------
+//
+// A block owns a column of TY/2 x UZ/2 coarse cells in (y, z), TY x UZ
+// fine, and marches along x over `planes` coarse planes. Coarse plane I
+// reads the fine residual planes 2I - 1 .. 2I + 2, so a step makes two new
+// ones. x is staged once, on the fine column + 2, two planes a step, into a
+// ring of four planes in shared memory. The residual is formed once a
+// point, on the fine column + 1, from the staged x: a thread a point (the
+// column's cells, then the ring's), so that no thread forms two while the
+// others wait at the barrier, and a thread's operator for the two planes
+// of a step fits its registers. Each thread keeps its point's residual at
+// the four planes in registers, so that R along x is a row of registers,
+// written once into shared memory. R along y reads those rows, and R along
+// z, times 1/8 and fluid_c, writes rc: each row of the three passes is
+// formed once, in restrict_row's order, as _restrict_axis runs the axes
+// one after another. Two barriers a step: the z pass of coarse plane I
+// runs in step I + 1, beside its residual. Each thread's points, and so
+// its index math, are fixed for the march.
+
+// The threads of mg_restrict_march<T, TY>: one a point of the fine column
+// + 1 (the column's TY x UZ cells, then the H1 points of its ring), in
+// whole warps, so that no thread forms the residual at two points.
+template <int TY>
+struct RestrictThreads {
+  static constexpr int NT = (TY * UZ + UpTile<TY>::H1 + 31) / 32 * 32;
+};
+
+// Point h of the column + w of a TY x UZ column: its cells first, then the
+// ring of width w; (ly, lz) in the region.
+template <int TY>
+__device__ __forceinline__ void column_point(int h, int w, int* ly, int* lz) {
+  if (h < TY * UZ) {
+    *ly = h / UZ + w;
+    *lz = h - (h / UZ) * UZ + w;
+  } else {
+    ring_point(h - TY * UZ, TY + 2 * w, UZ + 2 * w, w, ly, lz);
+  }
+}
+
+template <class T, int TY>
+__global__ void __launch_bounds__(RestrictThreads<TY>::NT, 2)
+    mg_restrict_march(Level<T> L, const T* __restrict__ x, const T* __restrict__ b,
+                      const T* __restrict__ fluid_c, T* __restrict__ rc, int cx, int cy, int cz,
+                      int planes) {
+  using U = UpTile<TY>;
+  using A = Hw<T>;
+  constexpr int NT = RestrictThreads<TY>::NT;
+  constexpr int CY = TY / 2, CZ = UZ / 2;  // coarse cells of the column
+  constexpr int X0 = U::R0Y * U::R0Z, R1 = U::R1Y * U::R1Z;
+  static_assert(X0 <= 2 * NT && CY * U::R1Z <= NT, "two x points and a row a thread");
+  __shared__ T sx[4][X0];                  // x on the column + 2, four planes
+  __shared__ T sr[R1];                     // R along x, on the column + 1
+  __shared__ T sy[CY * U::R1Z];            // R along x and y
+  const int tid = threadIdx.x;
+  const int nx = L.nx, ny = L.ny, nz = L.nz, syz = ny * nz;
+  const int z0 = blockIdx.x * UZ, y0 = blockIdx.y * TY;
+  const int ia = blockIdx.z * planes, ie = min(ia + planes, cx);  // coarse planes [ia, ie)
+  const T zero = A::of(0.0f), scale = A::of(L.scale), k125 = A::of(0.125f);
+  // (a) x: points tid and tid + NT of the column + 2
+  struct XPoint {
+    int g, sh;
+    bool in;
+  } xp[2];
+  const int nxp = tid + NT < X0 ? 2 : 1;
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    int ly, lz;
+    column_point<TY>(a == 0 || nxp == 2 ? tid + a * NT : 0, 2, &ly, &lz);
+    const int j = y0 - 2 + ly, k = z0 - 2 + lz;
+    xp[a].in = j >= 0 && j < ny && k >= 0 && k < nz;
+    xp[a].g = j * nz + k;
+    xp[a].sh = ly * U::R0Z + lz;
+  }
+  // (b) the residual: point tid of the column + 1
+  const bool has_r = tid < R1;
+  SweepPoint P;
+  {
+    int ly, lz;
+    column_point<TY>(has_r ? tid : 0, 1, &ly, &lz);
+    const int j = y0 - 1 + ly, k = z0 - 1 + lz;
+    P.in = has_r && j >= 0 && j < ny && k >= 0 && k < nz;
+    P.g = j * nz + k;
+    P.gw = j * (nz + 1) + k;
+    P.c0 = (ly + 1) * U::R0Z + (lz + 1);
+    P.c1 = ly * U::R1Z + lz;
+  }
+  // (c) R along y: coarse row yJ of the column, fine column yk of the region
+  const bool has_y = tid < CY * U::R1Z;
+  const int yj = tid / U::R1Z, yk = tid - yj * U::R1Z;
+  const int yJ = y0 / 2 + yj;
+  // (d) R along z: a coarse cell of the column
+  const int zj = tid / CZ, zk = tid - zj * CZ;
+  const int zJ = y0 / 2 + zj, zK = z0 / 2 + zk;
+  const bool has_z = tid < CY * CZ && zJ < cy && zK < cz;
+
+  auto load_x = [&](int p, T* v) {  // x of the thread's points at plane p, 0 outside the grid
+    const bool in = p >= 0 && p < nx;
+#pragma unroll
+    for (int a = 0; a < 2; ++a) v[a] = a < nxp && in && xp[a].in ? x[p * syz + xp[a].g] : zero;
+  };
+  auto store_x = [&](int p, const T* v) {
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+      if (a < nxp) sx[p & 3][xp[a].sh] = v[a];
+  };
+  auto z_pass = [&](int I, T fc) {
+    const T* w = sy + zj * U::R1Z + 2 * zk;
+    rc[(I * cy + zJ) * cz + zK] =
+        A::mul(A::mul(restrict_row<T, A>(w[0], w[1], w[2], w[3], zK, cz), k125), fc);
+  };
+
+  T r[4] = {zero, zero, zero, zero};  // the residual at fine planes 2s - 1 .. 2s + 2
+  {
+    T v0[2], v1[2];
+    load_x(2 * ia - 2, v0);
+    load_x(2 * ia - 1, v1);
+    store_x(2 * ia - 2, v0);
+    store_x(2 * ia - 1, v1);
+  }
+  // step s makes the residual of fine planes 2s + 1 and 2s + 2; from s = ia
+  // on, R of coarse plane s
+  for (int s = ia - 1; s < ie; ++s) {
+    const int p1 = 2 * s + 1;
+    // this step's loads: x of planes p1 + 1 and p1 + 2, the operator of the
+    // residual point at planes p1 and p1 + 1, fluid_c of the z pass
+    T v0[2], v1[2];
+    load_x(p1 + 1, v0);
+    load_x(p1 + 2, v1);
+    CellOp<T> op[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = p1 + h;
+      op[h].b = op[h].d = op[h].f = zero;
+      op[h].cul = op[h].cuh = op[h].cvl = op[h].cvh = op[h].cwl = op[h].cwh = zero;
+      if (p >= 0 && p < nx && P.in) op[h] = load_op(L, b, p, P);
+    }
+    const bool zo = s > ia && has_z;  // the z pass of coarse plane s - 1
+    const T fc = zo ? fluid_c[((s - 1) * cy + zJ) * cz + zK] : zero;
+    store_x(p1 + 1, v0);
+    store_x(p1 + 2, v1);
+    __syncthreads();
+    if (zo) z_pass(s - 1, fc);
+    if (has_r) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = p1 + h;
+        T v = zero;
+        if (p >= 0 && p < nx && P.in) {
+          const T* m = sx[p & 3];
+          const T ax = ax_at<T, A>(op[h], m[P.c0], sx[(p - 1) & 3][P.c0], sx[(p + 1) & 3][P.c0],
+                                   m[P.c0 - U::R0Z], m[P.c0 + U::R0Z], m[P.c0 - 1], m[P.c0 + 1],
+                                   scale);
+          v = A::mul(A::sub(op[h].b, ax), op[h].f);
+        }
+        r[2 + h] = v;
+      }
+      if (s >= ia) sr[P.c1] = restrict_row<T, A>(r[0], r[1], r[2], r[3], s, cx);
+      r[0] = r[2];
+      r[1] = r[3];
+    }
+    __syncthreads();
+    if (s >= ia && has_y) {
+      const T* col = sr + 2 * yj * U::R1Z + yk;
+      sy[yj * U::R1Z + yk] = restrict_row<T, A>(col[0], col[U::R1Z], col[2 * U::R1Z],
+                                                col[3 * U::R1Z], yJ, cy);
+    }
+  }
+  __syncthreads();
+  if (has_z) z_pass(ie - 1, fluid_c[((ie - 1) * cy + zJ) * cz + zK]);
+}
+
 template <class T>
 Level<T> make_level(const T* diag, const T* inv_diag, const T* fluid, const T* cu, const T* cv,
                     const T* cw, int nx, int ny, int nz, float scale) {
@@ -1005,39 +1250,84 @@ Level<T> make_level(const T* diag, const T* inv_diag, const T* fluid, const T* c
   return L;
 }
 
-// The launchers of both instances.
+// The launchers: lf_mg_pre's (float32 only), then those of both instances.
 
-template <class T>
-int launch_pre(const T* b, const T* diag, const T* inv_diag, const T* fluid, const T* cu,
-               const T* cv, const T* cw, T* out, int nx, int ny, int nz, float damp, float scale,
-               void* stream) {
+int launch_pre(const float* b, const float* diag, const float* inv_diag, const float* fluid,
+               const float* cu, const float* cv, const float* cw, float* out, int nx, int ny,
+               int nz, float damp, float scale, void* stream) {
   const long long total = (long long)nx * ny * nz;
   if (total == 0) return 0;
   const int threads = 256;
   const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  mg_pre_kernel<T><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  mg_pre_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       make_level(diag, inv_diag, fluid, cu, cv, cw, nx, ny, nz, scale), b, out, damp);
   return (int)cudaGetLastError();
 }
 
+// The marches of "mg16_pre" and "mg_restrict" / "mg16_restrict": "mg_up"'s
+// columns (16 rows of fine cells on a grid of 2^20 cells or more, else 8;
+// 32 cells along z), and for "mg16_pre" a column of 16 x 16 where nz <= 16;
+// as many planes a block as keep the blocks within one wave: UP_BLOCKS
+// blocks (two an SM) for the restriction, and for the pre-sweeps as many
+// blocks as have the threads of UP_BLOCKS blocks of 512.
+constexpr int UP_BLOCKS = 2 * 132;
+
+// The planes a block marches over on a grid of n planes and `columns`
+// columns: as few as keep the blocks within `blocks`.
+inline int march_planes(int n, int columns, int blocks) {
+  const int chunks = max(1, blocks / columns);
+  return (n + chunks - 1) / chunks;
+}
+
+template <class T, int TY, int TZ>
+void launch_pre_tile(const Level<T>& L, const T* b, T* out, float damp, void* stream) {
+  const int columns = ((L.ny + TY - 1) / TY) * ((L.nz + TZ - 1) / TZ);
+  const int planes = march_planes(L.nx, columns, UP_BLOCKS * 512 / (TY * TZ));
+  const dim3 grid((L.nz + TZ - 1) / TZ, (L.ny + TY - 1) / TY, (L.nx + planes - 1) / planes);
+  mg_pre_march<T, TY, TZ><<<grid, TY * TZ, 0, (cudaStream_t)stream>>>(L, b, out, planes, damp);
+}
+
 template <class T>
-int launch_restrict(const T* x, const T* b, const T* diag, const T* inv_diag, const T* fluid,
-                    const T* cu, const T* cv, const T* cw, const T* fluid_c, T* rc, int nx, int ny,
-                    int nz, float scale, void* stream) {
+int launch_pre_march(const T* b, const T* diag, const T* inv_diag, const T* fluid, const T* cu,
+                     const T* cv, const T* cw, T* out, int nx, int ny, int nz, float damp,
+                     float scale, void* stream) {
+  const long long cells = (long long)nx * ny * nz;
+  if (cells == 0) return 0;
+  const Level<T> L = make_level(diag, inv_diag, fluid, cu, cv, cw, nx, ny, nz, scale);
+  if (nz <= 16)
+    launch_pre_tile<T, 16, 16>(L, b, out, damp, stream);
+  else if (cells >= (1 << 20))
+    launch_pre_tile<T, 16, UZ>(L, b, out, damp, stream);
+  else
+    launch_pre_tile<T, 8, UZ>(L, b, out, damp, stream);
+  return (int)cudaGetLastError();
+}
+
+template <class T>
+int launch_restrict_march(const T* x, const T* b, const T* diag, const T* inv_diag,
+                          const T* fluid, const T* cu, const T* cv, const T* cw, const T* fluid_c,
+                          T* rc, int nx, int ny, int nz, float scale, void* stream) {
   const int cx = (nx + 1) / 2, cy = (ny + 1) / 2, cz = (nz + 1) / 2;
-  if ((long long)nx * ny * nz == 0) return 0;
-  const dim3 grid((cz + RCZ - 1) / RCZ, (cy + RCY - 1) / RCY, (cx + RCX - 1) / RCX);
-  mg_restrict_kernel<T><<<grid, RCX * RCY * RCZ, 0, (cudaStream_t)stream>>>(
-      make_level(diag, inv_diag, fluid, cu, cv, cw, nx, ny, nz, scale), x, b, fluid_c, rc, cx, cy,
-      cz);
+  const long long cells = (long long)nx * ny * nz;
+  if (cells == 0) return 0;
+  const int ty = cells >= (1 << 20) ? 16 : 8;
+  const int ccy = ty / 2, ccz = UZ / 2;  // coarse cells of a column
+  const int columns = ((cy + ccy - 1) / ccy) * ((cz + ccz - 1) / ccz);
+  const int planes = march_planes(cx, columns, UP_BLOCKS);
+  const dim3 grid((cz + ccz - 1) / ccz, (cy + ccy - 1) / ccy, (cx + planes - 1) / planes);
+  const Level<T> L = make_level(diag, inv_diag, fluid, cu, cv, cw, nx, ny, nz, scale);
+  if (ty == 16)
+    mg_restrict_march<T, 16><<<grid, RestrictThreads<16>::NT, 0, (cudaStream_t)stream>>>(
+        L, x, b, fluid_c, rc, cx, cy, cz, planes);
+  else
+    mg_restrict_march<T, 8><<<grid, RestrictThreads<8>::NT, 0, (cudaStream_t)stream>>>(
+        L, x, b, fluid_c, rc, cx, cy, cz, planes);
   return (int)cudaGetLastError();
 }
 
 // The march of "mg_up": a column of 16 rows on a grid of 2^20 cells or more,
 // else 8, and as few planes a block (at most UCX) as keep the blocks within
-// UP_BLOCKS, one wave at two blocks an SM.
-constexpr int UP_BLOCKS = 2 * 132;
-
+// UP_BLOCKS.
 template <class T>
 int launch_up(const T* x, const T* ec, const T* b, const T* diag, const T* inv_diag,
               const T* fluid, const T* cu, const T* cv, const T* cw, T* out, int nx, int ny,
@@ -1127,8 +1417,8 @@ extern "C" int lf_mg_restrict(const float* x, const float* b, const float* diag,
                               const float* inv_diag, const float* fluid, const float* cu,
                               const float* cv, const float* cw, const float* fluid_c, float* rc,
                               int nx, int ny, int nz, float scale, void* stream) {
-  return launch_restrict(x, b, diag, inv_diag, fluid, cu, cv, cw, fluid_c, rc, nx, ny, nz, scale,
-                         stream);
+  return launch_restrict_march(x, b, diag, inv_diag, fluid, cu, cv, cw, fluid_c, rc, nx, ny, nz,
+                               scale, stream);
 }
 
 // x, b, out and the fine level's arrays as above; ec: (cx, cy, cz).
@@ -1164,7 +1454,8 @@ extern "C" int lf_mg16_pre(const __nv_bfloat16* b, const __nv_bfloat16* diag,
                            const __nv_bfloat16* cu, const __nv_bfloat16* cv,
                            const __nv_bfloat16* cw, __nv_bfloat16* out, int nx, int ny, int nz,
                            float damp, float scale, void* stream) {
-  return launch_pre(b, diag, inv_diag, fluid, cu, cv, cw, out, nx, ny, nz, damp, scale, stream);
+  return launch_pre_march(b, diag, inv_diag, fluid, cu, cv, cw, out, nx, ny, nz, damp, scale,
+                          stream);
 }
 
 extern "C" int lf_mg16_restrict(const __nv_bfloat16* x, const __nv_bfloat16* b,
@@ -1173,8 +1464,8 @@ extern "C" int lf_mg16_restrict(const __nv_bfloat16* x, const __nv_bfloat16* b,
                                 const __nv_bfloat16* cv, const __nv_bfloat16* cw,
                                 const __nv_bfloat16* fluid_c, __nv_bfloat16* rc, int nx, int ny,
                                 int nz, float scale, void* stream) {
-  return launch_restrict(x, b, diag, inv_diag, fluid, cu, cv, cw, fluid_c, rc, nx, ny, nz, scale,
-                         stream);
+  return launch_restrict_march(x, b, diag, inv_diag, fluid, cu, cv, cw, fluid_c, rc, nx, ny, nz,
+                               scale, stream);
 }
 
 extern "C" int lf_mg16_up(const __nv_bfloat16* x, const __nv_bfloat16* ec,

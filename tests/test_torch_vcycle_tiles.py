@@ -1,4 +1,5 @@
-"""The tile algorithms of the fused V-cycle's "mg_up" and "mg_coarse" kernels
+"""The tile algorithms of the fused V-cycle's "mg_up", "mg_coarse",
+"mg16_pre" and "mg_restrict" / "mg16_restrict" kernels
 (``libfluid_tpu_torch/csrc/vcycle.cu``), modelled in PyTorch on the CPU.
 
 ``_up_tiles`` is "mg_up"'s schedule: a block owns a column of ty x uz cells
@@ -17,7 +18,23 @@ fluid)`` in float32 (rtol 1e-6 / atol 1e-5).
 Then "mg_coarse"'s routes: which sub-cycles stay resident in one block's
 shared memory (``multigrid.coarse_route``, from ``coarse_smem_bytes``), what
 the launcher passes for each, and the float decode of a cell index that the
-kernel uses in place of integer division."""
+kernel uses in place of integer division.
+
+``_pre_march`` is "mg16_pre"'s schedule (``mg_pre_march``): a block owns a
+column of ty x uz cells and marches along x over `planes` planes; x1 =
+damp * inv_diag * b is formed once a point, a plane at a time on the column
++ 1, and the second sweep of plane q - 1 reads the planes q - 2, q - 1, q
+of x1. ``_restrict_march`` is "mg_restrict"'s and "mg16_restrict"'s
+(``mg_restrict_march``): a block owns a column of ty/2 x uz/2 coarse cells
+and marches over `planes` coarse planes; x is staged a plane at a time on
+the fine column + 2, the residual formed once a point on the fine column +
+1, two new fine planes a step, and R runs as three separable passes of rows
+formed once each: along x from the four residual planes, along y, then
+along z, times 1/8 and the coarse fluid. Both are held to the plain stages ``_pre_torch`` and
+``_restrict_residual_torch`` bit for bit in float32 and bfloat16, on tiles
+that do not divide the grids, and in float32 to the JAX package's
+``_smooth(lv, 0, b, _PRE_SMOOTH)`` and ``_restrict(lc, residual(lv, x, b))``
+(rtol 1e-6 / atol 1e-5)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -140,8 +157,8 @@ def _up_tiles(level, x, ec, b, ty, uz, planes):
     return out
 
 
-def _sweep(xm, xc, xp, p, rows, cols, h, bp, ip, dp, fp, cup, cvp, cwp, scale, damp):
-    """jacobi_at on the interior of three planes of a region (the points one
+def _ax(xm, xc, xp, p, rows, cols, h, dp, fp, cup, cvp, cwp, scale):
+    """apply_at on the interior of three planes of a region (the points one
     in from its edge), the operator of plane p at `rows` x `cols`, every
     neighbour product added in apply_at's order."""
     r = slice(rows[0] + h, rows[-1] + h + 1)
@@ -157,8 +174,15 @@ def _sweep(xm, xc, xp, p, rows, cols, h, bp, ip, dp, fp, cup, cvp, cwp, scale, d
     nbr = nbr + cwp[p + h, r, c] * xc[1:-1, :-2]
     nbr = nbr + cwp[p + h, r, c1] * xc[1:-1, 2:]
     f = fp[p + h, r, c]
-    ax = scale * (dp[p + h, r, c] * (ctr * f) - nbr) * f
-    return ctr + damp * ip[p + h, r, c] * (bp[p + h, r, c] - ax)
+    return scale * (dp[p + h, r, c] * (ctr * f) - nbr) * f
+
+
+def _sweep(xm, xc, xp, p, rows, cols, h, bp, ip, dp, fp, cup, cvp, cwp, scale, damp):
+    """jacobi_at on the interior of three planes of a region, as :func:`_ax`."""
+    r = slice(rows[0] + h, rows[-1] + h + 1)
+    c = slice(cols[0] + h, cols[-1] + h + 1)
+    ax = _ax(xm, xc, xp, p, rows, cols, h, dp, fp, cup, cvp, cwp, scale)
+    return xc[1:-1, 1:-1] + damp * ip[p + h, r, c] * (bp[p + h, r, c] - ax)
 
 
 def _up_case(name, dtype):
@@ -195,6 +219,142 @@ def test_up_tiles_equal_the_plain_stage(name, dtype, tile):
         jx = jnp.asarray(x.numpy())
         ref = multigrid._smooth(jl, jx + multigrid._prolong(jnp.asarray(ec.numpy()), x.shape) * jl.fluid,
                                 jnp.asarray(b.numpy()), multigrid._POST_SMOOTH)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-5)
+
+
+def _padded(h, *arrays):
+    """The arrays padded with h zeros on every side: cells outside the grid
+    read as 0."""
+    return [torch.nn.functional.pad(a.float(), (h, h, h, h, h, h)).to(a.dtype) for a in arrays]
+
+
+def _pre_march(level, b, ty, uz, planes):
+    """The "mg16_pre" kernel's schedule (see the module docstring)."""
+    dt = b.dtype
+    nx, ny, nz = b.shape
+    damp = t_multigrid._weak(t_multigrid._SMOOTH_DAMP, dt)
+    h = 40
+    bp, ip, dp, fp, cup, cvp, cwp = _padded(h, b, level.inv_diag, level.diag, level.fluid,
+                                            level.couple_u, level.couple_v, level.couple_w)
+    out = torch.full_like(b, float("nan"))
+    for xa in range(0, nx, planes):
+        xe = min(xa + planes, nx)
+        for y0 in range(0, ny, ty):
+            for z0 in range(0, nz, uz):
+                # x1 of a plane on the column + 1: 0 outside the grid
+                js, ks = slice(y0 - 1 + h, y0 + ty + 1 + h), slice(z0 - 1 + h, z0 + uz + 1 + h)
+                rows, cols = torch.arange(y0, y0 + ty), torch.arange(z0, z0 + uz)
+                x1 = {}
+                for q in range(xa - 1, xe + 1):
+                    x1[q] = damp * ip[q + h, js, ks] * bp[q + h, js, ks]
+                    p = q - 1
+                    if p >= xa:  # the second sweep of plane p, masked, out
+                        v = _sweep(x1[p - 1], x1[p], x1[q], p, rows, cols, h, bp, ip, dp, fp, cup, cvp,
+                                   cwp, level.scale, damp)
+                        v = v * fp[p + h, y0 + h:y0 + ty + h, z0 + h:z0 + uz + h]
+                        ny_, nz_ = min(ny - y0, ty), min(nz - z0, uz)
+                        out[p, y0:y0 + ny_, z0:z0 + nz_] = v[:ny_, :nz_]
+    return out
+
+
+def _restrict_march(level, level_c, x, b, ty, uz, planes):
+    """The "mg_restrict" / "mg16_restrict" kernel's schedule (see the module
+    docstring)."""
+    dt = b.dtype
+    nx, ny, nz = b.shape
+    cx, cy, cz = level_c.fluid.shape
+    cyb, czb = ty // 2, uz // 2  # coarse cells of a column
+    h = 40
+    xp_, bp, dp, fp, cup, cvp, cwp = _padded(h, x, b, level.diag, level.fluid, level.couple_u,
+                                             level.couple_v, level.couple_w)
+    out = torch.full_like(level_c.fluid, float("nan"))
+    for ia in range(0, cx, planes):
+        ie = min(ia + planes, cx)
+        for J0 in range(0, cy, cyb):
+            for K0 in range(0, cz, czb):
+                y0, z0 = 2 * J0, 2 * K0
+                rows, cols = torch.arange(y0 - 1, y0 + ty + 1), torch.arange(z0 - 1, z0 + uz + 1)
+                in1 = ((rows >= 0) & (rows < ny))[:, None] & ((cols >= 0) & (cols < nz))[None, :]
+                r1 = (slice(y0 - 1 + h, y0 + ty + 1 + h), slice(z0 - 1 + h, z0 + uz + 1 + h))
+                # x staged a plane at a time on the column + 2
+                sx = {p: xp_[p + h, y0 - 2 + h:y0 + ty + 2 + h, z0 - 2 + h:z0 + uz + 2 + h]
+                      for p in range(2 * ia - 2, 2 * ie + 2)}
+
+                def resid(p):  # the residual of fine plane p on the column + 1, once
+                    if not 0 <= p < nx:
+                        return torch.zeros((ty + 2, uz + 2), dtype=dt)
+                    ax = _ax(sx[p - 1], sx[p], sx[p + 1], p, rows, cols, h, dp, fp, cup, cvp, cwp,
+                             level.scale)
+                    v = (bp[(p + h, *r1)] - ax) * fp[(p + h, *r1)]
+                    return torch.where(in1, v, torch.zeros_like(v))
+
+                r = {2 * ia - 1: resid(2 * ia - 1), 2 * ia: resid(2 * ia)}
+                for s in range(ia, ie):
+                    r[2 * s + 1], r[2 * s + 2] = resid(2 * s + 1), resid(2 * s + 2)
+                    # R along x: a row for each point of the column + 1
+                    rx = _restrict_row([r[2 * s - 1 + q] for q in range(4)], torch.tensor(s), cx)
+                    # along y: coarse rows J0 .., region rows 2 Jl + q
+                    jj = torch.arange(J0, J0 + cyb)[:, None]
+                    ry = _restrict_row([rx[q:q + 2 * cyb:2] for q in range(4)], jj, cy)
+                    # along z, times 1/8 and the coarse fluid
+                    kk = torch.arange(K0, K0 + czb)[None, :]
+                    rz = _restrict_row([ry[:, q:q + 2 * czb:2] for q in range(4)], kk, cz)
+                    ncy, ncz = min(cy - J0, cyb), min(cz - K0, czb)
+                    fc = level_c.fluid[s, J0:J0 + ncy, K0:K0 + ncz]
+                    out[s, J0:J0 + ncy, K0:K0 + ncz] = rz[:ncy, :ncz] * 0.125 * fc
+                    del r[2 * s - 1], r[2 * s]
+    return out
+
+
+def _down_case(name, dtype):
+    """A level of `name`'s hierarchy, its coarse level and the b and x of its
+    down leg."""
+    levels32 = t_multigrid.build_levels(torch.from_numpy(_cell_types(SHAPES[name])))
+    lv, lc = levels32[0], levels32[1]
+    b = torch.from_numpy(_rhs(np.random.default_rng(22), lv))
+    if dtype == torch.bfloat16:
+        lv, lc = (t_multigrid.MGLevel(*(a.to(dtype) for a in lev[:6]), lev.scale) for lev in (lv, lc))
+        b = b.to(dtype)
+    return lv, lc, b, t_multigrid._pre_torch(lv, b)
+
+
+@pytest.mark.parametrize("tile", list(TILES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(SHAPES))
+def test_pre_march_equals_the_plain_stage(name, dtype, tile):
+    """"mg16_pre"'s schedule gives the plain stage's bits on tiles that do
+    not divide the grid, in both storage types; in float32 it matches the
+    JAX package's pre-smoothing."""
+    lv, _, b, want = _down_case(name, dtype)
+    got = _pre_march(lv, b, *TILES[tile])
+    assert not torch.isnan(got).any()
+    assert float(want.float().abs().max()) > 0
+    assert torch.equal(got, want)
+    if dtype == torch.float32:
+        jl = multigrid.build_levels(jnp.asarray(_cell_types(SHAPES[name])))[0]
+        jb = jnp.asarray(b.numpy())
+        ref = multigrid._smooth(jl, jnp.zeros_like(jb), jb, multigrid._PRE_SMOOTH)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("tile", list(TILES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(SHAPES))
+def test_restrict_march_equals_the_plain_stage(name, dtype, tile):
+    """"mg(16)_restrict"'s schedule (x staged once, the residual once a point,
+    R as three separable passes of rows) gives the plain stage's bits on
+    tiles that do not divide the grid, odd axes zero-padded, in both storage
+    types; in float32 it matches the JAX package's restriction of the
+    residual."""
+    lv, lc, b, x = _down_case(name, dtype)
+    got = _restrict_march(lv, lc, x, b, *TILES[tile])
+    want = t_multigrid._restrict_residual_torch(lv, lc, x, b)
+    assert not torch.isnan(got).any()
+    assert float(want.float().abs().max()) > 0
+    assert torch.equal(got, want)
+    if dtype == torch.float32:
+        jlv, jlc = multigrid.build_levels(jnp.asarray(_cell_types(SHAPES[name])))[:2]
+        ref = multigrid._restrict(jlc, multigrid.residual(jlv, jnp.asarray(x.numpy()), jnp.asarray(b.numpy())))
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-5)
 
 

@@ -6,17 +6,20 @@ The V-cycle part (``--vcycle`` runs it alone) comes first for each tree, in
 a process of its own: on the 128^3 main path's hierarchy (the state one
 substep from rest), on a 256^3 hierarchy (those cell types doubled along
 each axis, config 5's grid), on testbed setup 4's 50^3 one (two
-substeps from rest) and on two thin slabs whose last level the coarse
+substeps from rest), on two thin slabs whose last level the coarse
 kernel takes alone (80 x 72 x 16: in shared memory; 128 x 128 x 16: in
-device memory), in float32 and in the bfloat16 of "mg16"
-(``chip_smoke.bf16_levels``): the device's own ms (torch.profiler, median
-of 20 launches) of ``mg_up`` / ``mg16_up`` at every level that takes it and
-of ``mg_coarse`` / ``mg16_coarse`` on the small levels, on the inputs the
-plain cycle gives each stage; a whole cycle on the host clock and its
+device memory) and on a thin slab with one fine level (96 x 81 x 15), in
+float32 and in the bfloat16 of "mg16" (``chip_smoke.bf16_levels``): the
+device's own ms (torch.profiler, median of 20 launches) of ``mg_pre`` /
+``mg16_pre``, ``mg_restrict`` / ``mg16_restrict`` and ``mg_up`` /
+``mg16_up`` at every level that takes them and of ``mg_coarse`` /
+``mg16_coarse`` on the small levels, on the inputs the plain cycle gives
+each stage; a whole cycle on the host clock and its
 device busy ms; then ``pressure.solve`` of the 128^3 APIC substep and of
 the FLIP + mg16 substep (the inputs ``substep`` gives it, captured once:
-host ms and CG iterations) and five substeps of each path (host ms and CG
-iterations a substep). Each stage's output, each cycle's and each solve's
+host ms and CG iterations), that substep under torch.profiler three times
+from the same state and draws (device busy ms, host ms, CG iterations) and
+five substeps of each path (host ms and CG iterations a substep). Each stage's output, each cycle's and each solve's
 pressure are saved in a temporary directory, so that the last line says
 whether all four runs gave the same bits.
 
@@ -100,6 +103,7 @@ def vcycle_part(tag: str, out: str) -> None:
     module's docstring); the outputs go to the folder `out`."""
     sys.path.insert(0, os.getcwd())
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke as cs
     from libfluid_tpu_torch import _build, convert, sim, testbed
@@ -131,6 +135,7 @@ def vcycle_part(tag: str, out: str) -> None:
         "50^3": ct50,
         "80x72x16 slab": slab((80, 72, 16), dev),
         "128x128x16 slab": slab((128, 128, 16), dev),
+        "96x81x15 slab": slab((96, 81, 15), dev),
     }
     saved = {}
     for hname, cell_type in hierarchies.items():
@@ -142,15 +147,24 @@ def vcycle_part(tag: str, out: str) -> None:
             first = mg.first_coarse_level(levels)
             parts, bs = [], [b]
             for l in range(first):
-                lv, bl = levels[l], bs[l]
+                lv, lc, bl = levels[l], levels[l + 1], bs[l]
+                shape = tuple(lv.fluid.shape)
                 x = mg._pre_torch(lv, bl)
-                bs.append(mg._restrict_residual_torch(lv, levels[l + 1], x, bl))
+                bs.append(mg._restrict_residual_torch(lv, lc, x, bl))
+                for stage, fused, want in (
+                        ("pre", lambda: mg.pre_smooth(lv, bl), x),
+                        ("restrict", lambda: mg.restrict_residual(lv, lc, x, bl), bs[-1])):
+                    got = fused()
+                    saved[f"{hname} {dname} {stage} {l}"] = got.cpu()
+                    equal = torch.equal(got, want)
+                    ms = device_split(fused, f"mg_{stage}")
+                    parts.append(f"{stage} {shape} {fmt_device(ms)}{'' if equal else ' (not equal to plain)'}")
                 ec = mg._coarse_torch(levels, bs[-1], l + 1)
                 got = mg.prolong_smooth(lv, x, ec, bl)
                 saved[f"{hname} {dname} up {l}"] = got.cpu()
                 equal = torch.equal(got, mg._up_torch(lv, x, ec, bl))
                 ms = device_split(lambda: mg.prolong_smooth(lv, x, ec, bl), "mg_up_kernel")
-                parts.append(f"up {tuple(lv.fluid.shape)} {fmt_device(ms)}{'' if equal else ' (not equal to plain)'}")
+                parts.append(f"up {shape} {fmt_device(ms)}{'' if equal else ' (not equal to plain)'}")
                 del x, ec, got
             bc = bs[first]
             got = mg.coarse_cycle(levels, bc, first)
@@ -189,6 +203,23 @@ def vcycle_part(tag: str, out: str) -> None:
         saved[f"{pname} solve"] = res.pressure.cpu()
         solve_ms = [cs.wall_ms(lambda: solve(*a, **k), 3) for _ in range(3)]
         del captured, a, k
+        # the substep from this state under torch.profiler, three times from
+        # the same draws: device busy ms, wall ms and CG iterations of each
+        busy, walls, its = [], [], []
+        for _ in range(3):
+            state.generator.set_state(draws)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                _, diag = sim.substep(state, pcfg, cs.DT)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            busy.append(sum(e.device_time_total for e in prof.events()
+                            if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3)
+            its.append(int(diag.pressure_iterations))
+        state.generator.set_state(draws)
+        print(f"{tag}: 128^3 {pname}: a profiled substep from the state, three times: device busy ms "
+              f"{fmt(busy)}, wall ms {fmt(walls)}, CG iterations {its}", flush=True)
         steps, its, ahead = [], [], state
         for _ in range(5):
             torch.cuda.synchronize()
