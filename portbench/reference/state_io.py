@@ -1,0 +1,54 @@
+"""The reference's own configuration objects and states, from a
+configuration file's groups and from host copies of the program's state
+(``portbench/hostcopy.py``: named tuples as dicts with ``"__type__"``)."""
+
+from __future__ import annotations
+
+import torch
+
+from portbench.reference.lf import config as config_mod
+from portbench.reference.lf import grids
+from portbench.reference.lf.renderer import accel as accel_mod
+from portbench.reference.lf.renderer import scene as scene_mod
+from portbench.reference.lf.sim import state as state_mod
+
+# the types a host copy may name, by name
+TYPES = {
+    "SimState": state_mod.SimState,
+    "SourceSet": state_mod.SourceSet,
+    "MacGrid": grids.MacGrid,
+    "Scene": scene_mod.Scene,
+    "Accel": accel_mod.Accel,
+}
+
+
+def _fields(group: dict) -> dict:
+    return {k: tuple(v) if isinstance(v, list) else v for k, v in group.items()}
+
+
+def sim_config(conf: dict) -> config_mod.SimConfig:
+    fields = _fields(conf["sim"])
+    fields["scheme"] = config_mod.TransferScheme(fields["scheme"])
+    return config_mod.SimConfig(**fields, solver=config_mod.SolverConfig(**conf["solver"]))
+
+
+def mesher_config(conf: dict) -> config_mod.MesherConfig:
+    return config_mod.MesherConfig(**_fields(conf["mesher"]))
+
+
+def render_config(conf: dict) -> config_mod.RenderConfig:
+    return config_mod.RenderConfig(**conf["render"])
+
+
+def from_host(obj, device):
+    """The reference's object for a host copy, its tensors on `device`."""
+    if isinstance(obj, dict) and "__generator__" in obj:
+        g = torch.Generator()
+        g.set_state(obj["__generator__"])
+        return g
+    if isinstance(obj, dict) and "__type__" in obj:
+        cls = TYPES[obj["__type__"]]
+        return cls(**{f: from_host(obj[f], device) for f in cls._fields})
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    return obj
