@@ -146,9 +146,7 @@ main path); the last line is ``{"ok": true, "device": {...}}``. Needs a
 CUDA device; never falls back to the CPU for the main path.
 """
 
-import contextlib
 import dataclasses
-import importlib
 import json
 import os
 import socket
@@ -174,7 +172,7 @@ from libfluid_tpu_torch.mesher import generate_mesh, surface
 from libfluid_tpu_torch.parallel import distributed as pdist
 from libfluid_tpu_torch.parallel import shard as pshard
 from libfluid_tpu_torch.parallel import zshard
-from libfluid_tpu_torch.sim import (bigstep, binning, correction, extrapolation, kernels, multigrid, pressure,
+from libfluid_tpu_torch.sim import (bigstep, binning, correction, kernels, multigrid, pressure,
                                     slotsort, sources, transfers)
 from libfluid_tpu_torch.sim.state import make_generator, particle_count, set_solid
 from libfluid_tpu_torch.testbed import __main__ as testbed_cli
@@ -1884,56 +1882,15 @@ def drive(name: str, fn, needed):
     return result, launches
 
 
-# the stages of a substep: (label, module, function)
-STAGES = (
-    ("sort_and_build (two sorts + kernel A)", slotsort, "sort_and_build"),
-    ("p2g_slots (kernel B + overflow scatter + normalize)", transfers, "p2g_slots"),
-    ("pressure.solve (MG-PCG: kernel C, fused V-cycle)", pressure, "solve"),
-    ("apply_pressure", pressure, "apply_pressure"),
-    ("correct_positions (kernel E + overflow pass + gathers)", correction, "correct_positions"),
-    ("extrapolate", extrapolation, "extrapolate"),
-    ("g2p_pic (kernel D)", transfers, "g2p_pic"),
-)
-
-
-@contextlib.contextmanager
-def timed_stages(timer, stages, sync: bool):
-    """While the block runs, time each function of `stages` ((label,
-    module, name), ...) as stage `label` of `timer` by wrapping the
-    module's attribute, with a synchronize before and after each call if
-    `sync`; the functions are restored after."""
-    originals = [(mod, name, getattr(mod, name)) for _, mod, name in stages]
-
-    def timed(label, fn):
-        def run(*args, **kwargs):
-            if sync:
-                torch.cuda.synchronize()
-            with timer.stage(label):
-                result = fn(*args, **kwargs)
-            if sync:
-                torch.cuda.synchronize()
-            return result
-        return run
-
-    try:
-        for (label, mod, name), (_, _, fn) in zip(stages, originals):
-            setattr(mod, name, timed(label, fn))
-        yield
-    finally:
-        for mod, name, fn in originals:
-            setattr(mod, name, fn)
-
-
 def stage_split(state, cfg, n0: int, cg_parts, substeps: int = 3, what: str = "128^3"):
-    """`substeps` substeps with a synchronize around each stage: ms per
-    stage (mean, ``profiling.StageTimer``'s CUDA events between the
-    synchronizes), CG iterations and ms per CG iteration, held beside
-    `cg_parts` (if given), the ms of one V-cycle and one operator call. The
-    stages are timed by wrapping the functions `substep` calls, for this
-    run only."""
-    timer = profiling.StageTimer(state.position.device)
+    """`substeps` substeps under ``profiling.tracing()``: host ms per stage
+    (the mean of the program's own spans of a substep: the host's enqueue
+    and its reads, no synchronize between stages), CG iterations and the
+    pressure span's host ms per CG iteration, held beside `cg_parts` (if
+    given), the ms of one V-cycle and one operator call."""
     total, iters = 0.0, 0
-    with timed_stages(timer, STAGES, sync=True):
+    profiling.clear()
+    with profiling.tracing():
         for i in range(substeps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1942,20 +1899,27 @@ def stage_split(state, cfg, n0: int, cg_parts, substeps: int = 3, what: str = "1
             total += (time.perf_counter() - t0) * 1e3
             iters += int(diag.pressure_iterations)
             healthy(state, diag, cfg, n0, f"staged substep {i}")
-    totals = timer.totals
-    spent = {label: 1e3 * totals.get(label, 0.0) for label, _, _ in STAGES}
+    spent, reads = {}, 0
+    for f in profiling.frames():
+        for s in f.spans:
+            if s.parent is not None and s.parent.name == "substep":
+                spent[s.name] = spent.get(s.name, 0.0) + s.ns / 1e6
+        reads += f.total("reads")
+    profiling.clear()
     rest = total - sum(spent.values())
-    solve = spent[STAGES[2][0]]
-    log(f"{what} stage split, mean of {substeps} staged substeps: total {total / substeps:.2f} ms, "
-        f"CG {iters / substeps:.2f} iterations a substep, {solve / max(iters, 1):.3f} ms per CG iteration")
-    for label, ms in (*spent.items(), ("advect, collisions, mark cells, gravity, diagnostics", rest)):
-        log(f"  stage {label}: {ms / substeps:.2f} ms ({100.0 * ms / total:.1f} %)")
+    solve = spent.get("pressure", 0.0)
+    log(f"{what} stage split (the program's spans), mean of {substeps} substeps: total {total / substeps:.2f} ms, "
+        f"CG {iters / substeps:.2f} iterations a substep, {solve / max(iters, 1):.3f} host ms per CG iteration, "
+        f"{reads / substeps:.1f} host reads a substep")
+    for name, ms in (*sorted(spent.items(), key=lambda kv: -kv[1]),
+                     ("gravity, the substep's own work and the final synchronize", rest)):
+        log(f"  stage {name}: {ms / substeps:.2f} ms ({100.0 * ms / total:.1f} %)")
     if cg_parts is None:
         return state
     # what a CG iteration is made of: its V-cycle and its operator as timed
     # alone in phase 3 (outside this path, whose launch counts are its own);
-    # the rest is the loop's vector operations and its host read of the
-    # residual
+    # the rest is the loop's vector operations, its host read of the
+    # residual and the solve's set-up, apply_pressure included
     cycle, operator = cg_parts
     per_it = solve / max(iters, 1)
     log(f"  a CG iteration of {per_it:.3f} ms: V-cycle {cycle:.3f} ms ({100.0 * cycle / per_it:.0f} %), "
@@ -2449,18 +2413,16 @@ def fluid_frames(device) -> None:
     """The testbed CLI renders the simulation: setup 0, 2 frames with
     ``--render-every 1 --render-size 256 --spp 4`` (the forward tracer, the
     default ``--tri-capacity`` of 2^17), then 1 frame with ``--algorithm
-    bdpt`` at 256^2 x 1 spp. Each frame's split from ``profiling.StageTimer``
-    (step, mesh, scene = host copy + builder + ``accel.build``, render:
-    CUDA events around the functions the frame loop calls, wrapped for
-    this run only); every PPM written, of the right size and not black."""
+    bdpt`` at 256^2 x 1 spp. Each frame's split from the program's own
+    spans under ``profiling.tracing()`` (host ms of step, mesh, accel =
+    ``accel.build`` and render; the testbed builds the rest of its scene on
+    the host, outside any span); every PPM written, of the right size and
+    not black."""
     runs = (("pt", ["--frames", "2", "--spp", "4"]), ("bdpt", ["--frames", "1", "--spp", "1", "--algorithm", "bdpt"]))
-    stages = (("step", sim, "step"), ("mesh", importlib.import_module("libfluid_tpu_torch.mesher.marching_cubes"),
-                                      "generate_mesh"),
-              ("scene", testbed, "fluid_render_scene"),
-              ("render", importlib.import_module("libfluid_tpu_torch.renderer.render"), "render"))
+    names = ("step", "mesh", "accel", "render")
     for algorithm, extra in runs:
-        timer = profiling.StageTimer(device)
-        with tempfile.TemporaryDirectory() as out, timed_stages(timer, stages, sync=False):
+        profiling.clear()
+        with tempfile.TemporaryDirectory() as out, profiling.tracing():
             t0 = time.perf_counter()
             rc = testbed_cli.main(["--setup", "0", "--render-every", "1", "--render-size", "256", "--out", out,
                                    *extra], device=device)
@@ -2473,11 +2435,13 @@ def fluid_frames(device) -> None:
                 check(data.startswith(header) and len(data) == len(header) + 256 * 256 * 3,
                       f"frame {frame} ({algorithm}): {len(data)} bytes")
                 check(np.frombuffer(data[len(header):], np.uint8).max() > 0, f"frame {frame} ({algorithm}) is black")
-        totals = timer.totals
-        split = ", ".join(f"{name} {1e3 * totals[name] / timer.counts[name]:.1f}"
-                          for name in ("step", "mesh", "scene", "render"))
+        recorded = [f for f in profiling.frames() if f.named("step")]
+        profiling.clear()
+        split = ", ".join(f"{name} {sum(s.ns for f in recorded for s in f.named(name)) / 1e6 / len(recorded):.1f}"
+                          for name in names)
+        reads = sum(f.total("reads") for f in recorded) / len(recorded)
         log(f"testbed setup 0 --render-every 1, 256^2, {algorithm} ({' '.join(extra)}): rc 0, {wall:.2f} s for "
-            f"{frames} frame(s); ms a frame (CUDA events): {split}")
+            f"{frames} frame(s); host ms a frame (the program's spans): {split}; {reads:.1f} host reads a frame")
 
 
 def ramp_texels() -> np.ndarray:

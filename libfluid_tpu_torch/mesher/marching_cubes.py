@@ -8,7 +8,7 @@ edges (t = v1 / (v1 - v2)), then the block's triangles are appended to the
 buffer after those of the earlier blocks. Triangles past ``max_triangles``
 are dropped; ``count`` is capped at the capacity. The JAX package runs this
 outside any kernel, and so does the port: plain PyTorch, one host read per
-block (the block's triangle count).
+block (the block's triangle count; read site ``marching_cubes.nonzero``).
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from libfluid_tpu_torch import profiling
 from libfluid_tpu_torch.config import MesherConfig
 from libfluid_tpu_torch.mesher import tables
 from libfluid_tpu_torch.mesher.surface import sample_surface
@@ -107,7 +108,8 @@ def marching_cubes(sdf: torch.Tensor, cfg: MesherConfig) -> MeshBuffers:
         ntris = ntri_table[case]  # (cb,)
         k5 = torch.arange(MAX_TRIS_PER_CELL, device=dev)
         tvalid = (k5[None, :] < ntris[:, None]).reshape(-1)
-        rows_i = torch.nonzero(tvalid).reshape(-1)
+        with profiling.blocking("marching_cubes.nonzero"):
+            rows_i = torch.nonzero(tvalid).reshape(-1)
         n_valid = rows_i.shape[0]
         keep = max(0, min(n_valid, cap - count))  # the rest is dropped
         if keep > 0:
@@ -131,6 +133,11 @@ def generate_mesh(
     cfg: MesherConfig,
     particle_radius: Optional[float] = None,
 ) -> MeshBuffers:
-    """particles -> SDF -> triangles."""
-    sdf = sample_surface(position, active, cfg, particle_radius)
-    return marching_cubes(sdf, cfg)
+    """particles -> SDF -> triangles: a ``mesh`` span of
+    :mod:`libfluid_tpu_torch.profiling` holding ``surface`` and
+    ``marching_cubes``."""
+    with profiling.span("mesh"):
+        with profiling.span("surface"):
+            sdf = sample_surface(position, active, cfg, particle_radius)
+        with profiling.span("marching_cubes"):
+            return marching_cubes(sdf, cfg)

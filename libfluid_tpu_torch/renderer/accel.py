@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from libfluid_tpu_torch import profiling
 from libfluid_tpu_torch.config import resolve_device
 from libfluid_tpu_torch.renderer import loops
 
@@ -55,6 +56,7 @@ def _valid_tris(scene) -> torch.Tensor:
     return scene.tri_mat > 0
 
 
+@profiling.spanned("accel")
 def build(scene, res: Tuple[int, int, int] = (64, 64, 64), big_capacity: int = 128,
           max_span: int = 2, device=None) -> Accel:
     """The uniform grid of `scene`'s triangles, built on `device` (None: the
@@ -111,7 +113,8 @@ def build(scene, res: Tuple[int, int, int] = (64, 64, 64), big_capacity: int = 1
 
     order = torch.sort(key_arr, stable=True).indices
     tri_ids = tid_arr[order]
-    counts = torch.bincount(key_arr, minlength=num_cells + 1)[:num_cells]
+    with profiling.blocking("accel.bincount"):  # on the card, reads key_arr's bounds back
+        counts = torch.bincount(key_arr, minlength=num_cells + 1)[:num_cells]
     cell_start = torch.cat([torch.zeros((1,), dtype=torch.int64, device=device), torch.cumsum(counts, 0)])
 
     # the first big_capacity big triangles in id order, -1 padded
@@ -320,7 +323,7 @@ def traverse(accel: Accel, tri_pack: torch.Tensor, origin: torch.Tensor, directi
         max_iters = 2 * (rx + ry + rz) + 64
     st = init_state(accel, tri_pack, origin, direction, t_max)
     for it in range(max_iters):
-        if it % loops.TRAVERSE_CHECK_EVERY == 0 and not loops.flag(st.active.any()):
+        if it % loops.TRAVERSE_CHECK_EVERY == 0 and not loops.flag(st.active.any(), "accel.traverse"):
             break
         st = step_state(accel, tri_pack, origin, direction, st)
     return st.best_t, st.best_id, st.best_u, st.best_v

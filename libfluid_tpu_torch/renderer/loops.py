@@ -4,12 +4,15 @@ The JAX package's ``lax.while_loop`` tests its exit condition on the
 device; here a loop is a Python loop, and its exit test reads a flag back
 from the device. :func:`flag` is that read, and counts it: the read waits
 for every launch before it, so the count is how often a loop drains the
-device's queue.
+device's queue. ``HOST_READS`` counts always; the read is also a read site
+of :mod:`libfluid_tpu_torch.profiling`, counted there while it records.
 """
 
 from __future__ import annotations
 
 import torch
+
+from libfluid_tpu_torch import profiling
 
 HOST_READS = {"count": 0}
 
@@ -25,7 +28,8 @@ def reset_host_reads() -> None:
     HOST_READS["count"] = 0
 
 
-def flag(t: torch.Tensor) -> bool:
-    """The bool of a one-element tensor, read back to the host (counted)."""
+def flag(t: torch.Tensor, site: str = "loops.flag") -> bool:
+    """The bool of a one-element tensor, read back to the host (counted;
+    `site` names the loop for the profiling record)."""
     HOST_READS["count"] += 1
-    return bool(t)
+    return bool(profiling.read(t, site))

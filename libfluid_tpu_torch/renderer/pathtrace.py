@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import torch
 
+from libfluid_tpu_torch import profiling
 from libfluid_tpu_torch.config import RenderConfig
 from libfluid_tpu_torch.renderer import draws as draws_mod
 from libfluid_tpu_torch.renderer import intersect, loops, materials
@@ -104,7 +105,7 @@ def trace_rays(scene: Scene, origins: torch.Tensor, directions: torch.Tensor, rn
         torch.zeros((), dtype=torch.int64, device=dev),
     )
     for i in range(cfg.max_bounces):
-        if not cfg.differentiable and not loops.flag(carry[4].any()):
+        if not cfg.differentiable and not loops.flag(carry[4].any(), "pathtrace.bounce"):
             break
         xi, u = stream.bounce(i, r, dev)
         carry = _bounce(scene, cfg, carry, xi, u, i)
@@ -113,6 +114,7 @@ def trace_rays(scene: Scene, origins: torch.Tensor, directions: torch.Tensor, rn
     return carry[2]
 
 
+@profiling.spanned("render")
 def trace_persistent(scene: Scene, camera, cfg: RenderConfig, rng, with_stats: bool = False):
     """Persistent-threads wavefront path tracing: the estimator of
     :func:`trace_rays` times ``samples_per_pixel``, with lanes that never
@@ -178,7 +180,7 @@ class _Lanes:
 
     def running(self, alive, next_s) -> bool:
         """The exit test: a live lane, or samples left (one host read)."""
-        return loops.flag(alive.any() | (next_s < self.total))
+        return loops.flag(alive.any() | (next_s < self.total), "pathtrace.persistent")
 
 
 def _shade_and_flush(scene, cfg, lanes: _Lanes, rec, ready, o, d, rad, tp, alive, pixel, sid, bounce,

@@ -16,6 +16,7 @@ import dataclasses
 
 import torch
 
+from libfluid_tpu_torch import profiling
 from libfluid_tpu_torch.config import RenderConfig, resolve_device
 from libfluid_tpu_torch.renderer import bdpt
 from libfluid_tpu_torch.renderer import draws as draws_mod
@@ -23,6 +24,7 @@ from libfluid_tpu_torch.renderer.camera import Camera
 from libfluid_tpu_torch.renderer.pathtrace import trace_persistent, trace_rays
 from libfluid_tpu_torch.renderer.scene import Scene
 
+@profiling.spanned("render")
 def render(scene: Scene, camera: Camera, cfg: RenderConfig, rng, device=None) -> torch.Tensor:
     """Render an (H, W, 3) radiance image with ``cfg.samples_per_pixel``
     jittered samples a pixel, on `device` (None: the CUDA card; ``"cpu"`` on

@@ -17,6 +17,7 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from libfluid_tpu_torch import profiling
 from libfluid_tpu_torch.config import resolve_device
 from libfluid_tpu_torch.renderer import materials as mat_mod
 
@@ -209,6 +210,7 @@ class SceneBuilder:
         )
 
 
+@profiling.spanned("scene")
 def inject_mesh(scene: Scene, vertices: torch.Tensor, valid: torch.Tensor, material: int) -> Scene:
     """Append a device-resident triangle soup to a scene: `vertices` (T, 3, 3)
     (e.g. ``MeshBuffers.vertices``), `valid` (T,) bool. Invalid rows get the

@@ -15,7 +15,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from libfluid_tpu_torch import grids
+from libfluid_tpu_torch import grids, profiling
 from libfluid_tpu_torch.config import SimConfig
 
 
@@ -42,7 +42,8 @@ def bin_particles(position: torch.Tensor, active: torch.Tensor, cfg: SimConfig) 
     cell = torch.where(active, cell, torch.full_like(cell, num_cells))
     # stable, as jnp.argsort: equal cells keep their row order
     order = torch.argsort(cell, stable=True).to(torch.int32)
-    counts = torch.bincount(cell, minlength=num_cells + 1)[:num_cells].to(torch.int32)
+    with profiling.blocking("binning.bincount"):  # on the card, reads cell's bounds back
+        counts = torch.bincount(cell, minlength=num_cells + 1)[:num_cells].to(torch.int32)
     cell_start = torch.cumsum(counts, dim=0, dtype=torch.int32) - counts
     return Binning(
         order=order, cell_of=cell, cell_start=cell_start, cell_count=counts,

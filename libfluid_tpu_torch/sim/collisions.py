@@ -7,13 +7,15 @@ axis; up to three rounds (one per axis) re-march the shortened segment. A
 per-axis skin push-out from adjacent solid cells and the domain walls
 follows. The JAX package runs this as jnp (no kernel), so plain PyTorch is
 the port: the ``lax.while_loop`` becomes a Python loop over march steps
-with a vectorized lane update and one host read per step for its exit test.
+with a vectorized lane update and one host read per step for its exit test
+(read site ``collisions.march``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from libfluid_tpu_torch import profiling
 from libfluid_tpu_torch.config import SimConfig
 
 _BIG = 3.0e38
@@ -61,7 +63,7 @@ def _march_round(from_w, to_w, need, solid, cfg: SimConfig, max_steps: int):
     axes = torch.arange(3, device=dev)
 
     for _ in range(max_steps):
-        if not bool(torch.any(active)):
+        if not profiling.read(torch.any(active), "collisions.march"):
             break
         # min-t axis per lane (the first of equal ones)
         dim = torch.argmin(t, dim=-1)

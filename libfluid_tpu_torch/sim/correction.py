@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from libfluid_tpu_torch import grids
+from libfluid_tpu_torch import grids, profiling
 from libfluid_tpu_torch.config import SimConfig
 from libfluid_tpu_torch.sim import jitterhash, kernels
 from libfluid_tpu_torch.sim import slots as slots_mod
@@ -195,7 +195,8 @@ def overflow_springs(
             idx, torch.full_like(idx, n),
         )
     else:
-        found = torch.nonzero(truncated).reshape(-1)[:cap].to(torch.int32)
+        with profiling.blocking("correction.nonzero"):
+            found = torch.nonzero(truncated).reshape(-1)[:cap].to(torch.int32)
         idx = torch.full((cap,), n, dtype=torch.int32, device=dev)
         idx[: found.shape[0]] = found
     ok = idx < n

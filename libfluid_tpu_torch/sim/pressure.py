@@ -22,7 +22,7 @@ from typing import NamedTuple
 
 import torch
 
-from libfluid_tpu_torch import grids
+from libfluid_tpu_torch import grids, profiling
 from libfluid_tpu_torch.config import CellType, SimConfig
 from libfluid_tpu_torch.sim import multigrid
 
@@ -89,8 +89,9 @@ def _safe(x: torch.Tensor) -> torch.Tensor:
 
 def _cg(levels, b: torch.Tensor, a_scale, tol, max_iters, precond, x0=None) -> PressureResult:
     """Preconditioned CG with a fixed iteration bound. The early-out on tiny
-    ||b||^2 (< 1e-6) skips the loop. The loop reads the residual on the host
-    once per iteration to test for exit."""
+    ||b||^2 (< 1e-6) skips the loop (read site ``cg.early_out``). The loop
+    reads the residual on the host once per iteration to test for exit
+    (``cg.loop``); its iterations are counted as ``cg_iterations``."""
     lvl0 = levels[0]
     if precond == "mg16":
         # bfloat16 copy of the hierarchy for the preconditioner sweeps (a
@@ -112,7 +113,7 @@ def _cg(levels, b: torch.Tensor, a_scale, tol, max_iters, precond, x0=None) -> P
         return multigrid.apply_level(lvl0, p) * a_scale
 
     b2 = torch.sum(b * b)
-    nontrivial = bool(b2 >= 1e-6)
+    nontrivial = profiling.read(b2 >= 1e-6, "cg.early_out")
     if x0 is None:
         p = torch.zeros_like(b)
         r = b
@@ -127,7 +128,7 @@ def _cg(levels, b: torch.Tensor, a_scale, tol, max_iters, precond, x0=None) -> P
     res = torch.amax(torch.abs(r)) if nontrivial else torch.zeros((), dtype=b.dtype, device=b.device)
 
     it = 0
-    while nontrivial and it < max_iters and bool(res >= tol):
+    while nontrivial and it < max_iters and profiling.read(res >= tol, "cg.loop"):
         z = apply_A1(s)
         alpha = sigma / _safe(torch.sum(z * s))
         p = p + alpha * s
@@ -139,6 +140,7 @@ def _cg(levels, b: torch.Tensor, a_scale, tol, max_iters, precond, x0=None) -> P
         s = z + beta * s
         sigma = sigma_new
         it += 1
+    profiling.count("cg_iterations", it)
     return PressureResult(
         pressure=p * lvl0.fluid,
         residual=res,
@@ -166,7 +168,8 @@ class _Solve(torch.autograd.Function):
     def backward(ctx, g, _g_residual, _g_iterations):
         levels, a_scale, tol, max_iters, precond = ctx.args
         adj = _cg(levels, g * levels[0].fluid, a_scale, tol, max_iters, precond)
-        ADJOINT_SOLVES.append((int(adj.iterations), float(adj.residual)))
+        ADJOINT_SOLVES.append((profiling.read(adj.iterations, "cg.adjoint"),
+                               profiling.read(adj.residual, "cg.adjoint")))
         return adj.pressure, None, None, None, None, None, None
 
 

@@ -16,7 +16,7 @@ from typing import NamedTuple
 
 import torch
 
-from libfluid_tpu_torch import grids
+from libfluid_tpu_torch import grids, profiling
 from libfluid_tpu_torch.config import SimConfig, TransferScheme
 from libfluid_tpu_torch.sim import kernels
 from libfluid_tpu_torch.sim.binning import Binning
@@ -61,7 +61,8 @@ def sort_rank_major(state, cfg: SimConfig) -> RankSorted:
     starts = torch.where(cell_s != torch.roll(cell_s, 1), iota, torch.zeros_like(iota))
     starts[0] = 0
     rank_s = iota - torch.cummax(starts, dim=0).values
-    counts = torch.bincount(cell_s, minlength=num_cells + 1)[:num_cells].to(torch.int32)
+    with profiling.blocking("sort.bincount"):  # on the card, reads cell_s's bounds back
+        counts = torch.bincount(cell_s, minlength=num_cells + 1)[:num_cells].to(torch.int32)
 
     kept_s = (cell_s < num_cells) & (rank_s < k)
     over_s = (cell_s < num_cells) & (rank_s >= k)
@@ -149,7 +150,8 @@ class _Expand(torch.autograd.Function):
         k = ins.shape[0] // num_c
         ranks = torch.arange(k, dtype=torch.int32, device=ins.device)
         valid = (counts[None, :] > ranks[:, None]).reshape(-1)
-        slots = torch.nonzero(valid).squeeze(1)
+        with profiling.blocking("expand_bwd.nonzero"):
+            slots = torch.nonzero(valid).squeeze(1)
         dpay = g.new_zeros((g.shape[0], ctx.ncols))
         dpay[:, ins[slots].long()] = g[:, slots]
         return dpay, None, None

@@ -18,6 +18,12 @@ adjoint CG solve, the DDA march straight through). ``step`` stays
 forward-only, as in the JAX package, whose CFL loop is a
 ``lax.while_loop``.
 
+Each ``step`` is a ``step`` span of :mod:`libfluid_tpu_torch.profiling`,
+each substep a ``substep`` span holding a span per stage (``advect``,
+``collide``, ``sort``, ``sources``, ``p2g``, ``pressure``, ``correction``,
+``extrapolate``, ``g2p``, ``diagnostics``); the CFL loop's read of the time
+left is the read site ``step.cfl``.
+
 A substep's random numbers (the sources' candidate positions, then the
 correction's jitter seed, in the order in which the JAX package splits its
 key) come from one :class:`Draws` object: by default the state's CPU
@@ -31,7 +37,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from libfluid_tpu_torch import grids
+from libfluid_tpu_torch import grids, profiling
 from libfluid_tpu_torch.config import SimConfig, TransferScheme
 from libfluid_tpu_torch.sim import collisions as collisions_mod
 from libfluid_tpu_torch.sim import correction as correction_mod
@@ -116,10 +122,12 @@ def _add_gravity(grid: grids.MacGrid, cfg: SimConfig, dt) -> grids.MacGrid:
 def _collide(state: SimState, old_position: torch.Tensor, cfg: SimConfig) -> SimState:
     if not cfg.enable_collisions:
         return state
-    pos = collisions_mod.resolve_collisions(old_position, state.position, state.solid, cfg)
-    return state._replace(position=torch.where(state.active[:, None], pos, state.position))
+    with profiling.span("collide"):
+        pos = collisions_mod.resolve_collisions(old_position, state.position, state.solid, cfg)
+        return state._replace(position=torch.where(state.active[:, None], pos, state.position))
 
 
+@profiling.spanned("substep")
 def substep(
     state: SimState, cfg: SimConfig, dt, draws: Optional[Draws] = None
 ) -> Tuple[SimState, Diagnostics]:
@@ -131,64 +139,74 @@ def substep(
 
     # --- advection + collisions ---
     old_position = state.position
-    state = _collide(_advect(state, cfg, dt), old_position, cfg)
+    with profiling.span("advect"):
+        state = _advect(state, cfg, dt)
+    state = _collide(state, old_position, cfg)
 
     # --- sort into rank-major slot order + slot grid; seeding sources
     # re-sorts ---
-    sb = slotsort.sort_and_build(state, cfg)
+    with profiling.span("sort"):
+        sb = slotsort.sort_and_build(state, cfg)
     n_src = state.sources.cells.shape[0]
     if n_src > 0:
-        state = sources_mod.seed_from_jitter(
-            sb.state, sb.bins.occupancy, cfg, draws.source_jitter(n_src, cfg)
-        )
-        sb = slotsort.sort_and_build(state, cfg)
+        with profiling.span("sources"):
+            state = sources_mod.seed_from_jitter(
+                sb.state, sb.bins.occupancy, cfg, draws.source_jitter(n_src, cfg)
+            )
+        with profiling.span("sort"):
+            sb = slotsort.sort_and_build(state, cfg)
     state, bins, slot_grid = sb.state, sb.bins, sb.slot_grid
     old_position = state.position
 
     # --- P2G + cell marking ---
-    u, v, w = transfers.p2g_slots(
-        slot_grid, state.position, state.velocity, state.affine,
-        state.active, cfg, overflow_start=sb.n_kept,
-    )
-    grid = grids.mark_cells(state.grid._replace(u=u, v=v, w=w), bins.occupancy)
-    old_grid = None
-    if cfg.scheme == TransferScheme.APIC:
-        grid = grids.remove_boundary_normal_velocities(grid)
-    elif cfg.scheme == TransferScheme.FLIP:
-        old_grid = grids.remove_boundary_normal_velocities(grid)
+    with profiling.span("p2g"):
+        u, v, w = transfers.p2g_slots(
+            slot_grid, state.position, state.velocity, state.affine,
+            state.active, cfg, overflow_start=sb.n_kept,
+        )
+        grid = grids.mark_cells(state.grid._replace(u=u, v=v, w=w), bins.occupancy)
+        old_grid = None
+        if cfg.scheme == TransferScheme.APIC:
+            grid = grids.remove_boundary_normal_velocities(grid)
+        elif cfg.scheme == TransferScheme.FLIP:
+            old_grid = grids.remove_boundary_normal_velocities(grid)
 
     # --- gravity, then pressure projection warm-started from the last substep ---
     grid = _add_gravity(grid, cfg, dt)
-    pres = pressure_mod.solve(grid, cfg, dt, x0=state.pressure)
-    grid = pressure_mod.apply_pressure(grid, pres.pressure, cfg, dt)
+    with profiling.span("pressure"):
+        pres = pressure_mod.solve(grid, cfg, dt, x0=state.pressure)
+        grid = pressure_mod.apply_pressure(grid, pres.pressure, cfg, dt)
 
     # --- position correction + collisions ---
     corr_uncorrected = torch.zeros((), dtype=torch.int32, device=dev)
     if cfg.enable_position_correction:
-        seed = draws.correction_seed()
-        # rank >= kc rows start right after the kept rows of the lower rank
-        # segments (the slot order is rank-major)
-        kc = min(cfg.correction_capacity, slot_grid.capacity)
-        trunc_start = torch.sum(torch.clamp(bins.cell_count, max=kc), dtype=torch.int32)
-        n_trunc = torch.sum(state.active & (slot_grid.slot_of >= kc * cfg.num_cells), dtype=torch.int32)
-        corr_uncorrected = torch.clamp(n_trunc - cfg.correction_overflow_capacity, min=0)
-        pos = correction_mod.correct_positions(
-            state.position, state.active, slot_grid, cfg, dt, seed, trunc_start=trunc_start,
-        )
-        state = state._replace(position=pos)
+        with profiling.span("correction"):
+            seed = draws.correction_seed()
+            # rank >= kc rows start right after the kept rows of the lower rank
+            # segments (the slot order is rank-major)
+            kc = min(cfg.correction_capacity, slot_grid.capacity)
+            trunc_start = torch.sum(torch.clamp(bins.cell_count, max=kc), dtype=torch.int32)
+            n_trunc = torch.sum(state.active & (slot_grid.slot_of >= kc * cfg.num_cells), dtype=torch.int32)
+            corr_uncorrected = torch.clamp(n_trunc - cfg.correction_overflow_capacity, min=0)
+            pos = correction_mod.correct_positions(
+                state.position, state.active, slot_grid, cfg, dt, seed, trunc_start=trunc_start,
+            )
+            state = state._replace(position=pos)
     state = _collide(state, old_position, cfg)
 
     # --- velocity extrapolation + G2P ---
-    grid = extrapolation_mod.extrapolate(grid, cfg)
-    if cfg.scheme == TransferScheme.FLIP:
-        vel = transfers.g2p_flip(grid, old_grid, state.position, state.velocity, cfg)
-        affine = state.affine
-    else:
-        vel, affine = transfers.g2p_pic(grid, state.position, cfg)
-        if cfg.scheme == TransferScheme.PIC:
+    with profiling.span("extrapolate"):
+        grid = extrapolation_mod.extrapolate(grid, cfg)
+    with profiling.span("g2p"):
+        if cfg.scheme == TransferScheme.FLIP:
+            vel = transfers.g2p_flip(grid, old_grid, state.position, state.velocity, cfg)
             affine = state.affine
-    vel = torch.where(state.active[:, None], vel, state.velocity)
-    affine = torch.where(state.active[:, None, None], affine, state.affine)
+        else:
+            vel, affine = transfers.g2p_pic(grid, state.position, cfg)
+            if cfg.scheme == TransferScheme.PIC:
+                affine = state.affine
+        vel = torch.where(state.active[:, None], vel, state.velocity)
+        affine = torch.where(state.active[:, None, None], affine, state.affine)
 
     state = state._replace(
         velocity=vel, affine=affine, grid=grid, time=state.time + dt,
@@ -196,28 +214,30 @@ def substep(
     )
 
     # --- diagnostics ---
-    active_f = state.active.to(cfg.dtype)
-    vsq = torch.sum(vel**2, dim=-1) * active_f
-    g = torch.tensor(cfg.gravity, dtype=cfg.dtype, device=dev)
-    diag = Diagnostics(
-        kinetic_energy=0.5 * torch.sum(vsq),
-        potential_energy=-torch.sum(torch.sum(state.position * g, dim=-1) * active_f),
-        max_velocity=torch.sqrt(torch.amax(vsq)),
-        pressure_iterations=pres.iterations,
-        pressure_residual=pres.residual,
-        max_pressure=torch.amax(torch.abs(pres.pressure)),
-        max_divergence=torch.amax(
-            torch.abs(pressure_mod.compute_rhs(grid, cfg) * cfg.cell_size)
-        ),
-        particle_count=state.active.sum(dtype=torch.int32),
-        substeps=torch.tensor(1, dtype=torch.int32, device=dev),
-        overflow_count=slot_grid.overflow.sum(dtype=torch.int32),
-        particles_lost=torch.zeros((), dtype=torch.int32, device=dev),
-        correction_uncorrected=corr_uncorrected,
-    )
+    with profiling.span("diagnostics"):
+        active_f = state.active.to(cfg.dtype)
+        vsq = torch.sum(vel**2, dim=-1) * active_f
+        g = torch.tensor(cfg.gravity, dtype=cfg.dtype, device=dev)
+        diag = Diagnostics(
+            kinetic_energy=0.5 * torch.sum(vsq),
+            potential_energy=-torch.sum(torch.sum(state.position * g, dim=-1) * active_f),
+            max_velocity=torch.sqrt(torch.amax(vsq)),
+            pressure_iterations=pres.iterations,
+            pressure_residual=pres.residual,
+            max_pressure=torch.amax(torch.abs(pres.pressure)),
+            max_divergence=torch.amax(
+                torch.abs(pressure_mod.compute_rhs(grid, cfg) * cfg.cell_size)
+            ),
+            particle_count=state.active.sum(dtype=torch.int32),
+            substeps=torch.tensor(1, dtype=torch.int32, device=dev),
+            overflow_count=slot_grid.overflow.sum(dtype=torch.int32),
+            particles_lost=torch.zeros((), dtype=torch.int32, device=dev),
+            correction_uncorrected=corr_uncorrected,
+        )
     return state, diag
 
 
+@profiling.spanned("step")
 def step(
     state: SimState, cfg: SimConfig, dt, draws: Optional[Draws] = None
 ) -> Tuple[SimState, Diagnostics]:
@@ -229,7 +249,7 @@ def step(
     remaining = torch.as_tensor(dt, dtype=cfg.dtype, device=dev)
     diag = None
     nsub = 0
-    while bool(remaining > 0.0):
+    while profiling.read(remaining > 0.0, "step.cfl"):
         ts = torch.minimum(cfg.cfl_number * cfl_dt(state, cfg), remaining)
         state, diag = substep(state, cfg, ts, draws)
         remaining = remaining - ts

@@ -23,7 +23,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from libfluid_tpu_torch import grids
+from libfluid_tpu_torch import grids, profiling
 from libfluid_tpu_torch.config import SimConfig, TransferScheme
 from libfluid_tpu_torch.sim import kernels
 from libfluid_tpu_torch.sim import slots as slots_mod
@@ -224,7 +224,8 @@ def p2g_slots(
         keep = slot_grid.overflow[safe_idx] & (idx < n)
         idx = torch.where(keep, idx, torch.full_like(idx, n))
     else:
-        found = torch.nonzero(slot_grid.overflow).flatten()[:cap].to(torch.int32)
+        with profiling.blocking("p2g.nonzero"):
+            found = torch.nonzero(slot_grid.overflow).flatten()[:cap].to(torch.int32)
         idx = torch.full((cap,), n, dtype=torch.int32, device=dev)
         idx[: found.shape[0]] = found
     ok = idx < n

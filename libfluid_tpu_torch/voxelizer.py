@@ -98,7 +98,7 @@ def mark_exterior(surface: torch.Tensor) -> torch.Tensor:
             new = _dilate(new, surface)
         changed = torch.any(new != ext)
         ext = new
-        if sweep % _CHECK_EVERY == 0 and not loops.flag(changed):
+        if sweep % _CHECK_EVERY == 0 and not loops.flag(changed, "voxelizer.sweep"):
             return ext
 
 
