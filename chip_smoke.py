@@ -38,7 +38,13 @@ Phases, one line of output each (or a few):
    with the fused and with the per-pass bfloat16 cycle; kernel E also at 16
    and 32 slots a cell; kernels B and F also on grids no tile divides (B at
    5, 12 and 32 slots a cell, F with a support of 1, 2 and 4 cells and a
-   crammed bin), two launches bit-equal;
+   crammed bin), two launches bit-equal; P2G's overflow merge and
+   normalisation (p2g_overflow, p2g_normalize) against the plain merge at
+   128^3 (the main path's window, and 4 slots a cell with windows of 4,096
+   and 2^16 rows that the overflow rows fill), its gradient against the
+   plain autograd, its host ms and the device operations, host copies and
+   reads of one p2g_slots call and of one substep's p2g span, beside the
+   plain path's;
    then the backward kernels B' (at 64^3: the plain autograd of P2G does
    not fit the card at 128^3; its time and bound also at 128^3; also on a
    grid no tile divides at 5, 12 and 32 slots a cell, APIC and PIC, two
@@ -205,7 +211,8 @@ KERNELS = {
 }
 VCYCLE_KERNELS = ("mg_pre", "mg_restrict", "mg_up", "mg_coarse")
 VCYCLE16_KERNELS = ("mg16_pre", "mg16_restrict", "mg16_up", "mg16_coarse")
-FORWARD_KERNELS = ("expand", "p2g", "stencil", *VCYCLE_KERNELS, "g2p", "correction", "surface")
+FORWARD_KERNELS = ("expand", "p2g", "p2g_overflow", "p2g_normalize", "stencil", *VCYCLE_KERNELS, "g2p",
+                   "correction", "surface")
 GRAD_KERNELS = ("expand", "p2g", "p2g_bwd", "stencil", *VCYCLE_KERNELS, "g2p", "g2p_bwd")
 # the mesh gradient's kernels: F in the form that keeps the node sums, then F'
 MESH_GRAD_KERNELS = ("surface_keep", "surface_bwd")
@@ -593,6 +600,182 @@ def p2g_odd_shapes(device) -> None:
     log(f"kernel p2g, odd shapes at {shape}, cell 0.7: normalized error "
         + ", ".join(f"{e:.3e} ({what} slots a cell)" for what, e in errs.items())
         + " (< 2e-5), two launches bit-equal")
+
+
+def plain_p2g_slots(slot_grid, position, velocity, affine, active, cfg, overflow_start):
+    """``p2g_slots`` as it was before its two kernels: kernel B, then the
+    plain overflow merge and normalisation (the CPU path's functions) on the
+    card."""
+    num, den = kernels.p2g_faces(slot_grid.data, cfg)
+    idx = transfers._overflow_rows(slot_grid.overflow, position.shape[0], cfg, overflow_start)
+    return transfers._merge_overflow(num, den, position, velocity, affine, active, idx, cfg)
+
+
+def host_ms(fn, reps: int = 10) -> float:
+    """Host-clock ms of one call of `fn` from a drained queue to its return
+    (its enqueue and whatever it waits for inside), the mean of `reps`."""
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total / reps * 1e3
+
+
+def profiled_ops(fn, span=None, seen="p2g_kernel", tries: int = 4) -> dict:
+    """What one call of `fn` put on the card under torch.profiler, or only
+    what it launched inside its first `span` (a ``profiling`` span, a
+    user_annotation range of the trace): device operations by name, copies
+    from the host, synchronizing runtime calls by name (the profiled call
+    ends in one ``cudaDeviceSynchronize``) and host reads
+    (``_local_scalar_dense``). The profiler now and then reports none of a
+    window's device operations: the call is profiled again, up to `tries`
+    times, until kernel `seen` (which `fn` launches once) is among them."""
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        lo, hi = -float("inf"), float("inf")
+        if span is not None:
+            (first, *_) = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)))
+                                 for e in events
+                                 if e.get("cat") == "user_annotation" and e.get("name") == span)
+            lo, hi = first
+        inside = [e for e in events if e.get("ph") == "X" and lo <= float(e.get("ts", -1.0)) <= hi]
+        runtime = [e for e in inside if e.get("cat") in ("cuda_runtime", "cuda_driver")]
+        corr = {e["args"]["correlation"] for e in runtime if "correlation" in e.get("args", {})}
+        ops = {}
+        h2d = 0
+        for e in events:
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and e.get("args", {}).get("correlation") in corr:
+                name = e["name"]
+                if e["cat"] == "kernel":  # the function's name, without its namespace's parentheses or arguments
+                    name = name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0][-48:]
+                ops[name] = ops.get(name, 0) + 1
+                h2d += e["cat"] == "gpu_memcpy" and "HtoD" in e["name"]
+        if seen in ops:
+            break
+    return dict(device_ops=sum(ops.values()), h2d_copies=h2d,
+                syncs={name: sum(e["name"] == name for e in runtime)
+                       for name in sorted({e["name"] for e in runtime if "Synchronize" in e["name"]})},
+                host_reads=sum(e.get("cat") == "cpu_op" and e["name"] == "aten::_local_scalar_dense"
+                               for e in inside),
+                by_name=dict(sorted(ops.items(), key=lambda kv: -kv[1])))
+
+
+def p2g_overflow_parity(cfg, state) -> None:
+    """Kernels p2g_overflow and p2g_normalize (``kernels.p2g_overflow``, the
+    path of ``transfers.p2g_slots`` on the card) against the plain overflow
+    merge and normalisation on the card, at 128^3 from `state`: the main
+    path's slot capacity and window (4,096 rows), and 4 slots a cell with a
+    window of 4,096 and of 2^16 rows, which the overflow rows fill; also the
+    window given as rows (``overflow_start`` None). Then the gradient of a
+    scalar loss on (u, v, w) with respect to kernel B's sums, the positions,
+    velocities and affine matrices through the autograd Function against
+    the plain merge's autograd; the host ms of ``p2g_slots`` on both paths;
+    the device time of the two kernels against their bound; and the device
+    operations, copies from the host, synchronizing calls and host reads of
+    one ``p2g_slots`` call and of the ``p2g`` span of one profiled substep,
+    on both paths, with the span's ``p2g_overflow.kernel`` and
+    ``p2g_overflow.plain`` counts."""
+    dev = state.position.device
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for k, window in ((cfg.max_neighbors_per_cell, cfg.p2g_overflow_capacity), (4, 4096), (4, 1 << 16)):
+        c = dataclasses.replace(cfg, max_neighbors_per_cell=k, p2g_overflow_capacity=window)
+        sb = slotsort.sort_and_build(state, c)
+        st = sb.state
+        args = (sb.slot_grid, st.position, st.velocity, st.affine, st.active, c)
+        n = st.position.shape[0]
+        cap = transfers.overflow_window(c, n)
+        n_over = int(sb.slot_grid.overflow.sum())
+        want = plain_p2g_slots(*args, sb.n_kept)
+        errs = {}
+        for what, start in (("window", sb.n_kept), ("rows", None)):
+            got = transfers.p2g_slots(*args, overflow_start=start)
+            errs[what] = max(max_err(g, w) / (float(torch.max(torch.abs(w))) + 1e-9) for g, w in zip(got, want))
+        check(max(errs.values()) < 2e-5, f"p2g_overflow at K {k}, window {cap}: normalized error {errs}")
+
+        num, den = kernels.p2g_faces(sb.slot_grid.data, c)
+        # a face whose weight is near the 1e-6 cut has a gradient ~ 1 / den^2,
+        # which the order of the atomics in either version moves: the loss
+        # weighs the faces of weight 0.01 and more
+        weights = [torch.randn(s, generator=gen, device=dev) * (d > 0.01)
+                   for s, d in zip(kernels.face_shapes(c), den)]
+        idx = transfers._overflow_rows(sb.slot_grid.overflow, n, c, sb.n_kept)
+        # velocities apart from their face's average, so that the positions'
+        # gradient is not a cancellation down to rounding (the state's
+        # velocities are all but uniform after one substep)
+        vel = st.velocity + 10.0 * torch.randn(st.velocity.shape, generator=gen, device=dev)
+        aff = st.affine + torch.randn(st.affine.shape, generator=gen, device=dev)
+
+        def grads(fn):
+            leaves = [t.detach().clone().requires_grad_() for t in (*num, *den, st.position, vel, aff)]
+            loss = sum(torch.sum(o * w) for o, w in zip(fn(leaves), weights))
+            return torch.autograd.grad(loss, leaves, allow_unused=True)
+
+        g_k = grads(lambda l: kernels.p2g_overflow(l[:3], l[3:6], l[6], l[7], l[8], st.active,
+                                                   sb.slot_grid.overflow, c, start=sb.n_kept))
+        g_p = grads(lambda l: transfers._merge_overflow(l[:3], l[3:6], l[6], l[7], l[8], st.active, idx, c))
+        g_errs = [max_err(a, b) / (float(torch.max(torch.abs(b))) + 1e-30) for a, b in zip(g_k, g_p)]
+        check(max(g_errs) < 1e-5 and (n_over == 0 or all(torch.any(g != 0) for g in g_p[6:])),
+              f"p2g_overflow gradient at K {k}, window {cap}: relative errors {g_errs}")
+        del num, den, g_k, g_p
+        log(f"kernels p2g_overflow + p2g_normalize at 128^3, K {k}, window {cap} rows from n_kept "
+            f"{int(sb.n_kept)} of {n}, {n_over} overflow rows ({min(n_over, cap)} merged): normalized error "
+            + ", ".join(f"{e:.3e} ({what})" for what, e in errs.items())
+            + f" (< 2e-5); gradient against the plain autograd, relative error {max(g_errs):.3e} "
+            f"(sums {max(g_errs[:6]):.3e}, position {g_errs[6]:.3e}, velocity {g_errs[7]:.3e}, "
+            f"affine {g_errs[8]:.3e}; < 1e-5)")
+        if k != cfg.max_neighbors_per_cell:
+            continue
+        # the main path's shapes: time, bound, launches
+        kernel_path = lambda: transfers.p2g_slots(*args, overflow_start=sb.n_kept)  # noqa: E731
+        plain_path = lambda: plain_p2g_slots(*args, sb.n_kept)  # noqa: E731
+        faces = sum(w.numel() for w in weights)
+        moved = cap * (4 * (3 + 3 + 9) + 2) + 4 * 3 * faces  # the window's rows; num, den read, u, v, w written
+        b = bound(moved)
+        log(f"p2g_slots at 128^3 (K {k}): host ms {host_ms(kernel_path):.3f} with the kernels, "
+            f"{host_ms(plain_path):.3f} on the plain path; wall ms {wall_ms(kernel_path):.3f} / "
+            f"{wall_ms(plain_path):.3f}; device time p2g_overflow {device_ms(kernel_path, 'p2g_overflow_kernel')}, "
+            f"p2g_normalize {device_ms(kernel_path, 'p2g_normalize_kernel')} (torch.profiler); bound of the two "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {moved / 1e6:.1f} MB)")
+        alone = {what: profiled_ops(fn) for what, fn in (("the kernels", kernel_path), ("the plain path", plain_path))}
+        for what, ops in alone.items():
+            log(f"one p2g_slots call on {what}: {ops}")
+        ops = alone["the kernels"]
+        mine = ("p2g_kernel", "p2g_overflow_kernel", "p2g_normalize_kernel")
+        check(all(ops["by_name"].get(name, 0) == 1 for name in mine) and ops["device_ops"] <= len(mine) + 5
+              and ops["h2d_copies"] == 0 and ops["host_reads"] == 0,
+              f"p2g_slots on the card launched more than B, the two kernels and 5 others, or copied or read: {ops}")
+    spans = {}
+    step_p2g = transfers.p2g_slots
+    for what in ("the kernels", "the plain path"):
+        if what == "the plain path":
+            transfers.p2g_slots = lambda sg, p, v, a, act, c, overflow_start=None: plain_p2g_slots(
+                sg, p, v, a, act, c, overflow_start)
+        profiling.clear()
+        try:
+            spans[what] = profiled_ops(lambda: sim.substep(state, cfg, DT), span="p2g")
+        finally:
+            transfers.p2g_slots = step_p2g
+        spans[what]["counters"] = {key: sum(f.total(key) for f in profiling.frames())
+                                   for key in ("p2g_overflow.kernel", "p2g_overflow.plain")}
+        profiling.clear()
+        log(f"the p2g span of one profiled 128^3 substep on {what}: {spans[what]}")
+    mine = spans["the kernels"]
+    check(mine["device_ops"] <= 30 and mine["h2d_copies"] == 0
+          and mine["counters"] == {"p2g_overflow.kernel": 1, "p2g_overflow.plain": 0},
+          f"the p2g span launched more than 30 device operations, copied from the host or took the "
+          f"plain merge: {mine}")
 
 
 def g2p_odd_shapes(device) -> None:
@@ -2942,6 +3125,7 @@ def main() -> None:
     cfg, state = dam_break(128, device, 1 << 21)
     state, _ = sim.substep(state, cfg, DT)
     stats, cg_parts = kernel_phases(cfg, state)
+    p2g_overflow_parity(cfg, state)
     stats.update(backward_kernel_phases(cfg, state))
     del state
     torch.cuda.empty_cache()

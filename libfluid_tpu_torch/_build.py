@@ -23,8 +23,8 @@ from libfluid_tpu_torch import cache
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 SOURCES = (
-    "expand.cu", "p2g.cu", "p2g_bwd.cu", "stencil.cu", "vcycle.cu", "g2p.cu", "g2p_bwd.cu",
-    "correction.cu", "correction_bwd.cu", "surface.cu", "surface_bwd.cu", "bf16_check.cu",
+    "expand.cu", "p2g.cu", "p2g_overflow.cu", "p2g_bwd.cu", "stencil.cu", "vcycle.cu", "g2p.cu",
+    "g2p_bwd.cu", "correction.cu", "correction_bwd.cu", "surface.cu", "surface_bwd.cu", "bf16_check.cu",
 )
 # staging.cuh: g2p.cu, g2p_bwd.cu, p2g_bwd.cu; jitter.cuh: correction.cu, correction_bwd.cu
 HEADERS = ("staging.cuh", "jitter.cuh")
@@ -50,6 +50,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "lf_expand": [_P, _P, _P, _P, _LL, _I, _I, _P],
     "lf_p2g": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P],
+    "lf_p2g_overflow": [_P] * 13 + [_I, _LL, _I, _I, _I, _F, _F, _F, _F, _I, _P],
+    "lf_p2g_normalize": [_P] * 9 + [_LL, _LL, _LL, _P],
     "lf_p2g_bwd": [_P] * 8 + [_I, _I, _I, _I, _F, _F, _F, _F, _I, _P],
     "lf_stencil": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     "lf_stencil16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],

@@ -1,11 +1,14 @@
 """Dispatch to the hand-written CUDA kernels, and the wrappers of the P2G
 and correction kernels.
 
-Twenty kernels carry the substep, the mesher and the gradients of both
+Twenty-two kernels carry the substep, the mesher and the gradients of both
 (sources in ``libfluid_tpu_torch/csrc``):
 
     "expand"      slotsort.expand         slot-grid expand     (csrc/expand.cu)
     "p2g"         kernels.p2g_faces       P2G face sums        (csrc/p2g.cu)
+    "p2g_overflow", "p2g_normalize"
+                  kernels.p2g_overflow    P2G's overflow rows and the
+                                          normalisation  (csrc/p2g_overflow.cu)
     "p2g_bwd"     kernels.p2g_faces_bwd   adjoint of P2G       (csrc/p2g_bwd.cu)
     "stencil"     multigrid.stencil       Poisson stencil      (csrc/stencil.cu)
     "stencil16"   multigrid.stencil       the same in bf16     (csrc/stencil.cu)
@@ -63,9 +66,9 @@ from libfluid_tpu_torch.config import SimConfig, TransferScheme
 
 # Kernel launches since the last reset; a wrapper adds one where it launches.
 LAUNCHES = {
-    "expand": 0, "p2g": 0, "p2g_bwd": 0, "stencil": 0, "stencil16": 0, "mg_pre": 0,
-    "mg_restrict": 0, "mg_up": 0, "mg_coarse": 0, "mg16_pre": 0, "mg16_restrict": 0,
-    "mg16_up": 0, "mg16_coarse": 0, "g2p": 0, "g2p_bwd": 0, "correction": 0,
+    "expand": 0, "p2g": 0, "p2g_overflow": 0, "p2g_normalize": 0, "p2g_bwd": 0, "stencil": 0,
+    "stencil16": 0, "mg_pre": 0, "mg_restrict": 0, "mg_up": 0, "mg_coarse": 0, "mg16_pre": 0,
+    "mg16_restrict": 0, "mg16_up": 0, "mg16_coarse": 0, "g2p": 0, "g2p_bwd": 0, "correction": 0,
     "correction_bwd": 0, "surface": 0, "surface_keep": 0, "surface_bwd": 0,
 }
 
@@ -207,6 +210,112 @@ def p2g_faces(data: torch.Tensor, cfg: SimConfig) -> Tuple[tuple, tuple]:
     """
     out = _P2GFaces.apply(data, cfg)
     return tuple(out[:3]), tuple(out[3:])
+
+
+# ---------------------------------------------------------------------------
+# P2G's overflow merge and normalisation
+# ---------------------------------------------------------------------------
+
+
+def _p2g_overflow_cuda(num, den, position, velocity, affine, active, overflow, start, rows,
+                       cfg: SimConfig):
+    """Add the window's overflow rows to kernel B's sums `num`, `den` in
+    place (launch "p2g_overflow"), then normalise them into new u, v, w
+    (launch "p2g_normalize")."""
+    from libfluid_tpu_torch.sim import transfers
+
+    nx, ny, nz = cfg.grid_size
+    n = position.shape[0]
+    cap = transfers.overflow_window(cfg, n)
+    use_affine = cfg.scheme == TransferScheme.APIC
+    shapes = face_shapes(cfg)
+    for a, shape in enumerate(shapes):
+        check(num[a], torch.float32, shape, f"num {a}")
+        check(den[a], torch.float32, shape, f"den {a}")
+    check(position, torch.float32, (n, 3), "position")
+    check(velocity, torch.float32, (n, 3), "velocity")
+    if use_affine:
+        check(affine, torch.float32, (n, 3, 3), "affine")
+    check(active, torch.bool, (n,), "active")
+    check(overflow, torch.bool, (n,), "overflow")
+    if (start is None) == (rows is None):
+        raise ValueError("p2g_overflow takes the window's start or its rows, one of the two")
+    if start is not None:
+        check(start, torch.int32, (), "overflow_start")
+    else:
+        check(rows, torch.int32, (cap,), "overflow rows")
+    ox, oy, oz = (float(o) for o in cfg.grid_offset)
+    launch(
+        "p2g_overflow", "lf_p2g_overflow", start, rows, overflow, active, position, velocity,
+        affine if use_affine else None, *num, *den, cap, n, nx, ny, nz, float(cfg.cell_size),
+        ox, oy, oz, int(use_affine),
+    )
+    out = [torch.empty(s, dtype=torch.float32, device=position.device) for s in shapes]
+    launch("p2g_normalize", "lf_p2g_normalize", *num, *den, *out, *(o.numel() for o in out))
+    return tuple(out)
+
+
+class _P2GOverflow(torch.autograd.Function):
+    """The two launches of :func:`p2g_overflow`; the backward recomputes the
+    plain merge (``transfers._merge_overflow``) and takes its autograd. With
+    no input that wants a gradient, kernel B's sums are added to in place
+    and nothing is saved; otherwise the kernels add to copies and B's sums
+    are kept for the backward."""
+
+    @staticmethod
+    def forward(ctx, num_u, num_v, num_w, den_u, den_v, den_w, position, velocity, affine,
+                active, overflow, start, rows, cfg):
+        num, den = [num_u, num_v, num_w], [den_u, den_v, den_w]
+        ctx.cfg = cfg
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(*num, *den, position, velocity, affine, active, overflow, start,
+                                  rows)
+            num, den = [t.clone() for t in num], [t.clone() for t in den]
+        return _p2g_overflow_cuda(num, den, position, velocity, affine, active, overflow, start,
+                                  rows, cfg)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from libfluid_tpu_torch.sim import transfers
+
+        *inputs, active, overflow, start, rows = ctx.saved_tensors
+        needs = ctx.needs_input_grad[: len(inputs)]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(need) for t, need in zip(inputs, needs)]
+            num, den, position, velocity, affine = leaves[:3], leaves[3:6], *leaves[6:]
+            idx = transfers._overflow_rows(overflow, position.shape[0], ctx.cfg, start, rows)
+            out = transfers._merge_overflow(num, den, position, velocity, affine, active, idx,
+                                            ctx.cfg)
+            wanted = [t for t in leaves if t.requires_grad]
+            got = iter(torch.autograd.grad(out, wanted, grads, allow_unused=True))
+        return (*(next(got) if t.requires_grad else None for t in leaves), None, None, None,
+                None, None)
+
+
+def p2g_overflow(num, den, position, velocity, affine, active, overflow, cfg: SimConfig,
+                 start=None, rows=None):
+    """The normalised (u, v, w) face arrays from kernel B's sums ``num``,
+    ``den`` (:func:`p2g_faces`) and the particles past the slot capacity, on
+    CUDA tensors: the window of ``transfers.overflow_window`` rows from
+    ``start`` (slotsort's ``n_kept``, an int32 scalar on the card, read
+    there) or the rows ``rows`` (int32, n where none), each added where it
+    is flagged ``overflow`` and ``active``; then num / den where den > 1e-6,
+    else 0. Differentiable in the sums, positions, velocities and affine
+    matrices (the backward is the plain merge's autograd).
+
+    Stands in for the overflow scatter and ``_normalize`` of
+    ``libfluid_tpu/sim/transfers.py:p2g_slots``. CUDA:
+    ``csrc/p2g_overflow.cu``, a thread per (row, axis, corner) adding to the
+    sums with atomics (their last bits vary from run to run), then a thread
+    per face; the host reads nothing and copies nothing to the card. CPU
+    tensors take ``transfers._merge_overflow`` in ``transfers.p2g_slots``.
+    """
+    tensors = [*num, *den, position, velocity, affine, active, overflow]
+    tensors += [t for t in (start, rows) if t is not None]
+    if not use_kernel(*tensors):
+        raise ValueError(f"p2g_overflow takes CUDA tensors, got {position.device}")
+    return _P2GOverflow.apply(*num, *den, position.contiguous(), velocity.contiguous(),
+                              affine.contiguous(), active, overflow, start, rows, cfg)
 
 
 # ---------------------------------------------------------------------------

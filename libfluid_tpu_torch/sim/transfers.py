@@ -4,16 +4,18 @@
 P2G runs from the dense slot grid (:func:`p2g_slots`): every face sums the
 hat-weighted momentum of the slots in its staggered support
 (:func:`kernels.p2g_faces`, kernel B), then the particles past the slot
-capacity are scatter-added (:func:`_p2g_axis`) and faces normalize by total
-weight. G2P (:func:`g2p_pic`, kernel D) interpolates the velocity and its
-gradient rows (the APIC affine matrix) from the 54 face samples around each
-particle's cell; FLIP (:func:`g2p_flip`) blends trilinear samples of the new
-and old grids. Weights are computed in cell units.
+capacity are scatter-added and faces normalize by total weight
+(:func:`kernels.p2g_overflow` on CUDA tensors, :func:`_merge_overflow`
+with :func:`_p2g_axis` on CPU tensors). G2P (:func:`g2p_pic`, kernel D)
+interpolates the velocity and its gradient rows (the APIC affine matrix)
+from the 54 face samples around each particle's cell; FLIP
+(:func:`g2p_flip`) blends trilinear samples of the new and old grids.
+Weights are computed in cell units.
 
-Both kernels are differentiable: on CUDA tensors the backward of P2G is
-kernel B' (``csrc/p2g_bwd.cu``) and that of G2P kernel D'
-(``csrc/g2p_bwd.cu``); on CPU tensors it is the autograd of the plain
-version. The hats take the JAX package's subgradients (:func:`hat`).
+Both are differentiable: on CUDA tensors the backward of kernel B is
+kernel B' (``csrc/p2g_bwd.cu``), that of the overflow merge the plain
+merge's autograd, and that of G2P kernel D' (``csrc/g2p_bwd.cu``); on CPU
+tensors it is the autograd of the plain version. The hats take the JAX package's subgradients (:func:`hat`).
 """
 
 from __future__ import annotations
@@ -192,6 +194,44 @@ def _p2g_slots_torch(data: torch.Tensor, cfg: SimConfig):
     return tuple(num), tuple(den)
 
 
+def overflow_window(cfg: SimConfig, n: int) -> int:
+    """Rows of the overflow window: ``p2g_overflow_capacity``, at least 256
+    and at most the `n` particles."""
+    return min(max(256, cfg.p2g_overflow_capacity), n)
+
+
+def _overflow_rows(overflow, n: int, cfg: SimConfig, start=None, rows=None):
+    """The window's rows (int32, n where none): `rows` as given, or those of
+    the ``overflow_window`` rows from `start` that are flagged `overflow`."""
+    if rows is not None:
+        return rows
+    idx = start + torch.arange(overflow_window(cfg, n), dtype=torch.int32, device=overflow.device)
+    safe_idx = torch.clamp(idx, max=n - 1).long()
+    keep = overflow[safe_idx] & (idx < n)
+    return torch.where(keep, idx, torch.full_like(idx, n))
+
+
+def _merge_overflow(num, den, position, velocity, affine, active, idx, cfg: SimConfig):
+    """Plain version of ``kernels.p2g_overflow``: scatter-add rows `idx`
+    (n where none) to the face sums (:func:`_p2g_axis`), then normalise."""
+    n = position.shape[0]
+    use_affine = cfg.scheme == TransferScheme.APIC
+    ok = idx < n
+    safe = torch.clamp(idx, max=n - 1).long()
+    pos_o = position[safe]
+    vel_o = velocity[safe]
+    aff_o = affine[safe] if use_affine else None
+    act_o = ok & active[safe]
+    out = []
+    for axis in range(3):
+        n_o, d_o = _p2g_axis(
+            pos_o, vel_o[:, axis], aff_o[:, axis, :] if use_affine else None,
+            act_o, cfg, axis,
+        )
+        out.append(_normalize(num[axis] + n_o, den[axis] + d_o))
+    return tuple(out)
+
+
 def p2g_slots(
     slot_grid,
     position: torch.Tensor,
@@ -209,40 +249,27 @@ def p2g_slots(
     With ``overflow_start`` (slotsort parks overflow rows contiguously at
     ``[n_kept, n_kept + n_overflow)``) the compaction is a fixed window.
     `position/velocity/affine/active` are the arrays the slot grid was built
-    from.
+    from. On CUDA tensors the merge and the normalisation are two kernels
+    (:func:`kernels.p2g_overflow`), counted as ``p2g_overflow.kernel``; on
+    CPU tensors the plain :func:`_merge_overflow`, ``p2g_overflow.plain``.
     """
     num, den = kernels.p2g_faces(slot_grid.data, cfg)
-    num, den = list(num), list(den)
 
     n = position.shape[0]
-    dev = position.device
-    cap = min(max(256, cfg.p2g_overflow_capacity), n)
-    use_affine = cfg.scheme == TransferScheme.APIC
-    if overflow_start is not None:
-        idx = overflow_start + torch.arange(cap, dtype=torch.int32, device=dev)
-        safe_idx = torch.clamp(idx, max=n - 1).long()
-        keep = slot_grid.overflow[safe_idx] & (idx < n)
-        idx = torch.where(keep, idx, torch.full_like(idx, n))
-    else:
+    rows = None
+    if overflow_start is None:
+        cap = overflow_window(cfg, n)
         with profiling.blocking("p2g.nonzero"):
             found = torch.nonzero(slot_grid.overflow).flatten()[:cap].to(torch.int32)
-        idx = torch.full((cap,), n, dtype=torch.int32, device=dev)
-        idx[: found.shape[0]] = found
-    ok = idx < n
-    safe = torch.clamp(idx, max=n - 1).long()
-    pos_o = position[safe]
-    vel_o = velocity[safe]
-    aff_o = affine[safe] if use_affine else None
-    act_o = ok & active[safe]
-    for axis in range(3):
-        n_o, d_o = _p2g_axis(
-            pos_o, vel_o[:, axis], aff_o[:, axis, :] if use_affine else None,
-            act_o, cfg, axis,
-        )
-        num[axis] = num[axis] + n_o
-        den[axis] = den[axis] + d_o
-
-    return tuple(_normalize(num[a], den[a]) for a in range(3))
+        rows = torch.full((cap,), n, dtype=torch.int32, device=position.device)
+        rows[: found.shape[0]] = found
+    if kernels.use_kernel(position):
+        profiling.count("p2g_overflow.kernel")
+        return kernels.p2g_overflow(num, den, position, velocity, affine, active,
+                                    slot_grid.overflow, cfg, start=overflow_start, rows=rows)
+    profiling.count("p2g_overflow.plain")
+    idx = _overflow_rows(slot_grid.overflow, n, cfg, overflow_start, rows)
+    return _merge_overflow(num, den, position, velocity, affine, active, idx, cfg)
 
 
 # ---------------------------------------------------------------------------

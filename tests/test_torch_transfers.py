@@ -317,6 +317,283 @@ def test_p2g_kernel_wrapper_refuses(case):
         t_kernels._p2g_faces_cuda(bad, cfg)
 
 
+ALL_SCHEMES = [TransferScheme.APIC, TransferScheme.PIC, TransferScheme.FLIP]
+
+
+def _overflowing(scheme, window):
+    """Particles crammed into the two corner cells of an odd grid with an
+    offset and a non-unit cell, far past K = 4 slots, the rest spread out;
+    slotsort's slot grid and overflow window, with every third overflow row
+    made inactive. `window` "past n": the default capacity, so the window
+    (all n rows) reaches past the last row; "cut": 256 rows, fewer than the
+    overflow rows."""
+    cfg = SimConfig(
+        grid_size=(7, 5, 6), cell_size=0.7, grid_offset=(0.3, -0.2, 0.1), scheme=scheme,
+        max_neighbors_per_cell=4, particle_capacity=1024,
+        p2g_overflow_capacity=4096 if window == "past n" else 256,
+    )
+    rng = np.random.default_rng(17)
+    n = cfg.particle_capacity
+    h, off = cfg.cell_size, np.asarray(cfg.grid_offset)
+    top = np.asarray(cfg.grid_size) - 1
+    # the low corner's particles lie below the transverse faces' first
+    # layer, so some of their corners fall outside the face arrays
+    pos = np.concatenate([
+        rng.uniform(0.02, 0.45, (300, 3)), top + rng.uniform(0.55, 0.98, (300, 3)),
+        rng.uniform(0.0, 1.0, (n - 600, 3)) * np.asarray(cfg.grid_size),
+    ]) * h + off
+    state = new_state(cfg, jax.random.PRNGKey(3))._replace(
+        position=jnp.asarray(pos.astype(np.float32)),
+        velocity=jnp.asarray(rng.standard_normal((n, 3)).astype(np.float32)),
+        affine=jnp.asarray((rng.standard_normal((n, 3, 3)) * 0.2).astype(np.float32)),
+        active=jnp.ones((n,), bool),
+    )
+    sb = slotsort.sort_and_build(state, cfg)
+    st = sb.state
+    overflow = np.asarray(sb.slot_grid.overflow)
+    active = np.asarray(st.active).copy()
+    active[np.flatnonzero(overflow)[::3]] = False
+    return cfg, sb, st, active
+
+
+def _p2g_overflow_model(num, den, start, overflow, active, pos, vel, aff, cfg, cap, rng):
+    """Kernels p2g_overflow and p2g_normalize (``csrc/p2g_overflow.cu``) in
+    numpy, float32 throughout, on kernel B's sums: one contribution per
+    (window row, axis, corner), the threads taken in a random order (the
+    kernel adds with atomics); a row past n, not overflow or not active, and
+    a corner outside its face array add nothing. Returns (u, v, w) and the
+    count of in-window rows' corners that fell outside."""
+    f32 = np.float32
+    n = pos.shape[0]
+    h, o = f32(cfg.cell_size), np.asarray(cfg.grid_offset, f32)
+    num = [a.copy() for a in num]
+    den = [a.copy() for a in den]
+    t = rng.permutation(24 * cap)
+    corner, axis, row = t % 8, (t // 8) % 3, start + t // 24
+    live = row < n
+    row = np.minimum(row, n - 1)
+    live &= overflow[row] & active[row]
+    outside = 0
+    for a, shape in enumerate(t_kernels.face_shapes(cfg)):
+        sel = live & (axis == a)
+        r, c = row[sel], corner[sel]
+        inb = np.ones(r.shape, bool)
+        idx, wd, d = [], [], []
+        for k in range(3):
+            shift = f32(0.0 if k == a else 0.5)
+            x = pos[r, k]
+            g = (x - o[k]) / h - shift
+            base = np.floor(g)
+            frac = g - base
+            bit = (c >> (2 - k)) & 1
+            i = base.astype(np.int64) + bit
+            inb &= (i >= 0) & (i < shape[k])
+            idx.append(i)
+            wd.append(np.where(bit == 1, frac, f32(1.0) - frac))
+            d.append(((o[k] + shift * h) + i.astype(f32) * h) - x)
+        w = wd[0] * wd[1] * wd[2]
+        val = vel[r, a]
+        if cfg.scheme == t_transfers.TransferScheme.APIC:  # the port's enum
+            val = val + (aff[r, a, 0] * d[0] + aff[r, a, 1] * d[1] + aff[r, a, 2] * d[2])
+        flat = (idx[0] * shape[1] + idx[1]) * shape[2] + idx[2]
+        np.add.at(num[a].reshape(-1), flat[inb], (w * val)[inb])
+        np.add.at(den[a].reshape(-1), flat[inb], w[inb])
+        outside += int(np.sum(~inb))
+    eps = f32(1e-6)
+    out = [np.where(dn > eps, nm / np.maximum(dn, eps), f32(0.0)) for nm, dn in zip(num, den)]
+    return out, outside
+
+
+@pytest.mark.parametrize("window", ["past n", "cut"])
+@pytest.mark.parametrize("scheme", ALL_SCHEMES)
+def test_p2g_overflow_algorithm_matches_jax(scheme, window):
+    """The algorithm of kernels p2g_overflow and p2g_normalize, on top of
+    kernel B's plain sums, against the JAX package's ``p2g_slots`` with
+    ``overflow_start``: a window reaching past the last row or cut short of
+    the overflow rows, inactive overflow rows, corners outside the face
+    arrays."""
+    cfg, sb, st, active = _overflowing(scheme, window)
+    tcfg = convert.config_from_fields(**vars(cfg))
+    n = st.position.shape[0]
+    start = int(sb.n_kept)
+    overflow = np.asarray(sb.slot_grid.overflow)
+    cap = t_transfers.overflow_window(tcfg, n)
+    n_over = int(overflow.sum())
+    assert (start + cap > n) == (window == "past n") and n_over > 256
+    assert not active[overflow].all() and active[overflow].any()
+    want = transfers.p2g_slots(
+        sb.slot_grid, st.position, st.velocity, st.affine, jnp.asarray(active), cfg,
+        overflow_start=sb.n_kept,
+    )
+    num, den = t_kernels.p2g_faces(_t(sb.slot_grid.data), tcfg)
+    got, outside = _p2g_overflow_model(
+        [a.numpy() for a in num], [a.numpy() for a in den], start, overflow, active,
+        np.asarray(st.position), np.asarray(st.velocity), np.asarray(st.affine), tcfg, cap,
+        np.random.default_rng(5),
+    )
+    assert outside > 0
+    for g, w in zip(got, want):
+        assert _normalized_err(g, w) < 2e-5
+
+
+def _overflow_args(cfg, n=6, cap=256):
+    """Well-formed CPU arguments of ``kernels._p2g_overflow_cuda``."""
+    num = [torch.zeros(s) for s in t_kernels.face_shapes(cfg)]
+    den = [torch.zeros(s) for s in t_kernels.face_shapes(cfg)]
+    return dict(
+        num=num, den=den, position=torch.zeros((n, 3)), velocity=torch.zeros((n, 3)),
+        affine=torch.zeros((n, 3, 3)), active=torch.ones(n, dtype=torch.bool),
+        overflow=torch.ones(n, dtype=torch.bool), start=torch.zeros((), dtype=torch.int32),
+        rows=None,
+    )
+
+
+@pytest.mark.parametrize("case", [
+    "num dtype", "den shape", "num strides", "position shape", "velocity dtype",
+    "affine shape", "active dtype", "overflow shape", "start dtype", "rows shape",
+    "start and rows", "neither",
+])
+def test_p2g_overflow_wrapper_refuses(case):
+    """What the wrapper of p2g_overflow and p2g_normalize does not take
+    raises before anything is launched: another dtype, a shape that does not
+    fit the grid or the particles, a face array that is not contiguous, both
+    or neither of the window's start and rows."""
+    cfg = convert.config_from_fields(**vars(SimConfig(grid_size=(3, 2, 2), scheme=TransferScheme.APIC)))
+    args = _overflow_args(cfg)
+    fixes = {
+        "num dtype": ("num", [args["num"][0].double(), *args["num"][1:]], TypeError),
+        "den shape": ("den", [*args["den"][:2], torch.zeros((3, 2, 2))], ValueError),
+        "num strides": ("num", [args["num"][0], torch.zeros((3, 3, 4))[..., ::2], args["num"][2]],
+                        ValueError),
+        "position shape": ("position", torch.zeros((6, 4)), ValueError),
+        "velocity dtype": ("velocity", torch.zeros((6, 3), dtype=torch.float64), TypeError),
+        "affine shape": ("affine", torch.zeros((6, 3)), ValueError),
+        "active dtype": ("active", torch.ones(6), TypeError),
+        "overflow shape": ("overflow", torch.ones(5, dtype=torch.bool), ValueError),
+        "start dtype": ("start", torch.zeros((), dtype=torch.int64), TypeError),
+        "rows shape": ("rows", torch.zeros(5, dtype=torch.int32), ValueError),
+        "start and rows": ("rows", torch.zeros(6, dtype=torch.int32), ValueError),
+        "neither": ("start", None, ValueError),
+    }
+    key, value, error = fixes[case]
+    args[key] = value
+    if case == "rows shape":
+        args["start"] = None
+    with pytest.raises(error):
+        t_kernels._p2g_overflow_cuda(
+            args["num"], args["den"], args["position"], args["velocity"], args["affine"],
+            args["active"], args["overflow"], args["start"], args["rows"], cfg,
+        )
+
+
+def test_p2g_overflow_refuses_cpu_tensors():
+    """The kernels' wrapper takes CUDA tensors only: ``p2g_slots`` keeps
+    CPU tensors on the plain path."""
+    cfg = convert.config_from_fields(**vars(SimConfig(grid_size=(3, 2, 2))))
+    a = _overflow_args(cfg)
+    with pytest.raises(ValueError):
+        t_kernels.p2g_overflow(a["num"], a["den"], a["position"], a["velocity"], a["affine"],
+                               a["active"], a["overflow"], cfg, start=a["start"])
+
+
+@pytest.mark.parametrize("overflow_start", [True, False])
+def test_p2g_slots_counts_the_plain_merge_on_the_cpu(overflow_start):
+    """On CPU tensors ``p2g_slots`` merges the overflow rows on the plain
+    path: it counts ``p2g_overflow.plain`` once a call and never
+    ``p2g_overflow.kernel``, and launches nothing."""
+    from libfluid_tpu_torch import profiling
+
+    cfg, tcfg, state = _crammed(TransferScheme.APIC)
+    s = jax.tree_util.tree_map(np.asarray, state)
+    tstate = convert.state_from_numpy(
+        dict(position=s.position, velocity=s.velocity, affine=s.affine,
+             active=s.active, u=s.grid.u, v=s.grid.v, w=s.grid.w,
+             cell_type=s.grid.cell_type, solid=s.solid, pressure=s.pressure,
+             time=s.time),
+        tcfg, "cpu",
+    )
+    tsb = t_slotsort.sort_and_build(tstate, tcfg)
+    ts = tsb.state
+    t_kernels.reset_launches()
+    profiling.clear()
+    with profiling.tracing(), profiling.span("p2g"):
+        for _ in range(2):
+            t_transfers.p2g_slots(
+                tsb.slot_grid, ts.position, ts.velocity, ts.affine, ts.active, tcfg,
+                overflow_start=tsb.n_kept if overflow_start else None,
+            )
+    (frame,) = profiling.frames()
+    profiling.clear()
+    assert frame.total("p2g_overflow.plain") == 2
+    assert frame.total("p2g_overflow.kernel") == 0
+    assert frame.total("reads.p2g.nonzero") == (0 if overflow_start else 2)
+    assert not any(t_kernels.LAUNCHES.values())
+
+
+def _fake_kernels(num, den, position, velocity, affine, active, overflow, start, rows, cfg):
+    """What ``kernels._p2g_overflow_cuda`` does, in plain PyTorch on the CPU:
+    the window's rows added to kernel B's sums in place, then normalised."""
+    n = position.shape[0]
+    idx = t_transfers._overflow_rows(overflow, n, cfg, start, rows)
+    ok = idx < n
+    safe = torch.clamp(idx, max=n - 1).long()
+    use_affine = cfg.scheme == t_transfers.TransferScheme.APIC  # the port's enum
+    for axis in range(3):
+        n_o, d_o = t_transfers._p2g_axis(
+            position[safe], velocity[safe][:, axis],
+            affine[safe][:, axis, :] if use_affine else None, ok & active[safe], cfg, axis,
+        )
+        num[axis].add_(n_o)
+        den[axis].add_(d_o)
+    return tuple(t_transfers._normalize(num[a], den[a]) for a in range(3))
+
+
+@pytest.mark.parametrize("scheme", ALL_SCHEMES)
+def test_p2g_overflow_function_gradients(scheme, monkeypatch):
+    """The autograd Function around the two kernels, with the kernels' work
+    done in place by plain PyTorch on the CPU: its forward equals the plain
+    merge; with inputs that want a gradient it leaves kernel B's sums as they
+    were and its backward gives the plain merge's gradients of the sums,
+    positions, velocities and affine matrices; with none, it adds to B's
+    sums in place."""
+    monkeypatch.setattr(t_kernels, "_p2g_overflow_cuda", _fake_kernels)
+    cfg, sb, st, active = _overflowing(scheme, "cut")
+    tcfg = convert.config_from_fields(**vars(cfg))
+    num, den = t_kernels.p2g_faces(_t(sb.slot_grid.data), tcfg)
+    pos, vel, aff = _t(st.position), _t(st.velocity), _t(st.affine)
+    act, over, start = _t(active), _t(sb.slot_grid.overflow), _t(sb.n_kept)
+    idx = t_transfers._overflow_rows(over, pos.shape[0], tcfg, start)
+    rng = np.random.default_rng(9)
+    weights = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in t_kernels.face_shapes(tcfg)]
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in (*num, *den, pos, vel, aff)]
+        out = fn(leaves)
+        loss = sum(torch.sum(o * w) for o, w in zip(out, weights))
+        return out, leaves, torch.autograd.grad(loss, leaves, allow_unused=True)
+
+    want_out, _, want = grads(lambda l: t_transfers._merge_overflow(
+        l[:3], l[3:6], l[6], l[7], l[8], act, idx, tcfg))
+    got_out, leaves, got = grads(lambda l: t_kernels._P2GOverflow.apply(
+        *l, act, over, start, None, tcfg))
+    for a in range(3):
+        torch.testing.assert_close(got_out[a], want_out[a], rtol=0, atol=0)
+    for leaf, g, w in zip(leaves, got, want):
+        if w is None:
+            assert g is None or not torch.any(g)
+        else:
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert all(torch.equal(l, t) for l, t in zip(leaves[:6], (*num, *den)))
+
+    sums = [t.clone() for t in (*num, *den)]
+    with torch.no_grad():
+        plain = t_kernels._P2GOverflow.apply(*sums, pos, vel, aff, act, over, start, None, tcfg)
+    for a in range(3):
+        torch.testing.assert_close(plain[a], want_out[a], rtol=0, atol=0)
+    assert not torch.equal(sums[0], num[0])  # B's sums took the overflow rows in place
+
+
 def _p2g_bwd_model(data, gnum, gden, cfg, tile):
     """Kernel B''s second launch (``csrc/p2g_bwd.cu``) in numpy, float32
     throughout, on zeros as its first launch leaves them: a block per tile of
