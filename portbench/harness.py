@@ -11,11 +11,13 @@ work, and the seed varies the particles' jitter and the substeps' draws.
 
 A frame is the testbed's, ``FRAME_DT`` seconds of simulated time. Each
 ends in a synchronize and one copy of its failure flags and counts to the
-host. ``CHECK_FRAMES`` frames of the first episode, drawn
-from the seed, keep host copies of their inputs and answers; once the
-window has closed and the program's state is freed, the reference
-(``reference/compare.py``) runs them again and the gaps are held to the
-cell's limits (``limits/<cell>.json``).
+host. ``CHECK_FRAMES`` frames of the first episode, drawn from the seed,
+keep host copies of their inputs and answers; once the window has closed
+and the program's state is freed, the reference (``reference/compare.py``)
+runs them again and the gaps are held to the cell's limits
+(``limits/<cell>.json``). The reference's seconds and device memory peak
+are logged, and the keys of the configuration's "sim" group that it leaves
+to the program (``reference/state_io.py``).
 
 With ``--trace 1`` the set-up also replays ``profile.frames`` frames from
 the snapshot under ``torch.profiler`` (device busy and idle, host reads,
@@ -39,6 +41,7 @@ from types import SimpleNamespace
 import torch
 
 from portbench import hostcopy, peaks, trace
+from portbench.reference import state_io
 from portbench.reference.compare import Reference
 
 FRAME_DT = 1.0 / 60.0  # the testbed's frame
@@ -336,14 +339,21 @@ def run_cell(bench: Bench, workload: str, seed: int, seconds: float, traced: boo
     log(f"window: {len(records)} frames in {window_s:.3f} s, {n_episode} episodes, the most in a frame "
         f"{most}; frame ms min {ms[0]:.1f} median {ms[len(ms) // 2]:.1f} max {ms[-1]:.1f}; comparing "
         f"frames {picks}")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     t_ref = time.perf_counter()
     numbers = {}
     ref = Reference(conf, dev)
+    left = state_io.program_keys(conf)
+    if left:
+        log(f"reference: the \"sim\" keys {left} are left to the program")
     for case in cases:
         for _, a in actions:
             for name, value in a.compare(case, ref).items():
                 numbers[name] = max(numbers.get(name, 0.0), float(value))
-    log(f"reference: {time.perf_counter() - t_ref:.3f} s for {len(cases)} frames")
+    ref_peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    log(f"reference: {time.perf_counter() - t_ref:.3f} s for {len(cases)} frames, device memory peak "
+        f"{ref_peak} bytes")
     checks = {name: {"value": numbers.get(name), "limit": limit} for name, limit in limits.items()}
     correct = bool(cases) and bool(checks) and all(c["value"] is not None and c["value"] <= c["limit"]
                                                    for c in checks.values())

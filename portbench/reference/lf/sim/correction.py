@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from portbench.reference.lf import grids
 from portbench.reference.lf.config import SimConfig
@@ -37,44 +38,66 @@ def _pair_weight(sq: torch.Tensor, re2: float) -> torch.Tensor:
     return torch.where(sq < 1e-12, torch.zeros_like(w), w)
 
 
+# the most bytes of one (KC, KC, slab) pair tensor of :func:`_springs_torch`
+_PAIR_BYTES = 1 << 31
+
+
 def _springs_torch(
     res_pos: torch.Tensor, res_mask: torch.Tensor, re2: float, seed: int,
-    cfg: SimConfig, origin=_ZERO_ORIGIN,
+    origin=_ZERO_ORIGIN,
 ) -> torch.Tensor:
     """Per-slot springs (3, KC, nx, ny, nz), plain version of kernel E (port
     of ``correction._springs_jnp``): for each of the 27 offsets the
     neighbour cell's slots are a shifted copy of the slot grid, and the
-    (KC, KC) pairs reduce over the neighbour axis."""
+    (KC, KC) pairs reduce over the neighbour axis.
+
+    The cells go in x-slabs of as many planes as keep a pair tensor within
+    ``_PAIR_BYTES``, each reading its neighbours from the slot grid padded
+    by one plane of empty cells on every side. Every element's arithmetic
+    and every reduction is that of the whole grid at once, so the result
+    does not depend on the slab."""
     kc = res_pos.shape[1]
-    wsum = torch.zeros_like(res_mask)
-    wnbr = torch.zeros_like(res_pos)
-    coincident = torch.zeros_like(res_mask)
+    nx, ny, nz = res_pos.shape[2:]
+    slab = max(1, _PAIR_BYTES // (kc * kc * ny * nz * res_pos.element_size()))
+    pad_pos = F.pad(res_pos, (1, 1, 1, 1, 1, 1))
+    pad_mask = F.pad(res_mask, (1, 1, 1, 1, 1, 1))
     eye = torch.eye(kc, dtype=res_pos.dtype, device=res_pos.device).reshape(kc, kc, 1, 1, 1)
+    springs = torch.empty_like(res_pos)
 
-    for d in slots_mod.NEIGHBOR_OFFSETS:
-        nbr_pos = slots_mod.shifted(res_pos, d, cfg)
-        nbr_mask = slots_mod.shifted(res_mask, d, cfg)
-        # pairwise (KC res, KC nbr, nx, ny, nz)
-        sq = sum((res_pos[i][:, None] - nbr_pos[i][None, :]) ** 2 for i in range(3))
-        pair = res_mask[:, None] * nbr_mask[None, :]
-        if d == (0, 0, 0):
-            pair = pair * (1.0 - eye)  # a slot is not its own neighbour
-        w = _pair_weight(sq, re2) * pair
-        wsum += torch.sum(w, dim=1)
-        wnbr += torch.stack([torch.sum(w * nbr_pos[i][None, :], dim=1) for i in range(3)])
-        coincident += torch.sum(torch.where(sq < 1e-12, pair, torch.zeros_like(pair)), dim=1)
+    for x0 in range(0, nx, slab):
+        x1 = min(x0 + slab, nx)
+        pos, mask = res_pos[:, :, x0:x1], res_mask[:, x0:x1]
+        wsum = torch.zeros_like(mask)
+        wnbr = torch.zeros_like(pos)
+        coincident = torch.zeros_like(mask)
+        for d in slots_mod.NEIGHBOR_OFFSETS:
+            ox, oy, oz = d
+            cells = (slice(1 + ox + x0, 1 + ox + x1), slice(1 + oy, 1 + oy + ny), slice(1 + oz, 1 + oz + nz))
+            nbr_pos = pad_pos[(slice(None), slice(None)) + cells]
+            nbr_mask = pad_mask[(slice(None),) + cells]
+            # pairwise (KC res, KC nbr, slab, ny, nz)
+            sq = sum((pos[i][:, None] - nbr_pos[i][None, :]) ** 2 for i in range(3))
+            pair = mask[:, None] * nbr_mask[None, :]
+            if d == (0, 0, 0):
+                pair = pair * (1.0 - eye)  # a slot is not its own neighbour
+            w = _pair_weight(sq, re2) * pair
+            wsum += torch.sum(w, dim=1)
+            wnbr += torch.stack([torch.sum(w * nbr_pos[i][None, :], dim=1) for i in range(3)])
+            coincident += torch.sum(torch.where(sq < 1e-12, pair, torch.zeros_like(pair)), dim=1)
+            del sq, pair, w  # before the next offset's: at 256³ each is ~2 GB
 
-    springs = res_pos * wsum[None] - wnbr
-    jitter = jitterhash.jitter_field(
-        seed, kc, tuple(res_pos.shape[2:]), origin, res_pos.dtype, res_pos.device
-    )
-    return springs + coincident[None] * jitter
+        jitter = jitterhash.jitter_field(
+            seed, kc, (x1 - x0, ny, nz), (origin[0] + x0, origin[1], origin[2]), res_pos.dtype,
+            res_pos.device,
+        )
+        springs[:, :, x0:x1] = pos * wsum[None] - wnbr + coincident[None] * jitter
+    return springs
 
 
 def _springs(res_pos, res_mask, seed: int, origin, re2: float, cfg: SimConfig) -> torch.Tensor:
     """Kernels E and E' on CUDA tensors, :func:`_springs_torch` and its
     autograd on CPU tensors."""
-    return _springs_torch(res_pos, res_mask, re2, seed, cfg, origin)
+    return _springs_torch(res_pos, res_mask, re2, seed, origin)
 
 
 def overflow_springs(

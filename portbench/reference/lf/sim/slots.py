@@ -11,7 +11,6 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-import torch.nn.functional as F
 
 from portbench.reference.lf.config import SimConfig
 from portbench.reference.lf.sim.binning import Binning
@@ -99,16 +98,3 @@ NEIGHBOR_OFFSETS = [
     (dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1)
 ]
 
-
-def shifted(arr: torch.Tensor, off, cfg: SimConfig) -> torch.Tensor:
-    """Cells' view of neighbor cell ``c + off`` (grid dims are the LAST
-    three), zero-padded at the domain boundary."""
-    nx, ny, nz = cfg.grid_size
-    p = F.pad(arr, (1, 1, 1, 1, 1, 1))
-    ox, oy, oz = off
-    return p[
-        ...,
-        1 + ox : 1 + ox + nx,
-        1 + oy : 1 + oy + ny,
-        1 + oz : 1 + oz + nz,
-    ]

@@ -2,8 +2,11 @@
 frame actions drive, behind one small interface that the reference's
 lower-precision control (:mod:`portbench.reference.control`) mirrors.
 
-A configuration file's groups ("sim", "solver", "seed_box", "mesher",
-"render", "scene") are read here into the port's own config objects.
+A configuration file's groups ("sim", "solver", "mesher", "render",
+"scene") are read here into the port's own config objects. Its particles
+come from ``"seed_boxes"``, a list of boxes ``{"start", "size"}`` seeded in
+order, or from ``"seed_box"``, one such box; the jitter of all of them is
+drawn from one generator of the seed.
 """
 
 from __future__ import annotations
@@ -13,6 +16,13 @@ import importlib
 
 import numpy as np
 import torch
+
+
+def seed_boxes(conf: dict) -> list:
+    """The configuration's seed boxes, in the order they are seeded."""
+    if "seed_boxes" in conf and "seed_box" in conf:
+        raise ValueError('a configuration gives "seed_boxes" or "seed_box", not both')
+    return conf["seed_boxes"] if "seed_boxes" in conf else [conf["seed_box"]]
 
 
 def fields(group: dict) -> dict:
@@ -56,12 +66,13 @@ class Program:
         return self._config.RenderConfig(**conf["render"])
 
     def seeded_state(self, cfg, conf: dict, seed: int):
-        """The configuration's seed box, its jitter and the substeps' draws
-        from `seed`."""
-        box = conf["seed_box"]
+        """The configuration's seed boxes in order, their jitter (one
+        generator for all) and the substeps' draws from `seed`."""
         state = self._sim.new_state(cfg, self.device, generator=seed)
-        return self._sim.seed_box(state, cfg, tuple(box["start"]), tuple(box["size"]),
-                                  rng=np.random.default_rng(seed))
+        rng = np.random.default_rng(seed)
+        for box in seed_boxes(conf):
+            state = self._sim.seed_box(state, cfg, tuple(box["start"]), tuple(box["size"]), rng=rng)
+        return state
 
     # -- the frame's stages -------------------------------------------------
 
