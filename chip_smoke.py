@@ -44,7 +44,9 @@ Phases, one line of output each (or a few):
    and 2^16 rows that the overflow rows fill), its gradient against the
    plain autograd, its host ms and the device operations, host copies and
    reads of one p2g_slots call and of one substep's p2g span, beside the
-   plain path's;
+   plain path's; the CG iteration's two kernels (cg_direction, cg_update)
+   against the plain steps on one 128^3 solve, two runs bit-equal, their
+   launches against the iterations enqueued;
    then the backward kernels B' (at 64^3: the plain autograd of P2G does
    not fit the card at 128^3; its time and bound also at 128^3; also on a
    grid no tile divides at 5, 12 and 32 slots a cell, APIC and PIC, two
@@ -211,9 +213,10 @@ KERNELS = {
 }
 VCYCLE_KERNELS = ("mg_pre", "mg_restrict", "mg_up", "mg_coarse")
 VCYCLE16_KERNELS = ("mg16_pre", "mg16_restrict", "mg16_up", "mg16_coarse")
-FORWARD_KERNELS = ("expand", "p2g", "p2g_overflow", "p2g_normalize", "stencil", *VCYCLE_KERNELS, "g2p",
-                   "correction", "surface")
-GRAD_KERNELS = ("expand", "p2g", "p2g_bwd", "stencil", *VCYCLE_KERNELS, "g2p", "g2p_bwd")
+CG_KERNELS = ("cg_direction", "cg_update")
+FORWARD_KERNELS = ("expand", "p2g", "p2g_overflow", "p2g_normalize", "stencil", *VCYCLE_KERNELS, *CG_KERNELS,
+                   "g2p", "correction", "surface")
+GRAD_KERNELS = ("expand", "p2g", "p2g_bwd", "stencil", *VCYCLE_KERNELS, *CG_KERNELS, "g2p", "g2p_bwd")
 # the mesh gradient's kernels: F in the form that keeps the node sums, then F'
 MESH_GRAD_KERNELS = ("surface_keep", "surface_bwd")
 BACKWARD_KERNELS = ("p2g_bwd", "g2p_bwd", "correction_bwd", *MESH_GRAD_KERNELS)
@@ -2099,15 +2102,15 @@ def stage_split(state, cfg, n0: int, cg_parts, substeps: int = 3, what: str = "1
         log(f"  stage {name}: {ms / substeps:.2f} ms ({100.0 * ms / total:.1f} %)")
     if cg_parts is None:
         return state
-    # what a CG iteration is made of: its V-cycle and its operator as timed
-    # alone in phase 3 (outside this path, whose launch counts are its own);
-    # the rest is the loop's vector operations, its host read of the
-    # residual and the solve's set-up, apply_pressure included
-    cycle, operator = cg_parts
+    # what a CG iteration is made of: its V-cycle as timed alone in phase 3
+    # (outside this path, whose launch counts are its own); the rest is the
+    # two CG kernels (the operator inside cg_direction), the copy of the exit
+    # flag, the host's lagged wait and the solve's set-up, apply_pressure
+    # included
+    cycle, _ = cg_parts
     per_it = solve / max(iters, 1)
     log(f"  a CG iteration of {per_it:.3f} ms: V-cycle {cycle:.3f} ms ({100.0 * cycle / per_it:.0f} %), "
-        f"operator {operator:.3f} ms, the loop's vector operations and host read "
-        f"{per_it - cycle - operator:.3f} ms")
+        f"the CG kernels, the exit flag's copy and wait and the solve's set-up {per_it - cycle:.3f} ms")
     return state
 
 
@@ -2132,9 +2135,10 @@ def solve_inputs(state, cfg):
 
 def profiled_solve(args, kwargs, cfg):
     """One ``pressure.solve`` under torch.profiler: (CG iterations, wall ms,
-    device ms by part: the V-cycle's kernels, the operator, the rest; the
-    device's idle ms after each host read of the residual, from the end of
-    its copy to the host to the start of the next device item)."""
+    device ms by part: the V-cycle's kernels, the two CG kernels, the
+    operator (the warm start's), the rest; the device's idle ms after each
+    copy to the host (the exit flag's), from its end to the start of the
+    next device item)."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2143,12 +2147,15 @@ def profiled_solve(args, kwargs, cfg):
         wall = (time.perf_counter() - t0) * 1e3
     items = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
                    key=lambda e: e.time_range.start)
-    parts = {"V-cycle kernels": 0.0, "operator": 0.0, "vector and reduction ops": 0.0}
+    parts = {"V-cycle kernels": 0.0, "cg_direction": 0.0, "cg_update": 0.0, "operator": 0.0,
+             "other ops": 0.0}
     read_gap = 0.0
     for e, after in zip(items, items[1:] + [None]):
         name = e.name
-        part = ("V-cycle kernels" if "mg_" in name and "_kernel" in name
-                else "operator" if "stencil_kernel" in name else "vector and reduction ops")
+        part = ("V-cycle kernels" if "mg_" in name and ("_kernel" in name or "_march" in name)
+                else "cg_direction" if "cg_direction_kernel" in name
+                else "cg_update" if "cg_update_kernel" in name
+                else "operator" if "stencil_kernel" in name else "other ops")
         parts[part] += e.device_time_total / 1e3
         if "DtoH" in name and after is not None:
             read_gap += max(after.time_range.start - e.time_range.end, 0.0) / 1e3
@@ -2161,8 +2168,8 @@ def cg_iteration_split(state, cfg, what: str = "128^3") -> None:
     and with 2 iterations, each on the host clock (mean of 3) and once under
     torch.profiler; their difference over the iterations between is one
     iteration's wall time, its device busy time split into the V-cycle's
-    kernels, the operator and PyTorch's vector and reduction ops, and the
-    device's idle time after the host read of the residual."""
+    kernels, the two CG kernels and any other op, and the device's idle
+    time after the copies of the exit flag to the host."""
     args, kwargs = solve_inputs(state, cfg)
     short = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, max_iterations=2))
     runs = {}
@@ -2180,7 +2187,70 @@ def cg_iteration_split(state, cfg, what: str = "128^3") -> None:
         f"(under the profiler {pwall:.4f}); device busy {busy:.4f} ms = "
         + ", ".join(f"{name} {ms:.4f}" for name, ms in parts.items())
         + f"; device idle {pwall - busy:.4f} ms under the profiler, of it {gap:.4f} ms from the end of "
-        f"the residual's copy to the host to the next device item (the host read)")
+        f"a copy to the host to the next device item")
+
+
+def cg_fused(cfg, state, what: str = "128^3") -> None:
+    """The CG iteration's two kernels on the solve that a substep from
+    `state` makes: the kernel path ("cg_direction", "cg_update") against the
+    plain steps on the same tensors (the V-cycle's kernels in both), with
+    iterations within 1 and the pressure within 1e-4 of its largest value
+    (the port's solve against JAX's on the CPU; the sums run in another
+    order); two runs of the kernel path give the same bits; each kernel
+    launches once per iteration enqueued (iterations + skipped) and no
+    plain step runs on the kernel path; the host ms of a solve on each."""
+    args, kwargs = solve_inputs(state, cfg)
+    steps = (pressure.cg_direction, pressure.cg_update)
+
+    def run(plain=False):
+        if plain:  # the plain steps on the card's tensors, in the kernels' place (no scratch)
+            pressure.cg_direction = lambda *a: pressure._cg_direction_torch(*a[:-1])
+            pressure.cg_update = lambda *a: pressure._cg_update_torch(*a[:-1])
+        profiling.clear()
+        try:
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            with profiling.tracing(), profiling.span("pressure"):
+                res = pressure.solve(*args[:1], cfg, *args[2:], **kwargs)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            frame = profiling.frames()[-1]
+            counters = {k: frame.total(k) for k in ("cg.kernel", "cg.plain", "cg_iterations",
+                                                     "cg_iterations_skipped", "reads.cg.loop")}
+        finally:
+            pressure.cg_direction, pressure.cg_update = steps
+            profiling.clear()
+        return res, counters, dict(kernels.LAUNCHES), ms
+
+    run()  # warm-up
+    fused, counters, launches, fused_ms = run()
+    again, _, _, again_ms = run()
+    ref, ref_counters, ref_launches, plain_ms = run(plain=True)
+    it, it_ref = int(fused.iterations), int(ref.iterations)
+    p, p_ref = fused.pressure, ref.pressure
+    gap = float(torch.max(torch.abs(p - p_ref))) / max(float(torch.max(torch.abs(p_ref))), 1e-30)
+    same = (torch.equal(fused.pressure, again.pressure) and torch.equal(fused.residual, again.residual)
+            and int(again.iterations) == it)
+    enqueued = it + counters["cg_iterations_skipped"]
+    log(f"kernels cg_direction + cg_update on one {what} solve: {it} iterations against {it_ref} with the "
+        f"plain steps, residual {float(fused.residual):.3e} against {float(ref.residual):.3e}, pressure "
+        f"max relative gap {gap:.3e} (< 1e-4); two kernel runs bit-equal: {same}; launches "
+        f"{ {k: launches[k] for k in CG_KERNELS} } for {it} iterations + "
+        f"{counters['cg_iterations_skipped']} skipped, {counters['reads.cg.loop']} cg.loop reads; counters "
+        f"kernel path {counters}, plain path {ref_counters} (plain steps launched "
+        f"{ {k: ref_launches[k] for k in CG_KERNELS} }); host ms a solve: kernels {fused_ms:.2f} / "
+        f"{again_ms:.2f}, plain steps {plain_ms:.2f}")
+    check(abs(it - it_ref) <= 1, f"CG iterations {it} (kernels) against {it_ref} (plain steps)")
+    check(gap < 1e-4, f"CG kernels: pressure max relative gap {gap}")
+    check(float(fused.residual) < cfg.solver.tolerance, f"CG kernels: residual {float(fused.residual)}")
+    check(same, "two runs of the CG kernels differ")
+    check(launches["cg_direction"] == launches["cg_update"] == enqueued,
+          f"CG kernels launched {launches} for {enqueued} iterations enqueued")
+    check(counters["cg.plain"] == 0 and counters["cg.kernel"] == 1, f"CG path counters {counters}")
+    check(ref_counters["cg_iterations"] == it_ref, f"CG plain steps: counters {ref_counters}")
+    check(0 <= counters["cg_iterations_skipped"] <= pressure._EXIT_LAG, f"CG skipped {counters}")
+    check(ref_launches["cg_direction"] == ref_launches["cg_update"] == 0, "the plain steps launched a CG kernel")
 
 
 def busy_share(state, cfg, n0: int, what: str = "128^3"):
@@ -2504,7 +2574,10 @@ def renderer_phases(device, mesh128) -> dict:
     voxelize_meshes(device, mesh128, mesh64)
     del mesh64
     torch.cuda.empty_cache()
-    drive("testbed --render-every path (setup 0, PT and BDPT)", lambda: fluid_frames(device), FORWARD_KERNELS)
+    # setup 0's block falls freely in these frames: every pressure solve
+    # takes the early-out (||b||^2 < 1e-6) and launches none of its kernels
+    drive("testbed --render-every path (setup 0, PT and BDPT)", lambda: fluid_frames(device),
+          tuple(k for k in FORWARD_KERNELS if k not in ("stencil", *VCYCLE_KERNELS, *CG_KERNELS)))
     torch.cuda.empty_cache()
     drive("pixel gradient parity (16^3 composed gate)", lambda: pixel_grad_parity(device), ())
     torch.cuda.empty_cache()
@@ -3097,9 +3170,10 @@ def sharded_phases(device) -> None:
         del share, st, glob, dense, state0
         torch.cuda.empty_cache()
         # one substep: the loss reads positions, so the gradient passes
-        # advection and the correction springs (E'), not P2G or G2P
+        # advection and the correction springs (E'), not P2G or G2P; from
+        # rest the block falls freely, so the solve takes the early-out
         drive("one-rank training step (64^3)", lambda: training_64(device, mesh),
-              ("expand", "p2g", "stencil", "g2p", "correction", "correction_bwd"))
+              ("expand", "p2g", "g2p", "correction", "correction_bwd"))
     finally:
         dist.destroy_process_group()
 
@@ -3126,6 +3200,7 @@ def main() -> None:
     state, _ = sim.substep(state, cfg, DT)
     stats, cg_parts = kernel_phases(cfg, state)
     p2g_overflow_parity(cfg, state)
+    cg_fused(cfg, state)
     stats.update(backward_kernel_phases(cfg, state))
     del state
     torch.cuda.empty_cache()

@@ -25,6 +25,7 @@ CSRC = _PKG / "csrc"
 SOURCES = (
     "expand.cu", "p2g.cu", "p2g_overflow.cu", "p2g_bwd.cu", "stencil.cu", "vcycle.cu", "g2p.cu",
     "g2p_bwd.cu", "correction.cu", "correction_bwd.cu", "surface.cu", "surface_bwd.cu", "bf16_check.cu",
+    "cg.cu",
 )
 # staging.cuh: g2p.cu, g2p_bwd.cu, p2g_bwd.cu; jitter.cuh: correction.cu, correction_bwd.cu
 HEADERS = ("staging.cuh", "jitter.cuh")
@@ -33,9 +34,9 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-I", str(CSRC),
 )
 
-# flags of single sources: the fused V-cycle keeps the plain versions'
-# unfused multiplies and adds
-SOURCE_FLAGS = {"vcycle.cu": ("-fmad=false",)}
+# flags of single sources: the fused V-cycle and the CG iteration keep the
+# plain versions' unfused multiplies and adds
+SOURCE_FLAGS = {"vcycle.cu": ("-fmad=false",), "cg.cu": ("-fmad=false",)}
 LIB_PATH = cache.keyed_path(
     "libfluid_tpu_kernels.so", [CSRC / f for f in SOURCES + HEADERS],
     [*NVCC_FLAGS, *(f"{s}:{' '.join(fl)}" for s, fl in sorted(SOURCE_FLAGS.items()))],
@@ -71,6 +72,8 @@ SIGNATURES = {
     "lf_surface_keep": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P],
     "lf_surface_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P],
     "lf_bf16_check": [_P, _P],
+    "lf_cg_direction": [_P] * 9 + [_F, _I, _P, _P, _P, _I, _I, _I, _P],
+    "lf_cg_update": [_P] * 7 + [_LL, _F, _I, _P],
 }
 
 _lib = None

@@ -1,7 +1,7 @@
 """Dispatch to the hand-written CUDA kernels, and the wrappers of the P2G
 and correction kernels.
 
-Twenty-two kernels carry the substep, the mesher and the gradients of both
+Twenty-four kernels carry the substep, the mesher and the gradients of both
 (sources in ``libfluid_tpu_torch/csrc``):
 
     "expand"      slotsort.expand         slot-grid expand     (csrc/expand.cu)
@@ -25,6 +25,10 @@ Twenty-two kernels carry the substep, the mesher and the gradients of both
     "surface"     surface.sample_surface  mesher node pass     (csrc/surface.cu)
     "surface_keep"  surface.sample_surface  the same, node sums kept for F'  (csrc/surface.cu)
     "surface_bwd"   surface.sample_surface_bwd  its VJP        (csrc/surface_bwd.cu)
+    "cg_direction", "cg_update"
+                  pressure.cg_direction, pressure.cg_update
+                                          a CG iteration's vector updates
+                                          and reductions       (csrc/cg.cu)
 
 "p2g", "correction" and "surface" are tile kernels: a block brings what its
 tile of lattice points, cells or nodes reaches into shared memory once (for
@@ -69,7 +73,8 @@ LAUNCHES = {
     "expand": 0, "p2g": 0, "p2g_overflow": 0, "p2g_normalize": 0, "p2g_bwd": 0, "stencil": 0,
     "stencil16": 0, "mg_pre": 0, "mg_restrict": 0, "mg_up": 0, "mg_coarse": 0, "mg16_pre": 0,
     "mg16_restrict": 0, "mg16_up": 0, "mg16_coarse": 0, "g2p": 0, "g2p_bwd": 0, "correction": 0,
-    "correction_bwd": 0, "surface": 0, "surface_keep": 0, "surface_bwd": 0,
+    "correction_bwd": 0, "surface": 0, "surface_keep": 0, "surface_bwd": 0, "cg_direction": 0,
+    "cg_update": 0,
 }
 
 
@@ -107,7 +112,9 @@ def launch(name: str, entry: str, *args) -> None:
     fn = getattr(_build.load(), entry)
     # None is a null pointer: an output the caller does not ask for
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    err = fn(*cargs, torch.cuda.current_stream().cuda_stream)
+    # the current device's stream, asked for by index (a third of the
+    # host's time of current_stream() with no argument)
+    err = fn(*cargs, torch.cuda.current_stream(torch.cuda.current_device()).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel ({entry}) failed: CUDA error {err}")
     LAUNCHES[name] += 1
