@@ -3024,6 +3024,9 @@ def config5(device) -> dict:
     (first, fdiag), launches = drive("config 5 tiled path (4 substeps)", tiled, ("expand", "p2g", "correction", "g2p"))
     for name in ("expand", "p2g", "correction"):
         check(launches[name] == 4 * SLABS, f"config 5: {launches[name]} {name} launches, expected {4 * SLABS}")
+    # P2G's overflow rows and normalisation: one launch each a substep
+    for name in ("p2g_overflow", "p2g_normalize"):
+        check(launches[name] == 4, f"config 5: {launches[name]} {name} launches, expected 4")
 
     # the tiled substep against the dense one from the same state
     # (tests/test_bigstep.py's tolerances; rows in the same order)
@@ -3128,8 +3131,11 @@ def sharded_phases(device) -> None:
             torch.cuda.synchronize()
             return share, diag, (time.perf_counter() - t0) * 1e3
 
-        (share, zdiag, ms), _ = drive("one-rank sharded substep (128^3)", one,
-                                      ("p2g", "correction", "g2p", "mg_coarse"))
+        (share, zdiag, ms), zlaunches = drive("one-rank sharded substep (128^3)", one,
+                                              ("p2g", "correction", "g2p", "mg_coarse"))
+        check(zlaunches["p2g_overflow"] == zlaunches["p2g_normalize"] == 1,
+              f"one-rank sharded substep: p2g_overflow / p2g_normalize launched {zlaunches['p2g_overflow']} / "
+              f"{zlaunches['p2g_normalize']} times, expected 1")
         glob = zshard.gather_state(share, cfg, mesh)
         pa, va = glob.position[glob.active], glob.velocity[glob.active]
         pb, vb = dense.position, dense.velocity
@@ -3161,7 +3167,10 @@ def sharded_phases(device) -> None:
             torch.cuda.synchronize()
             return st, diag, (time.perf_counter() - t0) * 1e3
 
-        (st, sdiag, ms), _ = drive("one-rank step_z(1/60)", cfl, ("p2g", "correction", "g2p", "mg_coarse"))
+        (st, sdiag, ms), slaunches = drive("one-rank step_z(1/60)", cfl, ("p2g", "correction", "g2p", "mg_coarse"))
+        check(slaunches["p2g_overflow"] == slaunches["p2g_normalize"] == int(sdiag.substeps),
+              f"one-rank step_z: p2g_overflow / p2g_normalize launched {slaunches['p2g_overflow']} / "
+              f"{slaunches['p2g_normalize']} times in {int(sdiag.substeps)} substeps")
         log(f"one-rank step_z(1/60): {int(sdiag.substeps)} substeps in {ms:.1f} ms, CG "
             f"{int(sdiag.pressure_iterations)} it res {float(sdiag.pressure_residual):.2e}, n "
             f"{int(sdiag.particle_count)}, lost {int(sdiag.particles_lost)}")

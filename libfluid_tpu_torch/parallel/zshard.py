@@ -53,7 +53,6 @@ from libfluid_tpu_torch.parallel.mesh import RankMesh
 from libfluid_tpu_torch.sim import binning as binning_mod
 from libfluid_tpu_torch.sim import collisions as collisions_mod
 from libfluid_tpu_torch.sim import correction as correction_mod
-from libfluid_tpu_torch.sim import kernels
 from libfluid_tpu_torch.sim import multigrid
 from libfluid_tpu_torch.sim import pressure as pressure_mod
 from libfluid_tpu_torch.sim import slots as slots_mod
@@ -552,12 +551,8 @@ def _local_substep(state: SimState, cfg: SimConfig, dt, mesh: RankMesh, draws: D
     # --- P2G on the extended tile (kernel B), then the slot-overflow rows
     # (a neighbour's overflow rows in its edge layer are not exchanged: a
     # crammed cell at a seam degrades as the dense path's past capacity) ---
-    num, den = kernels.p2g_faces(data_ext, cfg_e)
-    n_o, d_o = _p2g_overflow(slot_grid, pos, vel, aff, act, cfg_e)
-    u, v, w = (
-        transfers._normalize(num[a][:, :, 1:-1] + n_o[a][:, :, 1:-1], den[a][:, :, 1:-1] + d_o[a][:, :, 1:-1])
-        for a in range(3)
-    )
+    faces = transfers.p2g_slots(slot_grid._replace(data=data_ext), pos, vel, aff, act, cfg_e)
+    u, v, w = (f[:, :, 1:-1] for f in faces)  # normalizing is elementwise: crop after it
 
     # --- mark cells ---
     solid_l = state.solid[:, :, d * nzl : (d + 1) * nzl]
@@ -657,25 +652,6 @@ def _extended_faces(g: LocalGrid, mesh: RankMesh) -> grids.MacGrid:
                          cell_type=None)
 
 
-def _p2g_overflow(slot_grid, pos, vel, aff, act, cfg_e: SimConfig):
-    """Unnormalized face sums of the slot-overflow rows on the extended
-    tile (the tail of ``transfers.p2g_slots``, compacted)."""
-    n = pos.shape[0]
-    cap = min(max(256, cfg_e.p2g_overflow_capacity), n)
-    use_affine = cfg_e.scheme == TransferScheme.APIC
-    idx = _first(slot_grid.overflow, cap)
-    safe = torch.clamp(idx, max=n - 1)
-    act_o = (idx < n) & act[safe]
-    nums, dens = [], []
-    for axis in range(3):
-        n_o, d_o = transfers._p2g_axis(
-            pos[safe], vel[safe][:, axis], aff[safe][:, axis, :] if use_affine else None, act_o, cfg_e, axis
-        )
-        nums.append(n_o)
-        dens.append(d_o)
-    return nums, dens
-
-
 def _remove_boundary_normals_local(g: LocalGrid, d: int, ndev: int) -> LocalGrid:
     u, v, w = g.u.clone(), g.v.clone(), g.w.clone()
     u[0] = 0.0
@@ -711,15 +687,7 @@ def _correct_positions_local(pos, act, slot_grid, data_ext, cfg: SimConfig, cfg_
     oidx, ospring = correction_mod.overflow_springs(
         pos, truncated, res_pos, res_mask, re2, cfg_e, cfg.correction_overflow_capacity
     )
-    n = pos.shape[0]
-    ospring = torch.where((oidx < n)[:, None], ospring, torch.zeros_like(ospring))
-    spring = spring.index_add(0, torch.clamp(oidx, max=n - 1).long(), ospring)
-    re = float(np.float32(cfg.cell_size) / np.sqrt(np.float32(2.0)))
-    new_pos = pos + spring * (dt * cfg.correction_stiffness * re)
-    lo = torch.tensor(cfg.domain_min, dtype=cfg.dtype, device=pos.device)
-    hi = torch.tensor(cfg.domain_max, dtype=cfg.dtype, device=pos.device)
-    new_pos = torch.minimum(torch.maximum(new_pos, lo), hi)
-    return torch.where(act[:, None], new_pos, pos)
+    return correction_mod.move(pos, act, spring, oidx, ospring, cfg, dt)
 
 
 # ---------------------------------------------------------------------------
@@ -860,9 +828,7 @@ def step_z(state: SimState, cfg: SimConfig, dt, mesh: RankMesh, draws: Optional[
         remaining = remaining - ts
         nsub += 1
     if diag is None:
-        zero = torch.zeros((), dtype=cfg.dtype, device=dev)
-        izero = torch.zeros((), dtype=torch.int32, device=dev)
-        diag = Diagnostics(zero, zero, zero, izero, zero, zero, zero, izero, izero, izero, izero, izero)
+        diag = Diagnostics.zeros(dev, cfg.dtype)
     return state, diag._replace(
         particles_lost=lost, substeps=torch.tensor(nsub, dtype=torch.int32, device=dev)
     )

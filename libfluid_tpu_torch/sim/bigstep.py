@@ -49,7 +49,7 @@ from libfluid_tpu_torch.sim import slotsort
 from libfluid_tpu_torch.sim import sources as sources_mod
 from libfluid_tpu_torch.sim import transfers
 from libfluid_tpu_torch.sim.state import SimState
-from libfluid_tpu_torch.sim.step import Diagnostics, Draws, _add_gravity, _advect, _collide
+from libfluid_tpu_torch.sim.step import Diagnostics, Draws, _add_gravity, _advect, _collide, _diagnostics
 
 # Cells above which FLIP's G2P takes the combined grid new - blend * old
 # through _g2p_tiled (the JAX package's switch to its slab-built table).
@@ -164,22 +164,13 @@ def substep_tiled(
             springs_g[:, :, x0 : x0 + sx] = spr[:, :, 1 : sx + 1]
         del data
 
-    # --- the slot-overflow rows: a scatter over a fixed window of
-    # p2g_overflow_capacity rows (slotsort parks them at n_kept...) ---
-    cap = min(max(256, cfg.p2g_overflow_capacity), n)
-    idx = rs.n_kept + torch.arange(cap, dtype=torch.int32, device=dev)
+    # --- the slot-overflow rows (slotsort parks them at n_kept...), merged
+    # into the slabs' sums, then normalized ---
     overflow = (rs.key_sorted >= kc_full) & (rs.key_sorted < kc_full + n)
-    safe = torch.clamp(idx, max=n - 1).long()
-    ok = overflow[safe] & (idx < n) & state.active[safe]
-    for axis in range(3):
-        n_o, d_o = transfers._p2g_axis(
-            state.position[safe], state.velocity[safe][:, axis],
-            state.affine[safe][:, axis, :] if use_affine else None, ok, cfg, axis,
-        )
-        nums[axis] = nums[axis] + n_o
-        dens[axis] = dens[axis] + d_o
-
-    u, v, w = (transfers._normalize(nums[a], dens[a]) for a in range(3))
+    u, v, w = transfers.p2g_merge_overflow(
+        nums, dens, state.position, state.velocity, state.affine, state.active, overflow, cfg,
+        start=rs.n_kept,
+    )
     grid = grids.mark_cells(state.grid._replace(u=u, v=v, w=w), rs.counts.reshape(cfg.grid_size))
     old_grid = None
     if use_affine:
@@ -195,7 +186,6 @@ def substep_tiled(
     # --- position correction from the accumulated spring field ---
     corr_uncorrected = torch.zeros((), dtype=torch.int32, device=dev)
     if springs_g is not None:
-        re = float(np.float32(cfg.cell_size) / np.sqrt(np.float32(2.0)))
         m = kcor * cfg.num_cells
         has = slot_of < m
         spring = springs_g.reshape(3, m)[:, torch.where(has, slot_of, 0).long()].t()
@@ -210,13 +200,8 @@ def substep_tiled(
             state.position, truncated, rs, kcor, re2, cfg,
             cfg.correction_overflow_capacity, trunc_start,
         )
-        ospring = torch.where((oidx < n)[:, None], ospring, torch.zeros_like(ospring))
-        spring = spring.index_add(0, torch.clamp(oidx, max=n - 1).long(), ospring)
-        new_pos = state.position + spring * (dt * cfg.correction_stiffness * re)
-        lo = torch.tensor(cfg.domain_min, dtype=cfg.dtype, device=dev)
-        hi = torch.tensor(cfg.domain_max, dtype=cfg.dtype, device=dev)
-        new_pos = torch.minimum(torch.maximum(new_pos, lo), hi)
-        state = state._replace(position=torch.where(state.active[:, None], new_pos, state.position))
+        state = state._replace(position=correction_mod.move(
+            state.position, state.active, spring, oidx, ospring, cfg, dt))
     state = _collide(state, old_position, cfg)
 
     # --- velocity extrapolation + G2P ---
@@ -247,24 +232,7 @@ def substep_tiled(
         velocity=vel, affine=affine, grid=grid, time=state.time + dt, pressure=pres.pressure
     )
 
-    active_f = state.active.to(cfg.dtype)
-    vsq = torch.sum(vel**2, dim=-1) * active_f
-    g = torch.tensor(cfg.gravity, dtype=cfg.dtype, device=dev)
-    diag = Diagnostics(
-        kinetic_energy=0.5 * torch.sum(vsq),
-        potential_energy=-torch.sum(torch.sum(state.position * g, dim=-1) * active_f),
-        max_velocity=torch.sqrt(torch.amax(vsq)),
-        pressure_iterations=pres.iterations,
-        pressure_residual=pres.residual,
-        max_pressure=torch.amax(torch.abs(pres.pressure)),
-        max_divergence=torch.amax(torch.abs(pressure_mod.compute_rhs(grid, cfg) * cfg.cell_size)),
-        particle_count=state.active.sum(dtype=torch.int32),
-        substeps=torch.tensor(1, dtype=torch.int32, device=dev),
-        overflow_count=rs.n_overflow,
-        particles_lost=torch.zeros((), dtype=torch.int32, device=dev),
-        correction_uncorrected=corr_uncorrected,
-    )
-    return state, diag
+    return state, _diagnostics(state, pres, cfg, rs.n_overflow, corr_uncorrected)
 
 
 def _overflow_springs_lazy(

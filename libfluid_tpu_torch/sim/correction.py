@@ -236,10 +236,6 @@ def correct_positions(
 
     `seed` is the substep's jitter seed (the JAX package derives it from a
     key with ``jitterhash.seed_from_key``; see :class:`step.Draws`)."""
-    dtype = position.dtype
-    dev = position.device
-    # h / sqrt(2) rounded as in float32, without a host-to-device copy
-    re = float(np.float32(cfg.cell_size) / np.sqrt(np.float32(2.0)))
     kc = min(cfg.correction_capacity, slot_grid.capacity)
     window = kc * cfg.num_cells
 
@@ -258,12 +254,21 @@ def correct_positions(
         position, truncated, res_pos, res_mask, re2, cfg,
         cfg.correction_overflow_capacity, trunc_start=trunc_start,
     )
+    return move(position, active, spring, oidx, ospring, cfg, dt)
+
+
+def move(position, active, spring, oidx, ospring, cfg: SimConfig, dt) -> torch.Tensor:
+    """The corrected positions: the per-particle springs `spring` (N, 3) plus
+    the overflow rows' `ospring` at rows `oidx` (n where unused), a step of
+    dt * stiffness * re along them, clamped into the domain (no skin);
+    inactive rows keep their positions."""
     n = position.shape[0]
     ospring = torch.where((oidx < n)[:, None], ospring, torch.zeros_like(ospring))
     spring = spring.index_add(0, torch.clamp(oidx, max=n - 1).long(), ospring)
-
+    # h / sqrt(2) rounded as in float32, without a host-to-device copy
+    re = float(np.float32(cfg.cell_size) / np.sqrt(np.float32(2.0)))
     new_pos = position + spring * (dt * cfg.correction_stiffness * re)
-    lo = torch.tensor(cfg.domain_min, dtype=dtype, device=dev)
-    hi = torch.tensor(cfg.domain_max, dtype=dtype, device=dev)
+    lo = torch.tensor(cfg.domain_min, dtype=position.dtype, device=position.device)
+    hi = torch.tensor(cfg.domain_max, dtype=position.dtype, device=position.device)
     new_pos = torch.minimum(torch.maximum(new_pos, lo), hi)
     return torch.where(active[:, None], new_pos, position)

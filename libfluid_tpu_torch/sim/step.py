@@ -62,7 +62,7 @@ class Diagnostics(NamedTuple):
     max_divergence: torch.Tensor  # post-projection; should be ~0
     particle_count: torch.Tensor
     substeps: torch.Tensor
-    overflow_count: torch.Tensor  # particles past the slot capacity (merged exactly by P2G)
+    overflow_count: torch.Tensor  # particles past the slot capacity (P2G merges up to p2g_overflow_capacity)
     # particles deactivated this step: always 0 here (the JAX package's
     # sharded exchange can lose particles; the dense path cannot)
     particles_lost: torch.Tensor
@@ -70,6 +70,13 @@ class Diagnostics(NamedTuple):
     # substep: they received no correction spring (every other stage still
     # handles them); nonzero means the cap is undersized for the scene
     correction_uncorrected: torch.Tensor
+
+    @classmethod
+    def zeros(cls, device, dtype) -> "Diagnostics":
+        """The record of a step that ran no substep."""
+        zero = torch.zeros((), dtype=dtype, device=device)
+        izero = torch.zeros((), dtype=torch.int32, device=device)
+        return cls(zero, zero, zero, izero, zero, zero, zero, izero, izero, izero, izero, izero)
 
 
 class Draws:
@@ -215,26 +222,31 @@ def substep(
 
     # --- diagnostics ---
     with profiling.span("diagnostics"):
-        active_f = state.active.to(cfg.dtype)
-        vsq = torch.sum(vel**2, dim=-1) * active_f
-        g = torch.tensor(cfg.gravity, dtype=cfg.dtype, device=dev)
-        diag = Diagnostics(
-            kinetic_energy=0.5 * torch.sum(vsq),
-            potential_energy=-torch.sum(torch.sum(state.position * g, dim=-1) * active_f),
-            max_velocity=torch.sqrt(torch.amax(vsq)),
-            pressure_iterations=pres.iterations,
-            pressure_residual=pres.residual,
-            max_pressure=torch.amax(torch.abs(pres.pressure)),
-            max_divergence=torch.amax(
-                torch.abs(pressure_mod.compute_rhs(grid, cfg) * cfg.cell_size)
-            ),
-            particle_count=state.active.sum(dtype=torch.int32),
-            substeps=torch.tensor(1, dtype=torch.int32, device=dev),
-            overflow_count=slot_grid.overflow.sum(dtype=torch.int32),
-            particles_lost=torch.zeros((), dtype=torch.int32, device=dev),
-            correction_uncorrected=corr_uncorrected,
-        )
+        diag = _diagnostics(state, pres, cfg, slot_grid.overflow.sum(dtype=torch.int32), corr_uncorrected)
     return state, diag
+
+
+def _diagnostics(state: SimState, pres, cfg: SimConfig, overflow_count, corr_uncorrected) -> Diagnostics:
+    """The record of one substep from its new state (velocities, positions
+    and grid), its pressure solve `pres` and the two overflow counts."""
+    dev = state.position.device
+    active_f = state.active.to(cfg.dtype)
+    vsq = torch.sum(state.velocity**2, dim=-1) * active_f
+    g = torch.tensor(cfg.gravity, dtype=cfg.dtype, device=dev)
+    return Diagnostics(
+        kinetic_energy=0.5 * torch.sum(vsq),
+        potential_energy=-torch.sum(torch.sum(state.position * g, dim=-1) * active_f),
+        max_velocity=torch.sqrt(torch.amax(vsq)),
+        pressure_iterations=pres.iterations,
+        pressure_residual=pres.residual,
+        max_pressure=torch.amax(torch.abs(pres.pressure)),
+        max_divergence=torch.amax(torch.abs(pressure_mod.compute_rhs(state.grid, cfg) * cfg.cell_size)),
+        particle_count=state.active.sum(dtype=torch.int32),
+        substeps=torch.tensor(1, dtype=torch.int32, device=dev),
+        overflow_count=overflow_count,
+        particles_lost=torch.zeros((), dtype=torch.int32, device=dev),
+        correction_uncorrected=corr_uncorrected,
+    )
 
 
 @profiling.spanned("step")
@@ -255,7 +267,5 @@ def step(
         remaining = remaining - ts
         nsub += 1
     if diag is None:
-        zero = torch.zeros((), dtype=cfg.dtype, device=dev)
-        izero = torch.zeros((), dtype=torch.int32, device=dev)
-        diag = Diagnostics(zero, zero, zero, izero, zero, zero, zero, izero, izero, izero, izero, izero)
+        diag = Diagnostics.zeros(dev, cfg.dtype)
     return state, diag._replace(substeps=torch.tensor(nsub, dtype=torch.int32, device=dev))

@@ -5,8 +5,9 @@ P2G runs from the dense slot grid (:func:`p2g_slots`): every face sums the
 hat-weighted momentum of the slots in its staggered support
 (:func:`kernels.p2g_faces`, kernel B), then the particles past the slot
 capacity are scatter-added and faces normalize by total weight
-(:func:`kernels.p2g_overflow` on CUDA tensors, :func:`_merge_overflow`
-with :func:`_p2g_axis` on CPU tensors). G2P (:func:`g2p_pic`, kernel D)
+(:func:`p2g_merge_overflow`: :func:`kernels.p2g_overflow` on CUDA tensors,
+:func:`_merge_overflow` with :func:`_p2g_axis` on CPU tensors; the
+slab-tiled and z-sharded substeps take it too). G2P (:func:`g2p_pic`, kernel D)
 interpolates the velocity and its gradient rows (the APIC affine matrix)
 from the 54 face samples around each particle's cell; FLIP
 (:func:`g2p_flip`) blends trilinear samples of the new and old grids.
@@ -232,6 +233,34 @@ def _merge_overflow(num, den, position, velocity, affine, active, idx, cfg: SimC
     return tuple(out)
 
 
+def p2g_merge_overflow(num, den, position, velocity, affine, active, overflow, cfg: SimConfig,
+                       start=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The normalized (u, v, w) face arrays from the UNNORMALIZED face sums
+    `num`, `den` and the rows flagged `overflow` (past the slot capacity),
+    merged exactly by a scatter pass up to the :func:`overflow_window`: the
+    window's rows from `start` (an int32 scalar; slotsort parks overflow
+    rows contiguously at ``[n_kept, n_kept + n_overflow)``), or without it
+    the first flagged rows, found by one host read (``p2g.nonzero``). On
+    CUDA tensors two kernels (:func:`kernels.p2g_overflow`), counted as
+    ``p2g_overflow.kernel``; on CPU tensors :func:`_merge_overflow`,
+    ``p2g_overflow.plain``."""
+    n = position.shape[0]
+    rows = None
+    if start is None:
+        cap = overflow_window(cfg, n)
+        with profiling.blocking("p2g.nonzero"):
+            found = torch.nonzero(overflow).flatten()[:cap].to(torch.int32)
+        rows = torch.full((cap,), n, dtype=torch.int32, device=position.device)
+        rows[: found.shape[0]] = found
+    if kernels.use_kernel(position):
+        profiling.count("p2g_overflow.kernel")
+        return kernels.p2g_overflow(num, den, position, velocity, affine, active, overflow, cfg,
+                                    start=start, rows=rows)
+    profiling.count("p2g_overflow.plain")
+    idx = _overflow_rows(overflow, n, cfg, start, rows)
+    return _merge_overflow(num, den, position, velocity, affine, active, idx, cfg)
+
+
 def p2g_slots(
     slot_grid,
     position: torch.Tensor,
@@ -241,35 +270,14 @@ def p2g_slots(
     cfg: SimConfig,
     overflow_start=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Dense particle-to-grid transfer from the cell-slot grid; returns the
-    normalized (u, v, w) face arrays.
-
-    Particles past the slot capacity (``slot_grid.overflow``) are merged
-    exactly by a scatter pass, up to ``cfg.p2g_overflow_capacity`` of them.
-    With ``overflow_start`` (slotsort parks overflow rows contiguously at
-    ``[n_kept, n_kept + n_overflow)``) the compaction is a fixed window.
-    `position/velocity/affine/active` are the arrays the slot grid was built
-    from. On CUDA tensors the merge and the normalisation are two kernels
-    (:func:`kernels.p2g_overflow`), counted as ``p2g_overflow.kernel``; on
-    CPU tensors the plain :func:`_merge_overflow`, ``p2g_overflow.plain``.
-    """
+    """Dense particle-to-grid transfer from the cell-slot grid: kernel B's
+    face sums, then :func:`p2g_merge_overflow` of the slot grid's overflow
+    rows from ``overflow_start``; returns the normalized (u, v, w) face
+    arrays. `position/velocity/affine/active` are the arrays the slot grid
+    was built from."""
     num, den = kernels.p2g_faces(slot_grid.data, cfg)
-
-    n = position.shape[0]
-    rows = None
-    if overflow_start is None:
-        cap = overflow_window(cfg, n)
-        with profiling.blocking("p2g.nonzero"):
-            found = torch.nonzero(slot_grid.overflow).flatten()[:cap].to(torch.int32)
-        rows = torch.full((cap,), n, dtype=torch.int32, device=position.device)
-        rows[: found.shape[0]] = found
-    if kernels.use_kernel(position):
-        profiling.count("p2g_overflow.kernel")
-        return kernels.p2g_overflow(num, den, position, velocity, affine, active,
-                                    slot_grid.overflow, cfg, start=overflow_start, rows=rows)
-    profiling.count("p2g_overflow.plain")
-    idx = _overflow_rows(slot_grid.overflow, n, cfg, overflow_start, rows)
-    return _merge_overflow(num, den, position, velocity, affine, active, idx, cfg)
+    return p2g_merge_overflow(num, den, position, velocity, affine, active, slot_grid.overflow, cfg,
+                              start=overflow_start)
 
 
 # ---------------------------------------------------------------------------

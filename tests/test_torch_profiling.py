@@ -5,7 +5,8 @@ its totals, counts and report, ``trace`` writing a Chrome trace, and the
 record of spans and counters: nesting, frames and self time, nothing
 recorded while off, the spans as ``user_annotation`` events of a profiler's
 trace, the counts of a 16^3 dam-break's reads and CG iterations, the
-renderer's ``loops.HOST_READS``, and the cost of a span while off."""
+renderer's ``loops.HOST_READS``, the cost of a span while off, and the P2G
+overflow merge of the slab-tiled and z-sharded substeps."""
 
 import json
 import os
@@ -14,11 +15,13 @@ import time
 import pytest
 import torch
 
-from libfluid_tpu_torch import profiling
+from libfluid_tpu_torch import convert, profiling
 from libfluid_tpu_torch import sim
 from libfluid_tpu_torch.config import MesherConfig, SimConfig, TransferScheme
 from libfluid_tpu_torch.mesher.marching_cubes import generate_mesh
 from libfluid_tpu_torch.renderer import loops
+from libfluid_tpu_torch.sim import bigstep
+import torch_ranks
 
 torch.set_num_threads(1)
 
@@ -234,3 +237,24 @@ def test_a_span_costs_little_while_off(record):
                 profiling.count("cg_iterations", 1)
         best = min(best, (time.perf_counter() - t0) / n)
     assert best < 5e-6 and profiling.frames() == []
+
+
+@pytest.mark.parametrize("path", ["tiled", "zshard"])
+def test_tiled_and_sharded_substeps_merge_p2g_overflow_once(record, path, tmp_path):
+    """The slab-tiled substep and the z-sharded one (one gloo rank) merge
+    P2G's slot-overflow rows through ``transfers.p2g_merge_overflow``: one
+    ``p2g_overflow.plain`` a substep, its window's rows not all empty, on
+    two interleaved seedings (16 particles a cell, past 12 slots)."""
+    cfg = SimConfig(grid_size=(16, 16, 16), particle_capacity=1 << 13, gravity=(0.0, -981.0, 0.0),
+                    scheme=TransferScheme.APIC, has_obstacles=False)
+    state = sim.new_state(cfg, device="cpu")
+    for start, size in (((1.0, 1.0, 1.0), (6.0, 6.0, 6.0)), ((1.2, 1.2, 1.2), (6.2, 6.2, 6.2))):
+        state = sim.seed_box(state, cfg, start, size)
+    if path == "tiled":
+        got = torch_ranks.overflow_merges(lambda s: bigstep.substep_tiled(s, cfg, 0.01, 2), state, 2)
+    else:
+        payload = dict(cfg=cfg, arrays=convert.state_to_numpy(state), dt=0.01, steps=2)
+        got = torch_ranks.run(1, "substeps_z_overflow", payload, tmp_path)[0]
+    for sub in got:
+        assert sub["count"] == len(sub["rows"]) == 1
+        assert sub["overflow"] > 0 and sub["rows"][0] > 0

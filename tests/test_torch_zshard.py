@@ -36,13 +36,15 @@ torch.set_num_threads(1)
 DT = 1.0 / 60.0
 
 
-def _mk(scheme=TransferScheme.APIC, nz=32, vz=0.0, **kw):
+def _mk(scheme=TransferScheme.APIC, nz=32, vz=0.0, boxes=None, **kw):
     cfg = SimConfig(
         grid_size=(16, 16, nz), gravity=(0.0, -981.0, 0.0), particle_capacity=1 << 13,
         scheme=scheme, has_obstacles=False, **kw,
     )
     st = new_state(cfg, jax.random.PRNGKey(0))
-    st = seed_box(st, cfg, (0.5, 0.5, 0.5), (7.0, 7.0, nz / 2 - 1.0))
+    for i, (start, size) in enumerate(boxes or (((0.5, 0.5, 0.5), (7.0, 7.0, nz / 2 - 1.0)),)):
+        # a jitter of its own each (seed 0 is seed_box's default)
+        st = seed_box(st, cfg, start, size, rng=np.random.default_rng(i))
     if vz:
         st = st._replace(velocity=jnp.where(st.active[:, None], jnp.asarray([0.0, 0.0, vz]), st.velocity))
     return cfg, st
@@ -98,14 +100,21 @@ def assert_matches_dense(ref_state, ref_diag, out, diag, grid_atol=5e-4):
     assert diag["max_divergence"] < 1e-3
 
 
+# two interleaved seedings, up to 16 particles a cell: P2G's slot-overflow rows
+CLUSTERED = (((0.5, 0.5, 0.5), (5.0, 5.0, 15.0)), ((0.7, 0.7, 0.7), (5.2, 5.2, 15.2)))
+
+
 @pytest.mark.parametrize(
-    "scheme,n", [(TransferScheme.APIC, 2), (TransferScheme.PIC, 2), (TransferScheme.APIC, 4)],
-    ids=["apic-2", "pic-2", "apic-4"],
+    "scheme,n,boxes",
+    [(TransferScheme.APIC, 2, None), (TransferScheme.PIC, 2, None), (TransferScheme.APIC, 4, None),
+     (TransferScheme.APIC, 2, CLUSTERED)],
+    ids=["apic-2", "pic-2", "apic-4", "apic-2-clustered"],
 )
-def test_zshard_substep_matches_jax_dense(scheme, n, tmp_path):
-    cfg, st = _mk(scheme)
+def test_zshard_substep_matches_jax_dense(scheme, n, boxes, tmp_path):
+    cfg, st = _mk(scheme, boxes=boxes)
     ref, ref_diag = _dense(cfg)(st)
     assert int(ref_diag.pressure_iterations) > 0
+    assert (int(ref_diag.overflow_count) > 0) == (boxes is not None)
     res = run_z(n, cfg, st, tmp_path)
     out, diag = res["steps"][0]
     assert_matches_dense(ref, ref_diag, out, diag)

@@ -135,6 +135,45 @@ def substeps_z(mesh, cfg, arrays, dt, steps=1, draws=(), sources=None, capacity=
     return dict(steps=out, active_before=before, active_after=int(st.active.sum()))
 
 
+def overflow_merges(substep, st, steps):
+    """Run ``substep(st)`` `steps` times under ``profiling.tracing()``, each
+    in a ``substep`` span; per substep, the count of ``p2g_overflow.plain``
+    and the live rows of each plain P2G overflow merge's window."""
+    from libfluid_tpu_torch import profiling
+    from libfluid_tpu_torch.sim import transfers
+
+    merge, rows = transfers._merge_overflow, []
+
+    def counted(num, den, position, velocity, affine, active, idx, cfg):
+        rows.append(int((idx < position.shape[0]).sum()))
+        return merge(num, den, position, velocity, affine, active, idx, cfg)
+
+    out = []
+    transfers._merge_overflow = counted
+    try:
+        with profiling.tracing():
+            for _ in range(steps):
+                profiling.clear()
+                rows.clear()
+                with profiling.span("substep"):
+                    st, diag = substep(st)
+                (frame,) = profiling.frames()
+                out.append(dict(count=frame.total("p2g_overflow.plain"), rows=list(rows),
+                                overflow=int(diag.overflow_count)))
+    finally:
+        transfers._merge_overflow = merge
+        profiling.clear()
+    return out
+
+
+def substeps_z_overflow(mesh, cfg, arrays, dt, steps=1):
+    """:func:`overflow_merges` of `steps` sharded substeps of `arrays`."""
+    from libfluid_tpu_torch.parallel import zshard
+
+    st = zshard.zshard_state(_state(arrays, cfg, None), cfg, mesh)
+    return overflow_merges(lambda s: zshard.substep_z(s, cfg, dt, mesh), st, steps)
+
+
 def step_z(mesh, cfg, arrays, dt):
     from libfluid_tpu_torch.parallel import zshard
 
