@@ -161,6 +161,7 @@ import socket
 import subprocess
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -2477,6 +2478,98 @@ def render_config_3(device):
     return mesh.vertices[:count].contiguous(), mesh.valid[:count].contiguous()
 
 
+def ptxas_lines(source: str) -> str:
+    """What ``nvcc -Xptxas -v`` says of `source`'s kernels (registers, stack,
+    spills), built with the library's own flags."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = subprocess.run(
+            [_build._nvcc(), *_build.NVCC_FLAGS, *_build.SOURCE_FLAGS.get(source, ()), "-Xptxas", "-v", "-c",
+             "-o", os.path.join(tmp, "k.o"), str(_build.CSRC / source)],
+            capture_output=True, text=True, check=True)
+    lines = (out.stdout + out.stderr).splitlines()
+    return "; ".join(line.split(":", 1)[-1].strip() for line in lines if "registers" in line or "spill" in line)
+
+
+def pathtrace_kernel(device) -> None:
+    """Kernel ``pathtrace`` against its plain loop (``_trace_persistent_mega``)
+    on dam64's scene: the harness's 64^3 dam-break (portbench/configs/
+    dam64.json) settled 12 frames of 1/60 s, its mesh injected into the
+    fluid box, the accelerator at 64^3, 256^2 x 4 spp and 4 bounces, the
+    same HashDraws on both sides, two seeds. Each render: a clean
+    synchronize right after the launch, the image's relative mean absolute
+    difference (reference/compare.py's ``image``) <= 2e-5, a tenth of the
+    cell's limit, the rays cast within 1e-4 relative, one launch, counter
+    ``pathtrace.kernel`` 1 and ``pathtrace.plain`` 0, no host read; a
+    provider that is not a HashDraws raises. Logs the kernel's ms (CUDA
+    events around 10 renders), its device ms, the plain loop's ms, and its
+    registers and spills from ``nvcc -Xptxas -v``."""
+    from portbench.system import Program
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "portbench", "configs", "dam64.json")) as fh:
+        conf = json.load(fh)
+    prog = Program(device)
+    cfg = prog.sim_config(conf)
+    state = prog.seeded_state(cfg, conf, 2**31 + 7)
+    for _ in range(12):
+        state, _ = prog.step(state, cfg, 1.0 / 60.0)
+    mesh = prog.mesh(state, prog.mesher_config(conf))
+    scene0, cam, water = prog.base_scene(conf)
+    scene = prog.scene(scene0, mesh, water, conf["scene"]["accel_res"])
+    rcfg = prog.render_config(conf)
+    texts = []
+    for seed in (11, 2**31 - 5):
+        t0 = time.perf_counter()
+        plain, plain_cast = pathtrace._trace_persistent_mega(scene, cam, rcfg, HashDraws(seed), True)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        kernels.reset_launches()
+        loops.reset_host_reads()
+        profiling.clear()
+        with profiling.tracing():
+            img, cast = pathtrace.trace_persistent(scene, cam, rcfg, HashDraws(seed), True)
+            torch.cuda.synchronize()  # a fault inside the kernel shows here
+        record = profiling.frames()[-1]
+        counters = (record.total("pathtrace.kernel"), record.total("pathtrace.plain"))
+        profiling.clear()
+        check(kernels.LAUNCHES["pathtrace"] == 1 and counters == (1, 0) and loops.HOST_READS["count"] == 0,
+              f"pathtrace seed {seed}: launches {kernels.LAUNCHES['pathtrace']}, counters kernel / plain "
+              f"{counters}, host reads {loops.HOST_READS['count']}")
+        check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
+              f"pathtrace seed {seed}: image not finite or black")
+        image = float((img - plain).abs().mean()) / float(plain.abs().mean())
+        cast_rel = abs(int(cast) - int(plain_cast)) / int(plain_cast)
+        diverged = int(((img - plain).abs() > 1e-4 * plain.abs() + 1e-6).any(-1).sum())
+        check(image <= 2e-5 and cast_rel <= 1e-4,
+              f"pathtrace seed {seed}: image {image:.3e} (limit 2e-5), cast {int(cast)} against {int(plain_cast)}")
+        texts.append(f"seed {seed}: image {image:.3e}, {int(cast)} rays cast against {int(plain_cast)} (relative "
+                     f"{cast_rel:.2e}), {diverged} pixels off by more than 1e-4, the plain loop {plain_ms:.1f} ms")
+    other = types.SimpleNamespace(lane=HashDraws(1).lane)
+    try:
+        pathtrace.trace_persistent(scene, cam, rcfg, other, True)
+        raised = False
+    except TypeError:
+        raised = True
+    check(raised, "pathtrace: a provider that is not a HashDraws did not raise on the card")
+
+    def one():
+        return pathtrace.trace_persistent(scene, cam, rcfg, HashDraws(11), True)
+
+    ms = median_ms(one)
+    # bytes read or written once: the valid triangles' pack rows, normals
+    # and materials, the accelerator's offsets, entries, field and big list,
+    # the image
+    acc = scene.accel
+    moved = (int((scene.tri_mat > 0).sum()) * (9 * 4 + 3 * 4 + 8) + nbytes(acc.cell_start, acc.dist, acc.big_ids)
+             + int(acc.cell_start[-1]) * 8 + nbytes(img))
+    lim = bound(moved)
+    log(f"kernel pathtrace against its plain loop on dam64's scene ({int(mesh.count)} water triangles, accel "
+        f"{tuple(conf['scene']['accel_res'])}, {rcfg.width}x{rcfg.height} x {rcfg.samples_per_pixel} spp, "
+        f"{rcfg.max_bounces} bounces; limits image 2e-5, cast 1e-4): "
+        + "; ".join(texts) + f"; a non-HashDraws provider raises; kernel {ms:.3f} ms a render (median of 10 "
+        f"CUDA-event runs), device {device_ms(one, 'pathtrace_kernel')}; bound {lim['bound_ms']:.5f} ms "
+        f"({lim['bound_by']}: {moved / 1e6:.2f} MB); ptxas: {ptxas_lines('pathtrace.cu')}")
+
+
 def accel_at_fluid_scale(device, meshes) -> None:
     """The accelerator on fluid meshes: for each (what, domain, res,
     vertices, valid) the fluid box with the mesh injected, ``accel.build``
@@ -2561,10 +2654,11 @@ def renderer_phases(device, mesh128) -> dict:
     testbed's rendered frames (driven), and the pixel gradient: card
     against CPU at 16^3 and config 3's at full width (both driven). Returns
     BDPT's Mrays/s."""
+    pathtrace_kernel(device)
     pt_means = render_configs_1_2(device)
     render_goldens(device)
     mesh64, _ = drive("config 3 frame (64^3 simulate -> mesh -> render)", lambda: render_config_3(device),
-                      FORWARD_KERNELS)
+                      (*FORWARD_KERNELS, "pathtrace"))
     accel_at_fluid_scale(device, [("config 3's 64^3 frame", 64.0, (64, 64, 64), *mesh64),
                                   ("the 128^3 main path's mesh", 128.0, (128, 128, 128), *mesh128)])
     render_busy_share(device)

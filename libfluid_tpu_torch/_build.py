@@ -25,18 +25,18 @@ CSRC = _PKG / "csrc"
 SOURCES = (
     "expand.cu", "p2g.cu", "p2g_overflow.cu", "p2g_bwd.cu", "stencil.cu", "vcycle.cu", "g2p.cu",
     "g2p_bwd.cu", "correction.cu", "correction_bwd.cu", "surface.cu", "surface_bwd.cu", "bf16_check.cu",
-    "cg.cu",
+    "cg.cu", "pathtrace.cu",
 )
-# staging.cuh: g2p.cu, g2p_bwd.cu, p2g_bwd.cu; jitter.cuh: correction.cu, correction_bwd.cu
+# staging.cuh: g2p.cu, g2p_bwd.cu, p2g_bwd.cu; jitter.cuh: correction.cu, correction_bwd.cu, pathtrace.cu
 HEADERS = ("staging.cuh", "jitter.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-I", str(CSRC),
 )
 
-# flags of single sources: the fused V-cycle and the CG iteration keep the
-# plain versions' unfused multiplies and adds
-SOURCE_FLAGS = {"vcycle.cu": ("-fmad=false",), "cg.cu": ("-fmad=false",)}
+# flags of single sources: the fused V-cycle, the CG iteration and the path
+# tracer keep the plain versions' unfused multiplies and adds
+SOURCE_FLAGS = {"vcycle.cu": ("-fmad=false",), "cg.cu": ("-fmad=false",), "pathtrace.cu": ("-fmad=false",)}
 LIB_PATH = cache.keyed_path(
     "libfluid_tpu_kernels.so", [CSRC / f for f in SOURCES + HEADERS],
     [*NVCC_FLAGS, *(f"{s}:{' '.join(fl)}" for s, fl in sorted(SOURCE_FLAGS.items()))],
@@ -74,6 +74,7 @@ SIGNATURES = {
     "lf_bf16_check": [_P, _P],
     "lf_cg_direction": [_P] * 9 + [_F, _I, _P, _P, _P, _I, _I, _I, _P],
     "lf_cg_update": [_P] * 7 + [_LL, _F, _I, _P],
+    "lf_pathtrace": [_P] * 25 + [_I] * 13 + [_F] * 3 + [_I, _P],
 }
 
 _lib = None

@@ -16,17 +16,22 @@ Three loops, each counting the rays it casts (``with_stats``):
   (:func:`_trace_persistent_brute`): persistent lanes that flush a finished
   path into the image and respawn the next pixel sample from a global
   counter, one brute-force cast and bounce an iteration;
-- with an accelerator (:func:`_trace_persistent_mega`): traversal, shading
-  and respawn in one loop, two grid-DDA steps an iteration.
+- with an accelerator: on the card one launch of kernel ``pathtrace``
+  (``csrc/pathtrace.cu``, :func:`_trace_persistent_kernel`), a thread a
+  path; on the CPU its plain version :func:`_trace_persistent_mega`,
+  traversal, shading and respawn in one loop, two grid-DDA steps an
+  iteration. Counters ``pathtrace.kernel`` and ``pathtrace.plain`` say
+  which ran.
 
-The persistent tracers' loops are Python loops that read their exit flag
-every ``loops.TRACE_CHECK_EVERY`` iterations (an iteration after the last
-path is done changes nothing, so the result is that of testing every
-iteration); the
-image scatter is ``index_add_``, whose float atomics on the card make two
-runs differ in the last bits. Random numbers come from a provider
-(:mod:`libfluid_tpu_torch.renderer.draws`) as pure functions of (sample,
-bounce).
+The plain persistent tracers' loops are Python loops that read their exit
+flag every ``loops.TRACE_CHECK_EVERY`` iterations (an iteration after the
+last path is done changes nothing, so the result is that of testing every
+iteration); the image scatter is ``index_add_``, whose float atomics on
+the card make two runs differ in the last bits, as the kernel's do. Random
+numbers come from a provider (:mod:`libfluid_tpu_torch.renderer.draws`) as
+pure functions of (sample, bounce), so a path does not depend on the lane
+or thread that traces it; the kernel computes :class:`HashDraws`' numbers
+itself and takes no other provider.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from libfluid_tpu_torch.config import RenderConfig
 from libfluid_tpu_torch.renderer import draws as draws_mod
 from libfluid_tpu_torch.renderer import intersect, loops, materials
 from libfluid_tpu_torch.renderer.scene import Scene
+from libfluid_tpu_torch.sim import kernels
 
 _RAY_OFFSET = 1e-3  # spawned-ray normal offset (float32 needs a larger skin than double)
 
@@ -122,11 +128,20 @@ def trace_persistent(scene: Scene, camera, cfg: RenderConfig, rng, with_stats: b
     the next pixel sample. With ``scene.accel`` set, the traversal is folded
     into the loop (the megakernel). Returns the (H, W, 3) radiance SUM over
     samples (divide by spp), and with `with_stats` the rays cast. `rng` is a
-    ``torch.Generator`` or a draws provider."""
+    ``torch.Generator`` or a draws provider; with the accelerator on the
+    card only a :class:`~libfluid_tpu_torch.renderer.draws.HashDraws` (as a
+    generator gives), since the kernel computes its numbers itself."""
     draws = draws_mod.as_draws(rng)
-    if scene.accel is not None:
-        return _trace_persistent_mega(scene, camera, cfg, draws, with_stats)
-    return _trace_persistent_brute(scene, camera, cfg, draws, with_stats)
+    if scene.accel is None:
+        return _trace_persistent_brute(scene, camera, cfg, draws, with_stats)
+    if kernels.use_kernel(scene.tri_p0, camera.position):
+        if not isinstance(draws, draws_mod.HashDraws):
+            raise TypeError(f"the persistent tracer on the card computes HashDraws' numbers itself; got "
+                            f"{type(draws).__name__}")
+        profiling.count("pathtrace.kernel")
+        return _trace_persistent_kernel(scene, camera, cfg, draws, with_stats)
+    profiling.count("pathtrace.plain")
+    return _trace_persistent_mega(scene, camera, cfg, draws, with_stats)
 
 
 class _Lanes:
@@ -265,4 +280,61 @@ def _trace_persistent_mega(scene: Scene, camera, cfg: RenderConfig, draws, with_
     img = img.reshape(cfg.height, cfg.width, 3)
     if with_stats:
         return img, cast
+    return img
+
+
+def _trace_persistent_kernel(scene: Scene, camera, cfg: RenderConfig, draws: draws_mod.HashDraws,
+                             with_stats: bool = False):
+    """:func:`_trace_persistent_mega`'s estimator as one launch of kernel
+    ``pathtrace`` on CUDA tensors: a thread a path, every path of the frame
+    (see ``csrc/pathtrace.cu``). Allocates the image and a two-word counter
+    (samples claimed, rays cast) and reads nothing back."""
+    from libfluid_tpu_torch.renderer import accel as accel_mod
+
+    acc, mats = scene.accel, scene.materials
+    textured = mats.textures is not None and mats.textures.shape[0] > 1
+    pack = accel_mod.pack_tris(scene)
+    f32, i64 = torch.float32, torch.int64
+    n_tri, n_sph, n_mat = scene.tri_normal.shape[0], scene.sph_mat.shape[0], mats.kind.shape[0]
+    # (tensor, dtype, shape): the kernel indexes the tables by the ids and
+    # offsets the others hold, so their lengths must agree
+    inputs = {
+        "pack": (pack, f32, (n_tri + 1, 9)), "tri_normal": (scene.tri_normal, f32, (n_tri, 3)),
+        "tri_mat": (scene.tri_mat, i64, (n_tri,)), "cell_start": (acc.cell_start, i64, (acc.num_cells + 1,)),
+        "tri_ids": (acc.tri_ids, i64, acc.tri_ids.shape[:1]),
+        "big_ids": (acc.big_ids, i64, acc.big_ids.shape[:1]),
+        "dist": (acc.dist, i64, (acc.num_cells,)), "lo": (acc.lo, f32, (3,)), "cell": (acc.cell, f32, (3,)),
+        "sph_to_local": (scene.sph_to_local, f32, (n_sph, 3, 4)), "sph_mat": (scene.sph_mat, i64, (n_sph,)),
+        "kind": (mats.kind, i64, (n_mat,)), "albedo": (mats.albedo, f32, (n_mat, 3)),
+        "ior": (mats.ior, f32, (n_mat,)), "emission": (mats.emission, f32, (n_mat, 3)),
+        "camera position": (camera.position, f32, (3,)), "camera forward": (camera.norm_forward, f32, (3,)),
+        "camera horizontal": (camera.half_horizontal, f32, (3,)),
+        "camera vertical": (camera.half_vertical, f32, (3,)),
+    }
+    if textured:
+        n_tex = mats.textures.shape[0]
+        inputs.update({"albedo_tex": (mats.albedo_tex, i64, (n_mat,)),
+                       "emission_tex": (mats.emission_tex, i64, (n_mat,)),
+                       "textures": (mats.textures, f32, (n_tex, *mats.textures.shape[1:3], 3)),
+                       "tex_hw": (mats.tex_hw, i64, (n_tex, 2))})
+    kernels.use_kernel(*(t for t, _, _ in inputs.values()))
+    for name, (t, dtype, shape) in inputs.items():
+        kernels.check(t, dtype, shape, f"pathtrace {name}")
+    tex = (mats.albedo_tex, mats.emission_tex, mats.textures, mats.tex_hw) if textured else (None,) * 4
+    w, h = cfg.width, cfg.height
+    img = torch.zeros((w * h, 3), dtype=torch.float32, device=scene.device)
+    ctr = torch.zeros((2,), dtype=torch.int64, device=scene.device)
+    rx, ry, rz = acc.res
+    tex_h, tex_w = (mats.textures.shape[1], mats.textures.shape[2]) if textured else (0, 0)
+    kernels.launch(
+        "pathtrace", "lf_pathtrace", pack, scene.tri_normal, scene.tri_mat, acc.cell_start, acc.tri_ids,
+        acc.big_ids, acc.dist, acc.lo, acc.cell, scene.sph_to_local, scene.sph_mat, mats.kind, mats.albedo,
+        mats.ior, mats.emission, *tex, camera.position, camera.norm_forward,
+        camera.half_horizontal, camera.half_vertical, img, ctr, acc.big_ids.shape[0], n_sph,
+        rx, ry, rz, tex_h, tex_w, int(textured), w, h, cfg.samples_per_pixel, cfg.max_bounces, cfg.rr_start,
+        float(cfg.rr_floor), 1.0 / w, 1.0 / h, draws.seed,
+    )
+    img = img.reshape(h, w, 3)
+    if with_stats:
+        return img, ctr[1]
     return img

@@ -1,8 +1,8 @@
 """Dispatch to the hand-written CUDA kernels, and the wrappers of the P2G
 and correction kernels.
 
-Twenty-four kernels carry the substep, the mesher and the gradients of both
-(sources in ``libfluid_tpu_torch/csrc``):
+Twenty-five kernels carry the substep, the mesher, the gradients of both and
+the renderer's persistent tracer (sources in ``libfluid_tpu_torch/csrc``):
 
     "expand"      slotsort.expand         slot-grid expand     (csrc/expand.cu)
     "p2g"         kernels.p2g_faces       P2G face sums        (csrc/p2g.cu)
@@ -29,6 +29,8 @@ Twenty-four kernels carry the substep, the mesher and the gradients of both
                   pressure.cg_direction, pressure.cg_update
                                           a CG iteration's vector updates
                                           and reductions       (csrc/cg.cu)
+    "pathtrace"   pathtrace.trace_persistent  the persistent path tracer
+                                          over the accelerator (csrc/pathtrace.cu)
 
 "p2g", "correction" and "surface" are tile kernels: a block brings what its
 tile of lattice points, cells or nodes reaches into shared memory once (for
@@ -74,7 +76,7 @@ LAUNCHES = {
     "stencil16": 0, "mg_pre": 0, "mg_restrict": 0, "mg_up": 0, "mg_coarse": 0, "mg16_pre": 0,
     "mg16_restrict": 0, "mg16_up": 0, "mg16_coarse": 0, "g2p": 0, "g2p_bwd": 0, "correction": 0,
     "correction_bwd": 0, "surface": 0, "surface_keep": 0, "surface_bwd": 0, "cg_direction": 0,
-    "cg_update": 0,
+    "cg_update": 0, "pathtrace": 0,
 }
 
 

@@ -1,8 +1,9 @@
 """The port's path-tracer loops (``libfluid_tpu_torch.renderer.pathtrace``)
 against the JAX package's with the JAX package's own random numbers
 injected (``tests/jax_draws.py``): ``trace_rays`` in both forms,
-``_trace_persistent_brute`` and ``_trace_persistent_mega``. Whole loops
-are held to: at least 99 % of the samples within 1e-4 relative (a path
+``_trace_persistent_brute`` and ``_trace_persistent_mega``, and the
+persistent tracer's dispatch to kernel ``pathtrace``. Whole loops are held
+to: at least 99 % of the samples within 1e-4 relative (a path
 that a rounding sends another way differs entirely), the image mean within
 1e-3 relative, and the rays cast within 1 %."""
 
@@ -15,15 +16,18 @@ import pytest
 import torch
 
 from jax_draws import JaxDraws, JaxStream
+from test_torch_pathtrace_card import SMALL, small_fluid_scene
 from libfluid_tpu.config import RenderConfig
 from libfluid_tpu.renderer import accel, pathtrace, scenes
 from libfluid_tpu.renderer.scene import SceneBuilder
+from libfluid_tpu_torch import _build, profiling
 from libfluid_tpu_torch.config import RenderConfig as TRenderConfig
 from libfluid_tpu_torch.renderer import accel as t_accel
 from libfluid_tpu_torch.renderer import draws, loops, render
 from libfluid_tpu_torch.renderer import pathtrace as t_pathtrace
 from libfluid_tpu_torch.renderer import scenes as t_scenes
 from libfluid_tpu_torch.renderer.scene import SceneBuilder as TSceneBuilder
+from libfluid_tpu_torch.sim import kernels
 
 torch.set_num_threads(1)
 
@@ -153,3 +157,64 @@ def test_render_does_not_depend_on_the_strip_size():
     assert float(imgs[0].mean()) > 0
     for img in imgs[1:]:
         _assert_tracer_close(img.numpy(), imgs[0].numpy())
+
+
+def test_persistent_mega_does_not_depend_on_the_lanes(monkeypatch):
+    """Each path is a pure function of its sample id, whatever lane traces
+    it and whenever: the plain loop on 7 lanes casts the same rays and gives
+    the same image as on its default lanes (one per pixel here). Kernel
+    ``pathtrace``, a thread a path in the order threads claim them, rests
+    on this."""
+    scene, cam = small_fluid_scene("cpu")
+    want, want_cast = t_pathtrace._trace_persistent_mega(scene, cam, SMALL, draws.HashDraws(7), True)
+
+    class SevenLanes(t_pathtrace._Lanes):
+        def __init__(self, *args):
+            super().__init__(*args)
+            self.lanes = 7
+            self.minus1 = self.minus1[:7]
+
+    monkeypatch.setattr(t_pathtrace, "_Lanes", SevenLanes)
+    got, cast = t_pathtrace._trace_persistent_mega(scene, cam, SMALL, draws.HashDraws(7), True)
+    assert float(want.mean()) > 0
+    assert int(cast) == int(want_cast)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
+
+
+def test_persistent_tracer_takes_the_plain_loop_on_the_cpu():
+    """With the accelerator on the CPU a render runs the kernel's plain
+    version: counter ``pathtrace.plain`` 1, ``pathtrace.kernel`` 0, no
+    launch."""
+    scene, cam = small_fluid_scene("cpu")
+    kernels.reset_launches()
+    profiling.clear()
+    with profiling.tracing():
+        img = render(scene, cam, SMALL, torch.Generator().manual_seed(3), device="cpu")
+    record = profiling.frames()[-1]
+    profiling.clear()
+    assert (record.total("pathtrace.plain"), record.total("pathtrace.kernel")) == (1, 0)
+    assert kernels.LAUNCHES["pathtrace"] == 0
+    assert img.shape == (16, 16, 3) and float(img.mean()) > 0
+
+
+def test_persistent_tracer_on_cuda_tensors_launches_the_kernel_or_raises(monkeypatch):
+    """Made to see CUDA tensors, a render with the accelerator is one launch
+    of ``lf_pathtrace`` with every argument its C signature takes, counted
+    ``pathtrace.kernel``, and no plain loop; a provider other than a
+    HashDraws raises before any launch."""
+    scene, cam = small_fluid_scene("cpu")
+    launched = []
+    monkeypatch.setattr(kernels, "use_kernel", lambda *tensors: True)
+    monkeypatch.setattr(kernels, "launch", lambda name, entry, *args: launched.append((name, entry, len(args))))
+    monkeypatch.setattr(t_pathtrace, "_trace_persistent_mega", None)
+    profiling.clear()
+    with profiling.tracing():
+        t_pathtrace.trace_persistent(scene, cam, SMALL, torch.Generator().manual_seed(3), True)
+    record = profiling.frames()[-1]
+    profiling.clear()
+    assert launched == [("pathtrace", "lf_pathtrace", len(_build.SIGNATURES["lf_pathtrace"]) - 1)]
+    assert (record.total("pathtrace.kernel"), record.total("pathtrace.plain")) == (1, 0)
+    key = jax.random.PRNGKey(0)
+    with pytest.raises(TypeError, match="HashDraws"):
+        t_pathtrace.trace_persistent(scene, cam, SMALL, JaxDraws(key, RenderConfig(max_bounces=4)), True)
+    assert len(launched) == 1
