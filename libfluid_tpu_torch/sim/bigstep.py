@@ -28,6 +28,15 @@ What the JAX package does for TPU memory and the port does not:
   slab-built (C, 64) table and its 2^20-particle chunks are not needed.
 
 Pressure, extrapolation and collisions run dense.
+
+``step.step`` takes this substep where :func:`slab_count` gives more than
+one slab, which it derives from the grid size alone (16 at 256^3, the
+count BASELINE config 5 runs). Each call is a ``substep`` span of
+:mod:`libfluid_tpu_torch.profiling` holding the dense substep's stage spans
+(a slab's window of the slot grid under ``sort``, as the dense slot grid's
+build is) and a ``slab`` span around each slab's pass in P2G and in the
+correction; the counter ``bigstep.slabs`` adds the slab count once a
+substep.
 """
 
 from __future__ import annotations
@@ -38,7 +47,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from libfluid_tpu_torch import grids
+from libfluid_tpu_torch import grids, profiling
 from libfluid_tpu_torch.config import SimConfig, TransferScheme
 from libfluid_tpu_torch.sim import correction as correction_mod
 from libfluid_tpu_torch.sim import extrapolation as extrapolation_mod
@@ -51,10 +60,24 @@ from libfluid_tpu_torch.sim import transfers
 from libfluid_tpu_torch.sim.state import SimState
 from libfluid_tpu_torch.sim.step import Diagnostics, Draws, _add_gravity, _advect, _collide, _diagnostics
 
-# Cells above which FLIP's G2P takes the combined grid new - blend * old
-# through _g2p_tiled (the JAX package's switch to its slab-built table).
-# Module-level so tests can lower it.
+# Cells above which step tiles its substeps, and FLIP's G2P takes the
+# combined grid new - blend * old through _g2p_tiled (the JAX package's
+# switch to its slab-built table). Module-level so tests can lower it.
 _G2P_TILED_THRESHOLD = 1 << 21
+# Cells a slab may hold (its two halo layers not counted) where step tiles.
+# Module-level so tests can lower it.
+_SLAB_CELLS = 1 << 20
+
+
+def slab_count(cfg: SimConfig) -> int:
+    """The x-slabs that ``step.step`` tiles a substep of `cfg` over: 1 (the
+    dense substep) up to ``_G2P_TILED_THRESHOLD`` cells, else the smallest
+    divisor of nx whose slabs hold at most ``_SLAB_CELLS`` cells (one layer a
+    slab where no divisor does)."""
+    if cfg.num_cells <= _G2P_TILED_THRESHOLD:
+        return 1
+    nx, ny, nz = cfg.grid_size
+    return next((d for d in range(1, nx + 1) if nx % d == 0 and nx // d * ny * nz <= _SLAB_CELLS), nx)
 
 
 def _slab_cfg(cfg: SimConfig, sx: int, s: int = 0) -> SimConfig:
@@ -75,6 +98,7 @@ def _slab_x_offset(s: int, sx: int, cfg: SimConfig) -> float:
     return float((f(s) * f(sx) - f(1.0)) * f(cfg.cell_size) + f(cfg.grid_offset[0]))
 
 
+@profiling.spanned("substep")
 def substep_tiled(
     state: SimState, cfg: SimConfig, dt, slabs: int, draws: Optional[Draws] = None
 ) -> Tuple[SimState, Diagnostics]:
@@ -90,6 +114,7 @@ def substep_tiled(
     nx, ny, nz = cfg.grid_size
     if nx % slabs != 0:
         raise ValueError(f"slabs ({slabs}) must divide nx ({nx})")
+    profiling.count("bigstep.slabs", slabs)
     sx = nx // slabs
     nynz = ny * nz
     k = cfg.max_neighbors_per_cell
@@ -100,16 +125,21 @@ def substep_tiled(
 
     # --- advection + collisions ---
     old_position = state.position
-    state = _collide(_advect(state, cfg, dt), old_position, cfg)
+    with profiling.span("advect"):
+        state = _advect(state, cfg, dt)
+    state = _collide(state, old_position, cfg)
 
     # --- sort; seeding sources re-sorts ---
-    rs = slotsort.sort_rank_major(state, cfg)
+    with profiling.span("sort"):
+        rs = slotsort.sort_rank_major(state, cfg)
     n_src = state.sources.cells.shape[0]
     if n_src > 0:
-        state = sources_mod.seed_from_jitter(
-            rs.state, rs.counts.reshape(cfg.grid_size), cfg, draws.source_jitter(n_src, cfg)
-        )
-        rs = slotsort.sort_rank_major(state, cfg)
+        with profiling.span("sources"):
+            state = sources_mod.seed_from_jitter(
+                rs.state, rs.counts.reshape(cfg.grid_size), cfg, draws.source_jitter(n_src, cfg)
+            )
+        with profiling.span("sort"):
+            rs = slotsort.sort_rank_major(state, cfg)
     state = rs.state
     old_position = state.position
     n = state.position.shape[0]
@@ -131,11 +161,6 @@ def substep_tiled(
     seed = draws.correction_seed() if cfg.enable_position_correction else 0
     re2 = cfg.cell_size * cfg.cell_size / 2.0
 
-    def expand_slab(s: int) -> torch.Tensor:
-        # padded cell s*sx*nynz = global layer s*sx - 1
-        data = slotsort.expand_range(rs_p, pcfg, s * sx * nynz, slab_c)
-        return data.reshape(slots_mod.WIDTH, k, sx + 2, ny, nz)
-
     # --- pass 1: P2G sums and correction springs, slab by slab ---
     fshapes = kernels.face_shapes(cfg)
     nums = [torch.zeros(shp, dtype=cfg.dtype, device=dev) for shp in fshapes]
@@ -144,95 +169,118 @@ def substep_tiled(
         torch.zeros((3, kcor, nx, ny, nz), dtype=cfg.dtype, device=dev)
         if cfg.enable_position_correction else None
     )
-    for s in range(slabs):
-        data = expand_slab(s)
-        scfg = _slab_cfg(cfg, sx, s)
-        num, den = kernels.p2g_faces(data, scfg)
+
+    # each slab's two passes as functions of their own: a profiler's trace
+    # places a launch by the Python function that made it
+
+    def p2g_slab(s: int, data: torch.Tensor) -> None:
+        # kernel B on the slab; its interior faces: u local [1, sx+1), v/w
+        # x-cells [1, sx+1); the last slab also owns u face sx+1, the
+        # global plane x = nx
+        num, den = kernels.p2g_faces(data, _slab_cfg(cfg, sx, s))
         x0 = s * sx
-        # interior faces: u local [1, sx+1), v/w x-cells [1, sx+1); the last
-        # slab also owns u face sx+1, the global plane x = nx
         hi = sx + 2 if s == slabs - 1 else sx + 1
         nums[0][x0 : x0 + hi - 1] += num[0][1:hi]
         dens[0][x0 : x0 + hi - 1] += den[0][1:hi]
         for a in (1, 2):
             nums[a][x0 : x0 + sx] += num[a][1 : sx + 1]
             dens[a][x0 : x0 + sx] += den[a][1 : sx + 1]
+
+    def springs_slab(s: int, data: torch.Tensor) -> None:
+        # kernel E on the slab, its interior cells kept
+        spr = correction_mod._springs(
+            data[0:3, :kcor], data[3, :kcor], seed, (s * sx - 1, 0, 0), re2, _slab_cfg(cfg, sx, s)
+        )  # (3, KC, sx+2, ny, nz)
+        springs_g[:, :, s * sx : (s + 1) * sx] = spr[:, :, 1 : sx + 1]
+
+    for s in range(slabs):
+        with profiling.span("sort"):
+            # padded cell s*sx*nynz = global layer s*sx - 1
+            data = slotsort.expand_range(rs_p, pcfg, s * sx * nynz, slab_c)
+            data = data.reshape(slots_mod.WIDTH, k, sx + 2, ny, nz)
+        with profiling.span("p2g"), profiling.span("slab"):
+            p2g_slab(s, data)
         if springs_g is not None:
-            spr = correction_mod._springs(
-                data[0:3, :kcor], data[3, :kcor], seed, (s * sx - 1, 0, 0), re2, scfg
-            )  # (3, KC, sx+2, ny, nz)
-            springs_g[:, :, x0 : x0 + sx] = spr[:, :, 1 : sx + 1]
+            with profiling.span("correction"), profiling.span("slab"):
+                springs_slab(s, data)
         del data
 
     # --- the slot-overflow rows (slotsort parks them at n_kept...), merged
     # into the slabs' sums, then normalized ---
-    overflow = (rs.key_sorted >= kc_full) & (rs.key_sorted < kc_full + n)
-    u, v, w = transfers.p2g_merge_overflow(
-        nums, dens, state.position, state.velocity, state.affine, state.active, overflow, cfg,
-        start=rs.n_kept,
-    )
-    grid = grids.mark_cells(state.grid._replace(u=u, v=v, w=w), rs.counts.reshape(cfg.grid_size))
-    old_grid = None
-    if use_affine:
-        grid = grids.remove_boundary_normal_velocities(grid)
-    elif cfg.scheme == TransferScheme.FLIP:
-        old_grid = grids.remove_boundary_normal_velocities(grid)
+    with profiling.span("p2g"):
+        overflow = (rs.key_sorted >= kc_full) & (rs.key_sorted < kc_full + n)
+        u, v, w = transfers.p2g_merge_overflow(
+            nums, dens, state.position, state.velocity, state.affine, state.active, overflow, cfg,
+            start=rs.n_kept,
+        )
+        grid = grids.mark_cells(state.grid._replace(u=u, v=v, w=w), rs.counts.reshape(cfg.grid_size))
+        old_grid = None
+        if use_affine:
+            grid = grids.remove_boundary_normal_velocities(grid)
+        elif cfg.scheme == TransferScheme.FLIP:
+            old_grid = grids.remove_boundary_normal_velocities(grid)
 
     # --- gravity + pressure (dense) ---
     grid = _add_gravity(grid, cfg, dt)
-    pres = pressure_mod.solve(grid, cfg, dt, x0=state.pressure)
-    grid = pressure_mod.apply_pressure(grid, pres.pressure, cfg, dt)
+    with profiling.span("pressure"):
+        pres = pressure_mod.solve(grid, cfg, dt, x0=state.pressure)
+        grid = pressure_mod.apply_pressure(grid, pres.pressure, cfg, dt)
 
     # --- position correction from the accumulated spring field ---
     corr_uncorrected = torch.zeros((), dtype=torch.int32, device=dev)
     if springs_g is not None:
-        m = kcor * cfg.num_cells
-        has = slot_of < m
-        spring = springs_g.reshape(3, m)[:, torch.where(has, slot_of, 0).long()].t()
-        spring = torch.where(has[:, None], spring, torch.zeros_like(spring))
-        del springs_g
-        truncated = state.active & ~has
-        trunc_start = torch.sum(torch.clamp(rs.counts, max=kcor), dtype=torch.int32)
-        corr_uncorrected = torch.clamp(
-            truncated.sum(dtype=torch.int32) - cfg.correction_overflow_capacity, min=0
-        )
-        oidx, ospring = _overflow_springs_lazy(
-            state.position, truncated, rs, kcor, re2, cfg,
-            cfg.correction_overflow_capacity, trunc_start,
-        )
-        state = state._replace(position=correction_mod.move(
-            state.position, state.active, spring, oidx, ospring, cfg, dt))
+        with profiling.span("correction"):
+            m = kcor * cfg.num_cells
+            has = slot_of < m
+            spring = springs_g.reshape(3, m)[:, torch.where(has, slot_of, 0).long()].t()
+            spring = torch.where(has[:, None], spring, torch.zeros_like(spring))
+            del springs_g
+            truncated = state.active & ~has
+            trunc_start = torch.sum(torch.clamp(rs.counts, max=kcor), dtype=torch.int32)
+            corr_uncorrected = torch.clamp(
+                truncated.sum(dtype=torch.int32) - cfg.correction_overflow_capacity, min=0
+            )
+            oidx, ospring = _overflow_springs_lazy(
+                state.position, truncated, rs, kcor, re2, cfg,
+                cfg.correction_overflow_capacity, trunc_start,
+            )
+            state = state._replace(position=correction_mod.move(
+                state.position, state.active, spring, oidx, ospring, cfg, dt))
     state = _collide(state, old_position, cfg)
 
     # --- velocity extrapolation + G2P ---
-    grid = extrapolation_mod.extrapolate(grid, cfg)
-    if cfg.scheme == TransferScheme.FLIP:
-        blend = cfg.blending_factor
-        if cfg.num_cells <= _G2P_TILED_THRESHOLD:
-            vel = transfers.g2p_flip(grid, old_grid, state.position, state.velocity, cfg)
+    with profiling.span("extrapolate"):
+        grid = extrapolation_mod.extrapolate(grid, cfg)
+    with profiling.span("g2p"):
+        if cfg.scheme == TransferScheme.FLIP:
+            blend = cfg.blending_factor
+            if cfg.num_cells <= _G2P_TILED_THRESHOLD:
+                vel = transfers.g2p_flip(grid, old_grid, state.position, state.velocity, cfg)
+            else:
+                # interp(new) + blend * (v_p - interp(old)) == blend * v_p +
+                # interp(new - blend * old): one G2P of the combined grid
+                comb = grid._replace(
+                    u=grid.u - blend * old_grid.u,
+                    v=grid.v - blend * old_grid.v,
+                    w=grid.w - blend * old_grid.w,
+                )
+                vi, _ = _g2p_tiled(comb, state, rs, cfg, slabs)
+                vel = blend * state.velocity + vi
+            affine = state.affine
         else:
-            # interp(new) + blend * (v_p - interp(old)) == blend * v_p +
-            # interp(new - blend * old): one G2P of the combined grid
-            comb = grid._replace(
-                u=grid.u - blend * old_grid.u,
-                v=grid.v - blend * old_grid.v,
-                w=grid.w - blend * old_grid.w,
-            )
-            vi, _ = _g2p_tiled(comb, state, rs, cfg, slabs)
-            vel = blend * state.velocity + vi
-        affine = state.affine
-    else:
-        # PIC keeps G2P's affine rows as the JAX package's substep_tiled
-        # does (its dense substep keeps the particles'); PIC's P2G reads none
-        vel, affine = _g2p_tiled(grid, state, rs, cfg, slabs)
-    vel = torch.where(state.active[:, None], vel, state.velocity)
-    affine = torch.where(state.active[:, None, None], affine, state.affine)
+            # PIC keeps G2P's affine rows as the JAX package's substep_tiled
+            # does (its dense substep keeps the particles'); PIC's P2G reads none
+            vel, affine = _g2p_tiled(grid, state, rs, cfg, slabs)
+        vel = torch.where(state.active[:, None], vel, state.velocity)
+        affine = torch.where(state.active[:, None, None], affine, state.affine)
 
     state = state._replace(
         velocity=vel, affine=affine, grid=grid, time=state.time + dt, pressure=pres.pressure
     )
 
-    return state, _diagnostics(state, pres, cfg, rs.n_overflow, corr_uncorrected)
+    with profiling.span("diagnostics"):
+        diag = _diagnostics(state, pres, cfg, rs.n_overflow, corr_uncorrected)
+    return state, diag
 
 
 def _overflow_springs_lazy(

@@ -8,7 +8,11 @@ Stage order of one substep:
     extrapolate -> G2P
 
 ``step`` runs the CFL substep loop on the host: substep size
-cfl_number * h / max|v|, iterated until dt is consumed.
+cfl_number * h / max|v|, iterated until dt is consumed. Above 2^21 cells
+(``bigstep.slab_count``) its substeps are the slab-tiled
+``bigstep.substep_tiled``, with the slab count derived from the grid size,
+unless autograd records through the state: the tiled substep's gradients
+are not held to the dense substep's by any test.
 
 ``substep`` is differentiable with ``torch.autograd`` as the JAX package's
 is with ``jax.grad``: every stage that holds a kernel is an autograd
@@ -249,6 +253,13 @@ def _diagnostics(state: SimState, pres, cfg: SimConfig, overflow_count, corr_unc
     )
 
 
+def _records_grad(state: SimState) -> bool:
+    """Whether autograd records through `state`: grad mode is on and one of
+    its float tensors requires a gradient."""
+    tensors = (state.position, state.velocity, state.affine, state.pressure, *state.grid)
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 @profiling.spanned("step")
 def step(
     state: SimState, cfg: SimConfig, dt, draws: Optional[Draws] = None
@@ -256,14 +267,22 @@ def step(
     """Advance by dt with CFL substepping. Returns the diagnostics of the last
     substep with the substep count filled in; the loop reads the remaining
     time on the host once per substep. Every substep takes its random
-    numbers from `draws` (default: the state's generator)."""
+    numbers from `draws` (default: the state's generator). The substeps
+    are tiled over ``bigstep.slab_count(cfg)`` x-slabs where that is above 1
+    and autograd does not record through `state`."""
+    from libfluid_tpu_torch.sim import bigstep  # it imports this module
+
     dev = state.position.device
+    slabs = 1 if _records_grad(state) else bigstep.slab_count(cfg)
     remaining = torch.as_tensor(dt, dtype=cfg.dtype, device=dev)
     diag = None
     nsub = 0
     while profiling.read(remaining > 0.0, "step.cfl"):
         ts = torch.minimum(cfg.cfl_number * cfl_dt(state, cfg), remaining)
-        state, diag = substep(state, cfg, ts, draws)
+        if slabs > 1:
+            state, diag = bigstep.substep_tiled(state, cfg, ts, slabs, draws)
+        else:
+            state, diag = substep(state, cfg, ts, draws)
         remaining = remaining - ts
         nsub += 1
     if diag is None:
